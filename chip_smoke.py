@@ -5,12 +5,14 @@
 Phases, each printing one JSON line (with the card's name and power limit):
   device   the card, as torch and nvidia-smi name it;
   build    nvcc of every kernel in tpu_diffusion_torch/kernels/csrc/ (in
-           parallel) and its seconds;
-  kernel   each hand-written kernel against its plain PyTorch version at
-           every shape the bench UNet gives it (batch 64, bf16), plus fp32
-           cases; time of the kernel, the plain version and one PyTorch
-           library call (device time from CUDA-graph replay, and eager
-           time from Python), beside the kernel's bound;
+           parallel) and its seconds.
+The DDIM path of the CIFAR-10 bench UNet:
+  kernel   the fused-QKV attention and GroupNorm+FiLM+SiLU kernels against
+           their plain PyTorch versions at every shape the bench UNet gives
+           them (batch 64, bf16), plus fp32 cases; time of the kernel, the
+           plain version and one PyTorch library call (device time from
+           CUDA-graph replay, and eager time from Python), beside the
+           kernel's bound;
   forward  the full-width bench UNet (CIFAR-10, 128 channels, batch 64,
            bf16, random weights from seed 0): eps with the kernels against
            eps with the plain versions, for both norm configurations;
@@ -19,11 +21,36 @@ Phases, each printing one JSON line (with the card's name and power limit):
            configurations, each timed twice: samples/s, outputs finite and
            in [-1, 1], the kernels' launch counts equal to what the path
            implies, and every attention block on the fused kernel.
+The conditional path of `tpu_diffusion_torch.cli.main --mode eval` on the
+64px flowers UNet (128 channels, channel_mult (1,2,3,4), 2 res blocks,
+64-channel heads, attention at 32/16/8, FiLM, bf16 weights, fp32 norms,
+batch 32, random weights from seed 0):
+  cond_forward  eps with attention_impl="auto" (the flash kernels at T=1024,
+           dense einsums below) against eps with "dense" everywhere, for
+           the amortized (6 input channels) and unconditional (3) models,
+           with the attention decision log; one forward's device and eager
+           time;
+  flash_kernel  the flash forward (o, lse) and backward (dq, dk, dv)
+           kernels against their plain versions at the path's shape
+           [128, 1024, 64] bf16, an fp32 case and an uneven T; times as in
+           `kernel`, SDPA forward and its autograd backward as the library
+           yardstick;
+  guidance_grad  the reconstruction-guidance gradient w.r.t. x_i through
+           the whole UNet with the kernels against the plain versions;
+  sample   amortized inpainting over 1000 steps with encoder reuse K=3 and
+           K=1 (K=1 equal to the plain amortized sampler), reconstruction
+           guidance (gamma 10, every step guided) and outpainting
+           replacement on a 50-step chain (cut from 1000 to keep the run
+           short), and the rejected hyperresolution replacement; samples/s,
+           MSE/PSNR/SSIM against the (synthetic) test images (random
+           weights: no quality claim), outputs finite and in [-1, 1], and
+           the flash kernels' launch counts equal to what the path implies.
 Then the kernel table line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Any failure exits nonzero before that line.
 Needs one CUDA card; imports nothing of JAX.
 """
 
+import copy
 import json
 import math
 import subprocess
@@ -128,13 +155,13 @@ NORM_CONFIGS = {
     "norm_plain_bf16": dict(
         kernel=dict(attention_impl="fused", norm_impl="plain",
                     norm_dtype="bf16"),
-        plain=dict(attention_impl="plain", norm_impl="plain",
+        plain=dict(attention_impl="dense", norm_impl="plain",
                    norm_dtype="bf16")),
     # norm_impl="fused": the GroupNorm+FiLM+SiLU kernel; its plain
     # counterpart is GroupNorm32 in fp32, then FiLM and SiLU
     "norm_fused": dict(
         kernel=dict(attention_impl="fused", norm_impl="fused"),
-        plain=dict(attention_impl="plain", norm_impl="plain",
+        plain=dict(attention_impl="dense", norm_impl="plain",
                    norm_dtype=None)),
 }
 
@@ -145,9 +172,16 @@ def resolve(torch, cfg):
 
 
 def capture_shapes(torch, model, x, t, nn_mod, unet):
-    """The kernels' call shapes in one full forward: {key: count}."""
-    attn, norm = {}, {}
+    """The kernels' call shapes in one full forward: {key: count}, for the
+    attention and norm kernels and for the ResBlocks (input shape, output
+    channels, 1x1 skip)."""
+    attn, norm, res = {}, {}, {}
     hooks = []
+
+    def on_res(m, args, _out):
+        key = (tuple(args[0].permute(0, 2, 3, 1).shape), m.cout,
+               m.skip is not None)
+        res[key] = res.get(key, 0) + 1
 
     def on_qkv(heads):
         def hook(_m, _inp, out):
@@ -166,13 +200,43 @@ def capture_shapes(torch, model, x, t, nn_mod, unet):
             hooks.append(m.qkv.register_forward_hook(on_qkv(m.heads)))
         if isinstance(m, nn_mod.FusedNormAct):
             hooks.append(m.register_forward_hook(on_norm, with_kwargs=True))
+        if isinstance(m, unet.ResBlock):
+            hooks.append(m.register_forward_hook(on_res))
     try:
         with torch.no_grad():
             model(x, t)
     finally:
         for h in hooks:
             h.remove()
-    return attn, norm
+    return attn, norm, res
+
+
+def resblock_bound(card_info, res_shapes, min_tokens=1024):
+    """The bound of the TPU kernel not ported yet, `fused_resblock`
+    (tpu_diffusion/kernels/resblock.py:242), per full bench-UNet forward:
+    its engine (models/unet_infer.py) sends every ResBlock of >= 1024 tokens
+    to it. Per call, bf16: read x and the weights, write the output; the
+    operations of its two 3x3 convs and the 1x1 skip (resblock.py:292)."""
+    calls, bnd_total, by_total = 0, 0.0, {}
+    for ((b, h, w, cin), cout, skip), count in sorted(res_shapes.items()):
+        if h * w < min_tokens:
+            continue
+        weights = 9 * cin * cout + 9 * cout * cout + (cin * cout if skip
+                                                      else 0)
+        nbytes = 2 * (b * h * w * (cin + cout) + weights)
+        bnd, by = bound_ms(nbytes, 2 * b * h * w * weights, BF16_FLOPS)
+        calls += count
+        bnd_total += count * bnd
+        by_total[by] = by_total.get(by, 0.0) + count * bnd
+    emit(card_info, phase="unported_kernel", kernel="fused_resblock",
+         replaces="tpu_diffusion/kernels/resblock.py:242",
+         calls_per_forward=calls, bound_ms=bnd_total,
+         bound_by=max(by_total, key=by_total.get),
+         shapes=[[list(k[0]), k[1], k[2], v]
+                 for k, v in sorted(res_shapes.items())
+                 if k[0][1] * k[0][2] >= min_tokens],
+         note="not on any path yet: computed from the bench UNet's shapes "
+              "at batch 64, no kernel runs")
 
 
 def kernel_phase(torch, F, card_info, attn_shapes, norm_shapes):
@@ -328,6 +392,356 @@ def ddim_run(torch, unet, nn_mod, attention, groupnorm, card_info, samplers,
           f"ddim {name} K={k}: attention decisions {model.attn_decisions}")
 
 
+COND_BATCH = 32
+COND_STEPS = 1000        # the amortized chains (config diffusion.num_steps)
+SHORT_STEPS = 50         # guidance and replacement chains, cut from 1000
+COND_REUSE = 3           # config testing.encoder_reuse
+FLASH_TOL = {"bfloat16": 2e-2, "float32": 2e-5}
+
+
+def flash_kernel_phase(torch, F, card_info, path_shapes, dev):
+    """The flash forward and backward kernels against their plain versions
+    at the path's shapes plus an fp32 and an uneven-T case; returns
+    {kernel: per-call sums weighted by the calls per forward}."""
+    from tpu_diffusion_torch.kernels import attention
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    totals = {}
+    cases = [(shape, torch.bfloat16, count)
+             for shape, count in sorted(path_shapes.items())]
+    cases += [((16, 1024, 64), torch.float32, 0),
+              ((32, 1000, 64), torch.bfloat16, 0),
+              ((8, 1000, 32), torch.float32, 0)]
+    for (bh, t, d), dtype, count in cases:
+        q, k, v, g = (torch.randn((bh, t, d), generator=gen, device=dev)
+                      .to(dtype) for _ in range(4))
+        name = str(dtype).split(".")[-1]
+        tol = FLASH_TOL[name]
+        # forward: o in the inputs' type (tolerance: bf16 rounding of p on
+        # the plain side, one output rounding on each), lse fp32 on both
+        # sides (1e-4 for values ~10: the order of the sums only)
+        o, lse = attention.flash_attention_fwd(q, k, v)
+        want_o, want_lse = attention.flash_attention_fwd_ref(q, k, v)
+        torch.cuda.synchronize()
+        err_o = (o.float() - want_o.float()).abs().max().item()
+        err_lse = (lse - want_lse).abs().max().item()
+        check(math.isfinite(err_o) and err_o <= tol and err_lse <= 1e-4,
+              f"flash forward {bh, t, d} {name}: o err {err_o}, lse err "
+              f"{err_lse}")
+        # backward from the plain forward's o and lse; tolerance relative
+        # to each gradient's largest entry
+        delta = (g.float() * want_o.float()).sum(-1)
+        bwd_args = (q, k, v, g, want_lse, delta)
+        got = attention.flash_attention_bwd(*bwd_args)
+        want = attention.flash_attention_bwd_ref(*bwd_args)
+        torch.cuda.synchronize()
+        rel = 1e-5 if dtype == torch.float32 else 1e-2
+        errs = [((a.float() - b.float()).abs().max()
+                 / b.float().abs().max()).item() for a, b in zip(got, want)]
+        check(all(math.isfinite(e) and e <= rel for e in errs),
+              f"flash backward {bh, t, d} {name}: relative errs {errs}")
+
+        # SDPA takes its fused backends only for 4-D [B, H, T, d] inputs
+        q4, k4, v4, g4 = (x.view(1, bh, t, d) for x in (q, k, v, g))
+        fwd_times = measure(
+            lambda: attention.flash_attention_fwd(q, k, v),
+            lambda: attention.flash_attention_fwd_ref(q, k, v),
+            lambda: F.scaled_dot_product_attention(q4, k4, v4))
+        qg, kg, vg = (x.detach().requires_grad_(True) for x in (q4, k4, v4))
+
+        def sdpa_fwd_bwd():
+            with torch.enable_grad():
+                out = F.scaled_dot_product_attention(qg, kg, vg)
+                return torch.autograd.grad(out, (qg, kg, vg), g4)
+
+        bwd_times = measure(
+            lambda: attention.flash_attention_bwd(*bwd_args),
+            lambda: attention.flash_attention_bwd_ref(*bwd_args),
+            sdpa_fwd_bwd)
+        # the library backward: SDPA forward+backward less its forward
+        for key in ("library_ms", "library_eager_ms"):
+            bwd_times[key] -= fwd_times[key]
+        isz = q.element_size()
+        n = bh * t * d
+        op_rate = BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS
+        # forward: read q, k, v, write o and lse; 4 T^2 d per slice
+        fwd_bound = bound_ms(4 * n * isz + bh * t * 4, 4 * bh * t * t * d,
+                             op_rate)
+        # backward: read q, k, v, g, lse, delta, write dq, dk, dv;
+        # 6 T^2 d (dq kernel) + 8 T^2 d (dk/dv kernel) per slice
+        bwd_bound = bound_ms(7 * n * isz + 2 * bh * t * 4,
+                             14 * bh * t * t * d, op_rate)
+        for kname, times, (bnd, by), err, extra in (
+                ("flash_attention_fwd", fwd_times, fwd_bound, err_o,
+                 {"max_abs_err_lse": err_lse}),
+                ("flash_attention_bwd", bwd_times, bwd_bound,
+                 max(errs), {"rel_err_dq_dk_dv": errs})):
+            emit(card_info, phase="flash_kernel", kernel=kname,
+                 shape=[bh, t, d], dtype=name, count_per_forward=count,
+                 max_abs_err=err, tol=tol if kname.endswith("fwd") else rel,
+                 **extra, **times, bound_ms=bnd, bound_by=by)
+            if count:
+                tot = totals.setdefault(kname, dict(max_abs_err=0.0,
+                                                    bound_ms=0.0, by={}))
+                tot["max_abs_err"] = max(tot["max_abs_err"], err)
+                tot["bound_ms"] += count * bnd
+                tot["by"][by] = tot["by"].get(by, 0.0) + count * bnd
+                for key, val in times.items():
+                    tot[key] = tot.get(key, 0.0) + count * val
+    return totals
+
+
+def twin(cli, config_mod, config, dev, model, **overrides):
+    """The model of `config` with `overrides`, carrying `model`'s weights."""
+    config = copy.deepcopy(config)
+    config_mod.apply_overrides(config, [f"{k}={v}"
+                                        for k, v in overrides.items()])
+    other = cli.build(config, dev)["model"]
+    other.load_state_dict(model.state_dict())
+    return other.eval().requires_grad_(False)
+
+
+def cond_models(torch, cli, unet, config_mod, dev, spec, **overrides):
+    """(config, parts, kernel model, plain model) for one spec: the cli's own
+    build, random weights from SEED; the plain twin runs
+    attention_impl="dense"."""
+    config = config_mod.get_config(spec)
+    config_mod.apply_overrides(config, [f"{k}={v}"
+                                        for k, v in overrides.items()])
+    parts = cli.build(config, dev)
+    mk = unet.randomize_(parts["model"], torch.Generator().manual_seed(SEED))
+    mp = twin(cli, config_mod, config, dev, mk,
+              **{"network.attention_impl": "dense"})
+    return config, parts, mk.eval().requires_grad_(False), mp
+
+
+def compare(torch, got, want, what):
+    """(fields, ok): eps with the kernels against eps with the plain
+    versions, bf16 end to end."""
+    diff = (got.float() - want.float()).abs()
+    scale = want.float().abs()
+    ok = (bool(torch.isfinite(got).all())
+          and diff.max() <= 1e-1 * scale.max()
+          and diff.mean() <= 3e-2 * scale.mean())
+    return dict(what=what, max_abs_diff=diff.max().item(),
+                mean_abs_diff=diff.mean().item(),
+                max_abs_ref=scale.max().item(),
+                mean_abs_ref=scale.mean().item(),
+                tol="max <= 0.1 * max|ref|, mean <= 0.03 * mean|ref|: bf16 "
+                    "end to end; a wrong head split or softmax moves the "
+                    "output by O(1)"), ok
+
+
+def flash_blocks(model):
+    """(flash blocks in the encoder, in middle + decoder), from the decision
+    log of the model's last full forward."""
+    enc = sum(1 for n, d in model.attn_decisions.items()
+              if d["impl"] == "flash" and n.startswith("enc_"))
+    dec = sum(1 for n, d in model.attn_decisions.items()
+              if d["impl"] == "flash" and not n.startswith("enc_"))
+    return enc, dec
+
+
+def conditional_phase(torch, F, card_info, dev):
+    """The 64px conditional path of `cli.main --mode eval`; returns
+    (kernel totals, {kernel: launches on the path})."""
+    from tpu_diffusion_torch.cli import main as cli
+    from tpu_diffusion_torch.data.registry import get_dataset
+    from tpu_diffusion_torch.eval.metrics import eval_statistics
+    from tpu_diffusion_torch.kernels import attention
+    from tpu_diffusion_torch.models import unet
+    from tpu_diffusion_torch.sampling import ancestral
+    from tpu_diffusion_torch.utils import config as config_mod
+    spec_a = "flowers,inpainting,amortized"
+    spec_g = "flowers,inpainting,reconstruction_guidance"
+    cfg_a, parts_a, amort, amort_plain = cond_models(
+        torch, cli, unet, config_mod, dev, spec_a,
+        **{"testing.lpips": "false"})
+    cfg_g, parts_g, uncond, uncond_plain = cond_models(
+        torch, cli, unet, config_mod, dev, spec_g,
+        **{"testing.lpips": "false", "diffusion.num_steps": SHORT_STEPS})
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    imgs = torch.from_numpy(
+        get_dataset("flowers")("data", train=False).images[:COND_BATCH]
+    ).to(dev)
+    t = torch.full((COND_BATCH,), 0.5, device=dev)
+
+    # --- full-width forward: kernels against plain versions -------------
+    path_shapes = {}
+    for name, (mk, mp, lik) in {
+            "amortized": (amort, amort_plain, parts_a["likelihood"]),
+            "unconditional": (uncond, uncond_plain, None)}.items():
+        x = torch.randn(imgs.shape, generator=gen, device=dev)
+        if lik is not None:
+            x = torch.cat([x, lik.sample(gen, imgs)], dim=-1)
+        mk.attn_decisions.clear()
+        with torch.no_grad():
+            got, want = mk(x, t), mp(x, t)
+        torch.cuda.synchronize()
+        fields, ok = compare(torch, got, want, "eps")
+        decisions = {n: d["impl"] for n, d in mk.attn_decisions.items()}
+        flash = sorted(n for n, i in decisions.items() if i == "flash")
+
+        def forward(model=mk, x=x):
+            with torch.no_grad():
+                return model(x, t)
+
+        device_ms, eager_ms = time_ms(forward, iters=3)
+        emit(card_info, phase="cond_forward", model=name,
+             shape=list(x.shape), **fields, attn_decisions=decisions,
+             device_ms=device_ms, eager_ms=eager_ms,
+             device_idle_share=1 - device_ms / eager_ms)
+        check(ok, f"cond_forward {name}: kernels disagree with plain "
+                  f"versions")
+        check(flash == ["dec_attn_1_0", "dec_attn_1_1", "dec_attn_1_2",
+                        "enc_attn_1_0", "enc_attn_1_1"]
+              and all(mk.attn_decisions[n]["tokens"] == 1024 for n in flash)
+              and set(decisions.values()) == {"flash", "dense"},
+              f"cond_forward {name}: attention decisions {decisions}")
+        if name == "amortized":  # both models make the same flash calls
+            for n in flash:
+                d = mk.attn_decisions[n]
+                c = getattr(mk, n).qkv.in_features
+                key = (COND_BATCH * d["heads"], d["tokens"], c // d["heads"])
+                path_shapes[key] = path_shapes.get(key, 0) + 1
+    totals = flash_kernel_phase(torch, F, card_info, path_shapes, dev)
+
+    # --- guidance gradient: kernels against plain versions ---------------
+    lik_g = parts_g["likelihood"]
+    ddpm_g = parts_g["ddpm"].to(dev)
+    cond_g = lik_g.sample(gen, imgs)
+    ib = torch.full((COND_BATCH,), 10, dtype=torch.long, device=dev)
+    xi, _ = ddpm_g.q_sample(imgs, ib, generator=gen)
+    # bf16 (the path's type): a pixel whose x0 prediction crosses the
+    # [-1, 1] clip on one side only has its whole gradient on one side, so
+    # the relative error is loose; fp32: the kernels' fp32 path, where the
+    # two sides differ by the order of their sums and the clip hardly ever
+    # decides differently
+    pairs = {"bfloat16": (uncond, uncond_plain, 0.1)}
+    pairs["float32"] = tuple(
+        twin(cli, config_mod, cfg_g, dev, uncond, **{
+            "network.dtype": "float32", "network.attention_impl": impl})
+        for impl in ("auto", "dense")) + (1e-3,)
+    for dtype, (mk, mp, tol) in pairs.items():
+        grads = {}
+        f0, b0 = attention.flash_fwd_launches, attention.flash_bwd_launches
+        for side, model in (("kernel", mk), ("plain", mp)):
+            x0_model = ancestral.make_x0_model(
+                lambda x, i, m=model: m(x, i.float() / SHORT_STEPS), ddpm_g)
+            grads[side] = ancestral.guidance_gradient(x0_model, lik_g,
+                                                      cond_g, xi, ib)
+        torch.cuda.synchronize()
+        gk, gp = grads["kernel"], grads["plain"]
+        rel = ((gk - gp).norm() / gp.norm()).item()
+        launched = (attention.flash_fwd_launches - f0,
+                    attention.flash_bwd_launches - b0)
+        emit(card_info, phase="guidance_grad", dtype=dtype,
+             shape=list(xi.shape), step=10, rel_l2_err=rel, tol=tol,
+             max_abs_diff=(gk - gp).abs().max().item(),
+             max_abs_grad=gp.abs().max().item(),
+             flash_fwd_launches=launched[0], flash_bwd_launches=launched[1],
+             note="|g_kernel - g_plain|_2 / |g_plain|_2 of d/dx_i sum "
+                  "loss(x0(x_i)) through the UNet forward and backward")
+        check(bool(torch.isfinite(gk).all()) and gp.abs().max() > 0
+              and rel <= tol,
+              f"guidance gradient {dtype}: relative error {rel}")
+        check(launched == (5, 5), f"guidance gradient {dtype}: flash "
+                                  f"launches {launched}")
+
+    # --- sampling: the main path ------------------------------------------
+    enc, dec = flash_blocks(amort)
+    cond_sample_a, _ = cli.make_samplers(cfg_a, parts_a)
+    cfg_k1 = config_mod.get_config(spec_a)
+    config_mod.apply_overrides(cfg_k1, ["testing.encoder_reuse=1"])
+    plain_sample_a, _ = cli.make_samplers(cfg_k1, parts_a)
+    ddpm_a = parts_a["ddpm"]
+
+    def k1_cached(model, xT, condition, generator):
+        def call(x, i, **kw):
+            return model(x, i.float() / COND_STEPS, **kw)
+        return ancestral.make_cached_amortized_sampler(
+            lambda x, i: call(x, i, mode="encode"),
+            lambda x, i, c: call(x, i, mode="decode", cache=c),
+            ddpm_a, parts_a["conditioning"], parts_a["likelihood"],
+            encoder_reuse=1)(xT, condition, generator)
+
+    cfg_o = config_mod.get_config("flowers,outpainting,replacement")
+    config_mod.apply_overrides(cfg_o, [f"diffusion.num_steps={SHORT_STEPS}",
+                                       "testing.lpips=false"])
+    parts_o = cli.build(cfg_o, dev)
+    replace_sample, _ = cli.make_samplers(cfg_o, parts_o)
+    guided_sample, _ = cli.make_samplers(cfg_g, parts_g)
+    n_a = len(ancestral.reuse_groups(range(COND_STEPS), COND_REUSE))
+    runs = [
+        # (name, sampler, model, likelihood, steps, fwd, bwd launches)
+        ("amortized_k3", cond_sample_a, amort, parts_a["likelihood"],
+         COND_STEPS, n_a * enc + COND_STEPS * dec, 0),
+        ("amortized_k1_cached", k1_cached, amort, parts_a["likelihood"],
+         COND_STEPS, COND_STEPS * (enc + dec), 0),
+        ("amortized_plain", plain_sample_a, amort, parts_a["likelihood"],
+         COND_STEPS, COND_STEPS * (enc + dec), 0),
+        ("guidance", guided_sample, uncond, lik_g, SHORT_STEPS,
+         SHORT_STEPS * 2 * (enc + dec), SHORT_STEPS * (enc + dec)),
+        ("outpainting_replacement", replace_sample, uncond,
+         parts_o["likelihood"], SHORT_STEPS, SHORT_STEPS * (enc + dec), 0),
+    ]
+    launches = {"flash_attention_fwd": 0, "flash_attention_bwd": 0}
+    outs = {}
+    for name, sampler, model, lik, steps, want_f, want_b in runs:
+        run_gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+        condition = lik.sample(run_gen, imgs)
+        xT = torch.randn(imgs.shape, generator=run_gen, device=dev)
+        torch.cuda.synchronize()
+        attention.flash_fwd_launches = 0
+        attention.flash_bwd_launches = 0
+        s0 = time.perf_counter()
+        out = sampler(model, xT, condition, run_gen)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - s0
+        got_f = attention.flash_fwd_launches
+        got_b = attention.flash_bwd_launches
+        launches["flash_attention_fwd"] += got_f
+        launches["flash_attention_bwd"] += got_b
+        outs[name] = out
+        stats = {k: v.item() for k, v in eval_statistics(out, imgs).items()}
+        emit(card_info, phase="sample", run=name, batch=COND_BATCH,
+             steps=steps, seconds=seconds,
+             samples_per_s=COND_BATCH / seconds,
+             ms_per_step=seconds * 1e3 / steps,
+             flash_fwd_launches=got_f, flash_fwd_expected=want_f,
+             flash_bwd_launches=got_b, flash_bwd_expected=want_b,
+             out_min=out.min().item(), out_max=out.max().item(), **stats,
+             note="random weights: the metrics make no quality claim"
+             + ("" if steps == COND_STEPS else
+                f"; chain cut from 1000 to {steps} steps to keep the run "
+                f"short"))
+        check(bool(torch.isfinite(out).all()) and out.abs().max() <= 1.0
+              and out.shape == imgs.shape, f"sample {name}: bad output")
+        check((got_f, got_b) == (want_f, want_b),
+              f"sample {name}: flash launches {(got_f, got_b)}, want "
+              f"{(want_f, want_b)}")
+    same = torch.equal(outs["amortized_k1_cached"], outs["amortized_plain"])
+    diff = (outs["amortized_k1_cached"] - outs["amortized_plain"]
+            ).abs().max().item()
+    emit(card_info, phase="sample", run="k1_equals_plain", equal=same,
+         max_abs_diff=diff)
+    check(same, f"cached K=1 differs from the plain amortized sampler by "
+                f"{diff}")
+
+    cfg_h = config_mod.get_config("flowers,hyperresolution,replacement")
+    parts_h = cli.build(cfg_h, dev)
+    hyper_sample, _ = cli.make_samplers(cfg_h, parts_h)
+    try:
+        hyper_sample(uncond, imgs, imgs)
+        rejected = ""
+    except NotImplementedError as err:
+        rejected = str(err)
+    emit(card_info, phase="sample", run="hyperresolution_replacement",
+         rejected=rejected)
+    check("requires a Painting likelihood" in rejected,
+          "hyperresolution replacement was not rejected")
+    return totals, launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -364,9 +778,10 @@ def main():
 
     models = {name: build_models(torch, unet, dev, **resolve(torch, cfg))
               for name, cfg in NORM_CONFIGS.items()}
-    attn_shapes, norm_shapes = capture_shapes(
+    attn_shapes, norm_shapes, res_shapes = capture_shapes(
         torch, models["norm_fused"][0], x, t, nn_mod, unet)
     totals = kernel_phase(torch, F, card_info, attn_shapes, norm_shapes)
+    resblock_bound(card_info, res_shapes)
 
     # --- full-width forward: kernels against plain versions ------------
     for name, (mk, mp) in models.items():
@@ -428,6 +843,11 @@ def main():
                      samplers, models[name][0], name, k, repeat, xT)
     counts = {"flash_attention_fused": attention.launches,
               "fused_groupnorm_silu": groupnorm.launches}
+
+    # --- the conditional path of cli.main at 64px -------------------------
+    cond_totals, cond_counts = conditional_phase(torch, F, card_info, dev)
+    totals.update(cond_totals)
+    counts.update(cond_counts)
     for name, n in counts.items():
         check(n > 0, f"{name} was not launched on the main path")
 
@@ -438,6 +858,26 @@ def main():
         "fused_groupnorm_silu": (
             "tpu_diffusion_torch/kernels/csrc/groupnorm_silu.cu",
             "tpu_diffusion/kernels/groupnorm.py:82"),
+        "flash_attention_fwd": (
+            "tpu_diffusion_torch/kernels/csrc/flash_attention.cu",
+            "tpu_diffusion/kernels/attention.py:77"),
+        "flash_attention_bwd": (
+            "tpu_diffusion_torch/kernels/csrc/flash_attention.cu",
+            "tpu_diffusion/kernels/attention.py:171"),
+    }
+    per = {
+        "flash_attention_fused": "one full CIFAR UNet forward at batch 64 "
+                                 "(sum over its call shapes); launches: the "
+                                 "four DDIM-100 runs",
+        "fused_groupnorm_silu": "one full CIFAR UNet forward at batch 64 "
+                                "(sum over its call shapes); launches: the "
+                                "four DDIM-100 runs",
+        "flash_attention_fwd": "one full 64px UNet forward at batch 32 (5 "
+                               "calls); launches: the five conditional "
+                               "sampling runs",
+        "flash_attention_bwd": "one guidance gradient through the 64px UNet "
+                               "at batch 32 (5 calls); launches: the "
+                               "guidance run",
     }
     table = []
     for name, (source, replaces) in meta.items():
@@ -452,9 +892,8 @@ def main():
             "eager_ms": tot["eager_ms"],
             "plain_eager_ms": tot["plain_eager_ms"],
             "library_eager_ms": tot["library_eager_ms"],
-            "per": "one full UNet forward at batch 64 (sum over its call "
-                   "shapes); ms: device time (CUDA-graph replay), eager_ms: "
-                   "launched from Python; launches: the four DDIM-100 runs"})
+            "per": per[name] + "; ms: device time (CUDA-graph replay), "
+                               "eager_ms: launched from Python"})
     print(json.dumps({"kernels": table}), flush=True)
     print(card_info["nvidia_smi"], flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,161 @@
+"""The port's experiment config and `cli/main.py --mode eval` against the JAX
+package, on the CPU."""
+
+import json
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from torch_twin import one_torch_thread  # noqa: F401
+from tpu_diffusion.eval.metrics import eval_statistics as jax_statistics
+from tpu_diffusion.utils import config as jax_config
+from tpu_diffusion_torch.cli import main as cli
+from tpu_diffusion_torch.conditioning import guidance, likelihoods
+from tpu_diffusion_torch.utils import config
+
+
+@pytest.mark.parametrize("dataset", jax_config.DATASETS)
+def test_get_config_matches_jax_for_every_spec(dataset):
+    assert config.DATASETS == jax_config.DATASETS
+    assert config.LIKELIHOODS == jax_config.LIKELIHOODS
+    assert config.CONDITIONINGS == jax_config.CONDITIONINGS
+    assert config.PRETRAINED_WEIGHTS == jax_config.PRETRAINED_WEIGHTS
+    for lik in jax_config.LIKELIHOODS:
+        for cond in jax_config.CONDITIONINGS:
+            spec = f"{dataset},{lik},{cond}"
+            assert (config.get_config(spec).to_dict()
+                    == jax_config.get_config(spec).to_dict()), spec
+
+
+def test_get_config_rejects_bad_specs():
+    for spec in ("mnist,inpainting", "svhn,inpainting,amortized",
+                 "mnist,deblur,amortized", "mnist,inpainting,cfg"):
+        with pytest.raises(ValueError):
+            config.get_config(spec)
+
+
+def test_apply_overrides_matches_jax():
+    overrides = ["training.batch_size=64", "testing.lpips=false",
+                 "conditioning.gamma=2.5", "network.attention_impl=dense",
+                 "testing.fid=1"]
+    got = config.get_config("flowers,inpainting,reconstruction_guidance")
+    want = jax_config.get_config("flowers,inpainting,reconstruction_guidance")
+    config.apply_overrides(got, overrides)
+    jax_config.apply_overrides(want, overrides)
+    assert got.to_dict() == want.to_dict()
+    assert got.training.batch_size == 64 and got.testing.lpips is False
+    assert got.conditioning.gamma == 2.5 and got.testing.fid is True
+    with pytest.raises(KeyError):
+        config.apply_overrides(got, ["testing.nope=1"])
+
+
+@pytest.mark.parametrize("spec,in_channels,lik,cond", [
+    ("flowers,inpainting,amortized", 6, likelihoods.InPainting,
+     guidance.Amortized),
+    ("celeba,hyperresolution,reconstruction_guidance", 3,
+     likelihoods.HyperResolution, guidance.ReconstructionGuidance),
+    ("mnist,outpainting,replacement", 1, likelihoods.OutPainting,
+     guidance.Replacement)])
+def test_build_geometry(spec, in_channels, lik, cond):
+    cfg = config.get_config(spec)
+    parts = cli.build(cfg, device="meta")
+    model = parts["model"]
+    assert parts["in_channels"] == in_channels
+    assert model.conv_in.in_channels == in_channels
+    assert model.conv_out.out_channels == cfg.dataset.num_channels
+    assert model.dtype == torch.bfloat16
+    assert isinstance(parts["likelihood"], lik)
+    assert isinstance(parts["conditioning"], cond)
+    assert parts["ddpm"].num_steps == 1000
+    attn = {n: m for n, m in model.named_children() if "attn" in n}
+    assert {m.impl for m in attn.values()} == {"auto"}
+    if cfg.dataset.image_size == 64:
+        # the 64px network: 128 channels, (1,2,3,4), 64-channel heads,
+        # attention at 32, 16 and 8; 5 blocks on the 32x32 grid
+        assert model.channel_mult == (1, 2, 3, 4)
+        assert model.attention_resolutions == (2, 4, 8)
+        assert attn["enc_attn_1_0"].heads == 4
+        assert attn["mid_attn"].heads == 8
+        assert sorted(n for n in attn if n[-3] == "1") == [
+            "dec_attn_1_0", "dec_attn_1_1", "dec_attn_1_2", "enc_attn_1_0",
+            "enc_attn_1_1"]
+
+
+def test_build_rejects_the_mesh():
+    cfg = config.get_config("flowers,inpainting,amortized")
+    config.apply_overrides(cfg, ["mesh.model_axis=2"])
+    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
+        cli.build(cfg, device="meta")
+
+
+EVAL_OVERRIDES = ["testing.num_test=4", "testing.batch_size=2",
+                  "diffusion.num_steps=25", "testing.lpips=false",
+                  "network.dtype=float32"]
+
+
+def test_run_eval_writes_the_jax_results(tmp_path, capsys):
+    args = ["--config", "mnist,inpainting,amortized", "--mode", "eval",
+            "--device", "cpu", "--workdir", str(tmp_path)]
+    for o in EVAL_OVERRIDES:
+        args += ["--override", o]
+    results = cli.main(args)
+    out = capsys.readouterr().out
+    assert "RANDOM-INIT" in out
+    written = json.loads((tmp_path / "results.json").read_text())
+    assert written == results
+    zeros = jnp.zeros((2, 4, 4, 1))
+    want_keys = set(jax_statistics(zeros, zeros)) | {"num_images"}
+    assert set(written) == want_keys
+    assert written["num_images"] == 4
+    assert all(np.isfinite(v) for v in written.values())
+
+
+def test_run_eval_is_seeded_and_follows_the_conditioning(tmp_path):
+    """Two runs of one config give one result; guidance and replacement run
+    too (a 'none' likelihood writes the JAX package's skip record)."""
+    runs = {}
+    for name, spec in (("a", "mnist,inpainting,amortized"),
+                       ("b", "mnist,inpainting,amortized"),
+                       ("guidance", "mnist,outpainting,"
+                                    "reconstruction_guidance"),
+                       ("replacement", "mnist,inpainting,replacement"),
+                       ("none", "mnist,none,none")):
+        cfg = config.get_config(spec)
+        config.apply_overrides(cfg, EVAL_OVERRIDES + ["testing.num_test=2"])
+        torch.manual_seed(0)
+        parts = cli.build(cfg, device="cpu")
+        (tmp_path / name).mkdir()
+        runs[name] = cli.run_eval(cfg, parts, parts["model"].eval(),
+                                  str(tmp_path / name))
+    assert runs["a"] == runs["b"]
+    assert runs["guidance"]["num_images"] == 2
+    assert runs["replacement"]["num_images"] == 2
+    assert runs["none"] == {"skipped": "likelihood 'none': no conditional "
+                                       "eval"}
+
+
+def test_prior_sample_rides_the_none_condition():
+    """The amortized model's prior sampler is the conditional chain with the
+    likelihood's "none" pad channels as the condition."""
+    cfg = config.get_config("mnist,inpainting,amortized")
+    config.apply_overrides(cfg, EVAL_OVERRIDES + ["testing.encoder_reuse=1"])
+    torch.manual_seed(0)
+    parts = cli.build(cfg, device="cpu")
+    model = parts["model"].eval()
+    cond_sample, prior_sample = cli.make_samplers(cfg, parts)
+    xT = torch.randn((2, 28, 28, 1), generator=torch.Generator().manual_seed(1))
+    prior = prior_sample(model, xT, torch.Generator().manual_seed(2))
+    none = parts["likelihood"].none_like(xT)
+    assert torch.equal(prior, cond_sample(model, xT, none,
+                                          torch.Generator().manual_seed(2)))
+    assert torch.isfinite(prior).all() and prior.abs().max() <= 1.0
+
+
+def test_main_refuses_what_is_not_ported(tmp_path):
+    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
+        cli.main(["--mode", "train", "--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
+        cli.main(["--mode", "eval", "--device", "cpu", "--workdir",
+                  str(tmp_path)])  # testing.lpips defaults to true

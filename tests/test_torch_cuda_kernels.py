@@ -75,6 +75,76 @@ def test_cuda_groupnorm_matches_plain(cuda, dtype, c, hw, film, act):
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
 
 
+def _flash_inputs(seed, bh, t, d, dtype, dev):
+    g = torch.Generator().manual_seed(seed)
+    return tuple(torch.randn((bh, t, d), generator=g).to(dev, dtype)
+                 for _ in range(4))
+
+
+# fp32: summation order only; bf16: the rounding of p to bf16 on the plain
+# side (2^-8 relative per term) and one output rounding on each side
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,bh,t,d", [
+    (torch.bfloat16, 8, 1024, 64), (torch.float32, 4, 1024, 64),
+    (torch.float32, 3, 1000, 64), (torch.bfloat16, 2, 100, 32),
+    (torch.float32, 2, 130, 128), (torch.bfloat16, 2, 64, 128)])
+def test_cuda_flash_forward_matches_plain(cuda, dtype, bh, t, d):
+    q, k, v, _ = _flash_inputs(t + d, bh, t, d, dtype, cuda)
+    before = attention.flash_fwd_launches
+    o, lse = attention.flash_attention_fwd(q, k, v)
+    want_o, want_lse = attention.flash_attention_fwd_ref(q, k, v)
+    torch.cuda.synchronize()
+    assert attention.flash_fwd_launches == before + 1
+    assert o.dtype == dtype and lse.dtype == torch.float32
+    tol = FLASH_TOL[dtype]
+    torch.testing.assert_close(o.float(), want_o.float(), atol=tol, rtol=tol)
+    # lse is fp32 on both sides: summation order only
+    torch.testing.assert_close(lse, want_lse, atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,bh,t,d", [
+    (torch.bfloat16, 8, 1024, 64), (torch.float32, 4, 1024, 64),
+    (torch.float32, 3, 1000, 64), (torch.bfloat16, 2, 100, 32),
+    (torch.float32, 2, 130, 128)])
+def test_cuda_flash_backward_matches_plain(cuda, dtype, bh, t, d):
+    q, k, v, g = _flash_inputs(t * d, bh, t, d, dtype, cuda)
+    o, lse = attention.flash_attention_fwd_ref(q, k, v)
+    delta = (g.float() * o.float()).sum(-1)
+    before = attention.flash_bwd_launches
+    got = attention.flash_attention_bwd(q, k, v, g, lse, delta)
+    want = attention.flash_attention_bwd_ref(q, k, v, g, lse, delta)
+    torch.cuda.synchronize()
+    assert attention.flash_bwd_launches == before + 1
+    for a, b in zip(got, want):
+        assert a.dtype == dtype
+        # relative to the gradient's scale: fp32 sums of T terms in another
+        # order; bf16 one output rounding on each side
+        scale = b.float().abs().max().item()
+        tol = (1e-5 if dtype == torch.float32 else 1e-2) * scale
+        torch.testing.assert_close(a.float(), b.float(), atol=tol, rtol=0)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_autograd_uses_both_kernels(cuda):
+    q, k, v, g = (x.requires_grad_(i < 3) for i, x in enumerate(
+        _flash_inputs(0, 4, 1024, 64, torch.float32, cuda)))
+    f0, b0 = attention.flash_fwd_launches, attention.flash_bwd_launches
+    o = attention.flash_attention(q.view(2, 2, 1024, 64),
+                                  k.view(2, 2, 1024, 64),
+                                  v.view(2, 2, 1024, 64))
+    grads = torch.autograd.grad((o * g.view_as(o)).sum(), (q, k, v))
+    assert (attention.flash_fwd_launches, attention.flash_bwd_launches) == (
+        f0 + 1, b0 + 1)
+    ref = attention.flash_attention_fwd_ref(q, k, v)[0]
+    want = torch.autograd.grad((ref * g).sum(), (q, k, v))
+    for a, b in zip(grads, want):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+
+
 @pytest.mark.cuda
 def test_cuda_wrappers_reject_what_the_kernels_do_not_take(cuda):
     qkv = torch.zeros((2, 16, 3 * 96), device=cuda)
@@ -84,6 +154,20 @@ def test_cuda_wrappers_reject_what_the_kernels_do_not_take(cuda):
         attention.flash_attention_fused(qkv.half(), 3)
     with pytest.raises(ValueError, match="contiguous"):
         attention.flash_attention_fused(qkv.transpose(0, 1), 3)
+    q = torch.zeros((2, 16, 48), device=cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        attention.flash_attention_fwd(q, q, q)
+    q = torch.zeros((2, 16, 64), device=cuda)
+    with pytest.raises(ValueError, match="bf16 or fp32"):
+        attention.flash_attention_fwd(q.half(), q.half(), q.half())
+    with pytest.raises(ValueError, match="match"):
+        attention.flash_attention_fwd(q, q[:, :8], q)
+    with pytest.raises(ValueError, match="contiguous"):
+        attention.flash_attention_fwd(q, q.transpose(0, 1).contiguous()
+                                      .transpose(0, 1), q)
+    lse = torch.zeros((2, 16), device=cuda)
+    with pytest.raises(ValueError, match="lse"):
+        attention.flash_attention_bwd(q, q, q, q, lse.half(), lse)
     x, gamma, beta, _, _ = _gn_inputs(0, 2, 4, 64, False, cuda)
     with pytest.raises(ValueError, match="fp32"):
         groupnorm.fused_groupnorm_silu(x, gamma.half(), beta, num_groups=8)

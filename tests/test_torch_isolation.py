@@ -1,4 +1,6 @@
-"""The port and chip_smoke.py import nothing of JAX, flax or the JAX package."""
+"""The port and chip_smoke.py import nothing of JAX, flax, the JAX package or
+its dependencies that the card machine does not have (ml_collections, optax,
+orbax)."""
 
 import ast
 import subprocess
@@ -8,7 +10,8 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = {"jax", "jaxlib", "flax", "tpu_diffusion"}
+FORBIDDEN = {"jax", "jaxlib", "flax", "tpu_diffusion", "ml_collections",
+             "optax", "orbax"}
 FILES = sorted((ROOT / "tpu_diffusion_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
 
@@ -27,7 +30,10 @@ def test_port_has_modules():
     for module in ("core/schedules.py", "kernels/build.py",
                    "kernels/attention.py", "kernels/groupnorm.py",
                    "models/nn.py", "models/unet.py",
-                   "sampling/ancestral.py", "convert.py", "__init__.py"):
+                   "sampling/ancestral.py", "convert.py", "__init__.py",
+                   "conditioning/likelihoods.py", "conditioning/guidance.py",
+                   "losses/ddpm.py", "eval/metrics.py", "utils/config.py",
+                   "data/registry.py", "cli/main.py"):
         assert f"tpu_diffusion_torch/{module}" in names
 
 
@@ -41,7 +47,7 @@ def test_no_jax_imports(path):
 
 def test_import_leaves_jax_unloaded():
     code = ("import sys, tpu_diffusion_torch, tpu_diffusion_torch.kernels."
-            "build\n"
+            "build, tpu_diffusion_torch.cli.main\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{sorted(FORBIDDEN)!r})\n"
             "assert not bad, bad\n")

@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_twin import one_torch_thread  # noqa: F401
 from tpu_diffusion.kernels.attention import \
     flash_attention_fused as jax_attention
 from tpu_diffusion.kernels.groupnorm import \

@@ -6,7 +6,7 @@ import numpy as np
 import pytest
 import torch
 
-from torch_twin import jax_kernels, make_twins
+from torch_twin import jax_kernels, make_twins, one_torch_thread  # noqa: F401
 from tpu_diffusion.core.schedules import DDPM as JaxDDPM
 from tpu_diffusion.sampling import ancestral as jax_samplers
 from tpu_diffusion_torch.core.schedules import DDPM

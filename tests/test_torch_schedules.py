@@ -4,6 +4,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_twin import one_torch_thread  # noqa: F401
 from tpu_diffusion.core.schedules import DDPM as JaxDDPM
 from tpu_diffusion.sampling.ancestral import _ddim_per_step as jax_per_step
 from tpu_diffusion_torch.core.schedules import DDPM, bcast_right

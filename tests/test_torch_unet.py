@@ -7,14 +7,16 @@ import numpy as np
 import pytest
 import torch
 
-from torch_twin import (NORM_IMPLS, TINY, jax_kernels, make_twins,
+from torch_twin import (one_torch_thread,  # noqa: F401
+                        NORM_IMPLS, TINY, jax_kernels, make_twins,
                         random_params)
+from tpu_diffusion.models.unet import create_model as jax_create_model
 from tpu_diffusion.models import nn as jax_nn
 from tpu_diffusion.models.unet import UNetModel as JaxUNet
 from tpu_diffusion_torch.convert import unet_state_dict_from_flax
 from tpu_diffusion_torch.models import nn as port_nn
-from tpu_diffusion_torch.models.unet import (UNetModel, attention_ds,
-                                             create_model)
+from tpu_diffusion_torch.models.unet import (FLASH_MIN_TOKENS, UNetModel,
+                                             attention_ds, create_model)
 
 # fp32 on both sides; convolutions and softmax sum in another order
 ATOL = RTOL = 1e-4
@@ -126,6 +128,90 @@ def test_attention_decision_log_records_fused(monkeypatch):
     assert "mid_attn" in port.attn_decisions
 
 
+@pytest.mark.parametrize("jax_impl,heads", [
+    ("pallas", dict(num_heads=2)), ("xla", dict(num_heads=2)),
+    ("pallas", dict(num_head_channels=8)), ("xla", dict(num_head_channels=8))])
+def test_unet_flash_and_dense_match_jax(monkeypatch, jax_impl, heads):
+    """The port's "flash" against the JAX "pallas" (flash kernel in
+    interpret mode) and "dense" against "xla", with a head count or with
+    `num_head_channels` heads (2 at 16 channels, 4 at 32)."""
+    x, t = _inputs(6)
+    kw = {"num_heads": 1, "num_head_channels": -1, **heads}
+    with jax_kernels("xla", monkeypatch):
+        jm, params, port = make_twins("xla", seed=9, attention_impl=jax_impl,
+                                      **kw)
+        want = np.asarray(jax.jit(jm.apply)(params, x, t))
+    got = _port(port, x, t).numpy()
+    np.testing.assert_allclose(got, want, atol=ATOL, rtol=RTOL)
+    impl = {"pallas": "flash", "xla": "dense"}[jax_impl]
+    assert {d["impl"] for d in port.attn_decisions.values()} == {impl}
+    want_heads = 2 if "num_heads" in heads else 4  # mid block: 32 channels
+    assert port.attn_decisions["mid_attn"]["heads"] == want_heads
+
+
+def test_auto_takes_flash_at_1024_tokens(monkeypatch):
+    """A 32x32 grid with attention at ds=1 (T=1024) and ds=2 (T=256):
+    "auto" resolves to flash at T >= 1024 on every device and to dense
+    below, and matches the JAX dense model."""
+    rng = np.random.default_rng(11)
+    x = rng.standard_normal((1, 32, 32, 3)).astype(np.float32)
+    t = np.array([0.4], np.float32)
+    with jax_kernels("xla", monkeypatch):
+        jm, params, port = make_twins("xla", seed=12, attention_impl="xla",
+                                      port_attention="auto",
+                                      attention_resolutions=(1, 2))
+        want = np.asarray(jax.jit(jm.apply)(params, x, t))
+    got = _port(port, x, t).numpy()
+    np.testing.assert_allclose(got, want, atol=ATOL, rtol=RTOL)
+    decisions = {n: (d["impl"], d["tokens"])
+                 for n, d in port.attn_decisions.items()}
+    assert FLASH_MIN_TOKENS == 1024
+    assert decisions == {"enc_attn_0_0": ("flash", 1024),
+                         "enc_attn_1_0": ("dense", 256),
+                         "mid_attn": ("dense", 256),
+                         "dec_attn_1_0": ("dense", 256),
+                         "dec_attn_1_1": ("dense", 256),
+                         "dec_attn_0_0": ("flash", 1024),
+                         "dec_attn_0_1": ("flash", 1024)}
+
+
+def test_converter_maps_the_64px_amortized_tree():
+    """The flowers/celeba 64px network of utils/config.py, amortized (6
+    input channels), with 64-channel heads and attention at 32, 16 and 8 --
+    at width 64 instead of 128 to keep the tree small: every flax leaf maps
+    to one port parameter of the same shape."""
+    kw = dict(image_size=64, num_channels=64, num_res_blocks=2,
+              in_channels=6, out_channels=3, channel_mult="",
+              num_heads=4, num_head_channels=64,
+              attention_resolutions="32,16,8", use_scale_shift_norm=True)
+    jm = jax_create_model(**kw, attention_impl="auto", dtype=jnp.float32)
+    shapes = jax.eval_shape(jm.init, jax.random.PRNGKey(0),
+                            jnp.zeros((1, 64, 64, 6)), jnp.zeros((1,)))
+    params = jax.tree.map(lambda sd: np.zeros(sd.shape, np.float32), shapes)
+    sd = unet_state_dict_from_flax(params)
+    port = create_model(**kw, attention_impl="auto", dtype=torch.float32,
+                        device="cpu")
+    want = port.state_dict()
+    assert len(sd) == len(jax.tree.leaves(params)) == len(want)
+    assert {k: tuple(v.shape) for k, v in sd.items()} == {
+        k: tuple(v.shape) for k, v in want.items()}
+    assert sd["conv_in.weight"].shape == (64, 6, 3, 3)
+    heads = {n: m.heads for n, m in port.named_children() if "attn" in n}
+    assert heads["enc_attn_1_0"] == 2 and heads["mid_attn"] == 4
+    port.load_state_dict(sd)  # strict: no key missing or left over
+
+
+def test_create_model_takes_the_jax_signature():
+    kw = dict(image_size=32, num_channels=16, num_res_blocks=1,
+              channel_mult=(1, 2), attention_resolutions="16", device="cpu")
+    m = create_model(**kw, learn_sigma=True, dropout=0.0, num_classes=10)
+    assert m.conv_out.out_channels == 6  # 2 * in_channels with learn_sigma
+    with pytest.raises(NotImplementedError, match="dropout"):
+        create_model(**kw, dropout=0.1)
+    with pytest.raises(NotImplementedError, match="class"):
+        create_model(**kw, class_cond=True, num_classes=10)
+
+
 def test_timestep_embedding_matches_jax():
     t = np.array([0.0, 0.3, 17.0, 999.0], np.float32)
     for dim in (16, 17):
@@ -193,3 +279,6 @@ def test_rejects_unknown_impls():
     with pytest.raises(ValueError, match="attention impl"):
         UNetModel(3, 16, 3, channel_mult=(1,), attention_resolutions=(1,),
                   attention_impl="pallas", device="cpu")
+    with pytest.raises(ValueError, match="attention impl"):
+        UNetModel(3, 16, 3, channel_mult=(1,), attention_resolutions=(1,),
+                  attention_impl="xla", device="cpu")

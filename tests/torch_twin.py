@@ -12,6 +12,7 @@ import contextlib
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from tpu_diffusion.models.unet import UNetModel as JaxUNet
@@ -23,6 +24,19 @@ from tpu_diffusion_torch.models.unet import UNetModel
 TINY = dict(in_channels=3, model_channels=16, out_channels=3,
             num_res_blocks=1, channel_mult=(1, 2), attention_resolutions=(2,),
             num_heads=2, use_scale_shift_norm=True)
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Run a test module's torch ops on one thread. The suite runs in
+    several worker processes on shared cores; a torch op parallelised over
+    every core there waits for threads the other workers hold, and the
+    samplers' many small ops slowed fifty-fold (3 s alone, 170 s in the
+    pool). Import it into a test module to apply it."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 
 # the port's name for each JAX norm_impl
 NORM_IMPLS = {"xla": "plain", "fused": "fused"}
@@ -60,13 +74,22 @@ def random_params(jax_model, seed, in_channels=3):
     return jax.tree_util.tree_map_with_path(draw, shapes)
 
 
-def make_twins(norm_impl="xla", seed=0, **overrides):
-    """(jax model, flax params, port model) with the same weights."""
+# the port's name for each JAX attention_impl
+ATTENTION_IMPLS = {"pallas_fused": "fused", "pallas": "flash", "xla": "dense"}
+
+
+def make_twins(norm_impl="xla", seed=0, attention_impl="pallas_fused",
+               port_attention=None, **overrides):
+    """(jax model, flax params, port model) with the same weights; the port
+    runs the counterpart of the JAX `attention_impl` unless
+    `port_attention` names another."""
     kw = {**TINY, **overrides}
-    jax_model = JaxUNet(attention_impl="pallas_fused", norm_impl=norm_impl,
+    jax_model = JaxUNet(attention_impl=attention_impl, norm_impl=norm_impl,
                         dtype=jnp.float32, **kw)
     params = random_params(jax_model, seed, kw["in_channels"])
-    port = UNetModel(attention_impl="fused", norm_impl=NORM_IMPLS[norm_impl],
-                     dtype=torch.float32, device="cpu", **kw)
+    port = UNetModel(
+        attention_impl=port_attention or ATTENTION_IMPLS[attention_impl],
+        norm_impl=NORM_IMPLS[norm_impl], dtype=torch.float32, device="cpu",
+        **kw)
     port.load_state_dict(unet_state_dict_from_flax(params))
     return jax_model, params, port

@@ -1,16 +1,33 @@
 """PyTorch/CUDA port of `tpu_diffusion` for one NVIDIA H100.
 
-This slice holds the DDIM sampling path of the CIFAR-10 UNet: the DDPM
-tables, the UNet (full / encode / decode), the plain and encoder-reuse DDIM
-samplers, the flax weight converter, and two hand-written Hopper kernels
-(fused-QKV attention, GroupNorm+FiLM+SiLU) in `kernels/`.
+Ported so far: the DDPM process, the UNet (full / encode / decode; attention
+by the fused-QKV kernel, the flash kernels or plain einsums), the flax
+weight converter, the DDIM samplers, and the conditional-generation path of
+`cli/main.py --mode eval`: likelihoods, conditioning mechanisms, the prior,
+amortized (plain and encoder-reuse), reconstruction-guidance and replacement
+ancestral samplers, MSE/PSNR/SSIM, the experiment config and the dataset
+registry. Hand-written Hopper kernels are in `kernels/`.
 """
 
+from tpu_diffusion_torch.conditioning import (Amortized, HyperResolution,
+                                              InPainting, OutPainting,
+                                              ReconstructionGuidance,
+                                              Replacement, get_conditioning,
+                                              get_likelihood)
 from tpu_diffusion_torch.convert import unet_state_dict_from_flax
 from tpu_diffusion_torch.core.schedules import DDPM
+from tpu_diffusion_torch.eval.metrics import eval_statistics
+from tpu_diffusion_torch.losses.ddpm import make_eps_model
 from tpu_diffusion_torch.models.unet import create_model
-from tpu_diffusion_torch.sampling.ancestral import (make_cached_ddim_sampler,
-                                                   make_ddim_sampler)
+from tpu_diffusion_torch.sampling.ancestral import (
+    make_cached_amortized_sampler, make_cached_ddim_sampler,
+    make_conditional_sampler, make_ddim_sampler, make_prior_sampler)
+from tpu_diffusion_torch.utils.config import apply_overrides, get_config
 
-__all__ = ["DDPM", "create_model", "make_cached_ddim_sampler",
-           "make_ddim_sampler", "unet_state_dict_from_flax"]
+__all__ = ["Amortized", "DDPM", "HyperResolution", "InPainting",
+           "OutPainting", "ReconstructionGuidance", "Replacement",
+           "apply_overrides", "create_model", "eval_statistics",
+           "get_conditioning", "get_config", "get_likelihood",
+           "make_cached_amortized_sampler", "make_cached_ddim_sampler",
+           "make_conditional_sampler", "make_ddim_sampler", "make_eps_model",
+           "make_prior_sampler", "unet_state_dict_from_flax"]

@@ -2,12 +2,15 @@
 
 Counterpart of `tpu_diffusion/core/schedules.py` (`linear_vpsde_betas`,
 `bcast_right`, `DDPM`). The tables are built host-side in float64 numpy and
-stored as float32 tensors on the CPU.
+stored as float32 tensors on the CPU; `DDPM.to(device)` moves them, once per
+sampler, to the device its steps run on.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
+from typing import Tuple
 
 import numpy as np
 import torch
@@ -30,11 +33,11 @@ def bcast_right(v: torch.Tensor, ndim: int) -> torch.Tensor:
 
 @dataclass(frozen=True)
 class DDPM:
-    """Discrete-time DDPM buffers (float32, CPU).
+    """Discrete-time DDPM buffers (float32).
 
     Step `i` lies in [0, Ns); an eps-model trained on discrete steps is
-    called with t = i / Ns. The samplers read the tables they need once,
-    before their loop.
+    called with t = i / Ns. The methods take `i` as a [B] integer tensor on
+    the tables' device (`to`).
     """
 
     num_steps: int
@@ -95,3 +98,82 @@ class DDPM:
             posterior_mean_coef2=f(
                 (1.0 - abar_prev) * np.sqrt(alphas) / (1.0 - abar)),
         )
+
+    def to(self, device) -> "DDPM":
+        """The same process with every table on `device`."""
+        return dataclasses.replace(self, **{
+            f.name: getattr(self, f.name).to(device)
+            for f in dataclasses.fields(self)
+            if isinstance(getattr(self, f.name), torch.Tensor)})
+
+    # -- indexing ----------------------------------------------------------
+
+    def _gather(self, buf: torch.Tensor, i: torch.Tensor,
+                ndim: int) -> torch.Tensor:
+        """buf[i] broadcast to an ndim-tensor (reference `extract`)."""
+        return bcast_right(buf[i], ndim)
+
+    def time_of(self, i: torch.Tensor) -> torch.Tensor:
+        """Continuous time used by the eps-model: t = i / Ns."""
+        return i.float() / self.num_steps
+
+    # -- forward process ---------------------------------------------------
+
+    def q_sample(self, x0: torch.Tensor, i: torch.Tensor,
+                 noise: torch.Tensor | None = None,
+                 generator: torch.Generator | None = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Sample x_i ~ q(x_i | x_0); returns (x_i, eps). eps is `noise`
+        when a tensor is given, else drawn with `torch.randn` on
+        `generator`."""
+        if noise is None:
+            noise = torch.randn(x0.shape, generator=generator,
+                                dtype=x0.dtype, device=x0.device)
+        return self.q_sample_with_noise(x0, noise, i), noise
+
+    def q_sample_with_noise(self, x0: torch.Tensor, eps: torch.Tensor,
+                            i: torch.Tensor) -> torch.Tensor:
+        return (self._gather(self.sqrt_alphas_cumprod, i, x0.ndim) * x0
+                + self._gather(self.sqrt_one_minus_alphas_cumprod, i, x0.ndim)
+                * eps)
+
+    # -- conversions -------------------------------------------------------
+
+    def predict_start_from_noise(self, xi: torch.Tensor, i: torch.Tensor,
+                                 eps: torch.Tensor) -> torch.Tensor:
+        return (self._gather(self.sqrt_recip_alphas_cumprod, i, xi.ndim) * xi
+                - self._gather(self.sqrt_recipm1_alphas_cumprod, i, xi.ndim)
+                * eps)
+
+    def predict_noise_from_start(self, xi: torch.Tensor, i: torch.Tensor,
+                                 x0: torch.Tensor) -> torch.Tensor:
+        return ((self._gather(self.sqrt_recip_alphas_cumprod, i, xi.ndim) * xi
+                 - x0)
+                / self._gather(self.sqrt_recipm1_alphas_cumprod, i, xi.ndim))
+
+    def score_from_noise(self, eps: torch.Tensor,
+                         i: torch.Tensor) -> torch.Tensor:
+        """Score = -eps / sigma_i with sigma_i = sqrt(1 - alpha_bar_i)."""
+        return -eps / self._gather(self.sqrt_one_minus_alphas_cumprod, i,
+                                   eps.ndim)
+
+    def score_from_x0(self, x0: torch.Tensor,
+                      i: torch.Tensor) -> torch.Tensor:
+        """The corrector's score surrogate: -x0 / sqrt(1 - abar_i)."""
+        return (-self._gather(1.0 / self.sqrt_one_minus_alphas_cumprod, i,
+                              x0.ndim) * x0)
+
+    # -- reverse process ---------------------------------------------------
+
+    def q_posterior(self, x0: torch.Tensor, xi: torch.Tensor,
+                    i: torch.Tensor):
+        """(mean, variance, log variance) of q(x_{i-1} | x_i, x_0)."""
+        mean = (self._gather(self.posterior_mean_coef1, i, xi.ndim) * x0
+                + self._gather(self.posterior_mean_coef2, i, xi.ndim) * xi)
+        var = self._gather(self.posterior_variance, i, xi.ndim)
+        logvar = self._gather(self.posterior_log_variance_clipped, i, xi.ndim)
+        return mean, var, logvar
+
+    def p_mean_variance(self, x0_pred: torch.Tensor, xi: torch.Tensor,
+                        i: torch.Tensor):
+        return self.q_posterior(x0_pred, xi, i)

@@ -18,14 +18,19 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from tpu_diffusion_torch.kernels.attention import (flash_attention_fused,
-                                                   fused_attention_ref)
+from tpu_diffusion_torch.kernels.attention import (flash_attention,
+                                                   flash_attention_fused)
 from tpu_diffusion_torch.models.nn import (NORM_IMPLS, FusedNormAct,
                                            GroupNorm32, avg_pool_2x,
                                            channels_last, nearest_upsample,
                                            timestep_embedding, zero_init_conv)
 
-ATTENTION_IMPLS = ("fused", "plain")
+# "fused": the fused-QKV kernel (JAX "pallas_fused"); "flash": split heads
+# and the flash kernels (JAX "pallas"); "dense": the layout-preserving
+# einsums in plain torch (JAX "xla"); "auto": flash at FLASH_MIN_TOKENS
+# tokens or more, dense below, on every device.
+ATTENTION_IMPLS = ("fused", "flash", "dense", "auto")
+FLASH_MIN_TOKENS = 1024
 MODES = ("full", "encode", "decode")
 
 
@@ -114,6 +119,21 @@ class ResBlock(nn.Module):
         return x + h
 
 
+def dense_attention(qkv: torch.Tensor, heads: int) -> torch.Tensor:
+    """The JAX "xla" attention (`models/unet.py:187-202`): heads stay in the
+    trailing axes, q * d^-1/2 in the model's type, fp32 logits and softmax,
+    probabilities cast to v's type. [B, T, 3C] -> [B, T, C]."""
+    b, t, c3 = qkv.shape
+    c = c3 // 3
+    d = c // heads
+    r = qkv.reshape(b, t, 3, heads, d)
+    q, k, v = r[:, :, 0], r[:, :, 1], r[:, :, 2]
+    logits = torch.einsum("bqhd,bkhd->bhqk", (q * d ** -0.5).float(),
+                          k.float())
+    probs = torch.softmax(logits, dim=-1).to(v.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, v).reshape(b, t, c)
+
+
 class AttentionBlock(nn.Module):
     """Self-attention over the H*W tokens of each image."""
 
@@ -141,14 +161,26 @@ class AttentionBlock(nn.Module):
         self.proj = zero_init_conv(nn.Linear(channels, channels, dtype=dtype,
                                              device=device))
 
+    def resolved_impl(self, tokens: int) -> str:
+        """The implementation a call over `tokens` tokens runs."""
+        if self.impl == "auto":
+            return "flash" if tokens >= FLASH_MIN_TOKENS else "dense"
+        return self.impl
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, c, h, w = x.shape
         y = self.norm(x).permute(0, 2, 3, 1).reshape(b, h * w, c)
         qkv = self.qkv(y)  # [b, T, 3c], channel ((s*heads + h)*d + i)
-        if self.impl == "fused":
+        impl = self.resolved_impl(h * w)
+        if impl == "fused":
             out = flash_attention_fused(qkv, self.heads)
+        elif impl == "flash":
+            q, k, v = qkv.reshape(b, h * w, 3, self.heads, c // self.heads
+                                  ).permute(2, 0, 3, 1, 4).unbind(0)
+            out = flash_attention(q, k, v).transpose(1, 2).reshape(
+                b, h * w, c)
         else:
-            out = fused_attention_ref(qkv, self.heads)
+            out = dense_attention(qkv, self.heads)
         out = self.proj(out)
         return x + out.reshape(b, h, w, c).permute(0, 3, 1, 2)
 
@@ -263,9 +295,9 @@ class UNetModel(nn.Module):
 
     def _attn(self, name: str, h: torch.Tensor) -> torch.Tensor:
         block = getattr(self, name)
-        self.attn_decisions[name] = {"impl": block.impl,
-                                     "tokens": h.shape[2] * h.shape[3],
-                                     "heads": block.heads}
+        tokens = h.shape[2] * h.shape[3]
+        self.attn_decisions[name] = {"impl": block.resolved_impl(tokens),
+                                     "tokens": tokens, "heads": block.heads}
         return block(h)
 
     def forward(self, x: torch.Tensor, t, *, mode: str = "full",
@@ -354,11 +386,24 @@ def create_model(image_size: int, num_channels: int, num_res_blocks: int,
                  channel_mult: Sequence[int] | str = "", num_heads: int = 1,
                  num_head_channels: int = -1,
                  attention_resolutions: str = "16,8",
+                 dropout: float = 0.0, class_cond: bool = False,
+                 num_classes: int | None = None,
                  use_scale_shift_norm: bool = False,
-                 resblock_updown: bool = False,
+                 resblock_updown: bool = False, learn_sigma: bool = False,
                  attention_impl: str = "fused", dtype=torch.bfloat16,
                  norm_dtype=None, norm_impl: str = "plain",
                  device="cuda") -> UNetModel:
+    """The JAX `create_model` signature (less `use_checkpoint`, `sp_mesh`
+    and `time_scale`); what the port does not implement raises."""
+    if dropout:
+        raise NotImplementedError(
+            f"dropout={dropout}: the port has no dropout yet (it acts in "
+            f"training only; ROADMAP A5, the training slice)")
+    if class_cond:
+        raise NotImplementedError(
+            "class_cond=True: the class embedding is not ported yet "
+            "(ROADMAP A8, with the class-conditional CLIs)")
+    del num_classes  # read by the JAX package only with class_cond
     if not channel_mult:
         if image_size not in _DEFAULT_CHANNEL_MULT:
             raise ValueError(f"unsupported image size: {image_size}")
@@ -367,7 +412,8 @@ def create_model(image_size: int, num_channels: int, num_res_blocks: int,
         channel_mult = tuple(int(c) for c in channel_mult.split(","))
     return UNetModel(
         in_channels=in_channels, model_channels=num_channels,
-        out_channels=out_channels or in_channels,
+        out_channels=out_channels or (2 * in_channels if learn_sigma
+                                      else in_channels),
         num_res_blocks=num_res_blocks,
         attention_resolutions=attention_ds(image_size, attention_resolutions),
         channel_mult=tuple(channel_mult), num_heads=num_heads,
