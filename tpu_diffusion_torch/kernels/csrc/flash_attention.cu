@@ -18,12 +18,16 @@
 // forward's 34.4 GFLOP need 34.7 us at the bf16 tensor-core rate against
 // 20 us for its 68 MB, and the backward's 120 GFLOP (6 T^2 d per slice in
 // the dq kernel, 8 T^2 d in the dk/dv kernel) need 122 us against 35 us for
-// its 118 MB, so both are bound by operations. This first version does
-// every product with scalar fp32 FMAs on the CUDA cores (67 TFLOP/s, not
-// the tensor cores' 989): its floor is ~0.5 ms forward and ~1.8 ms
-// backward. `mma.sync` / `wgmma` tiles are later work.
+// its 118 MB, so both are bound by operations. The bf16 forward runs its
+// products on the tensor cores (`flash_fwd_mma_kernel`, `mma.sync`
+// m16n8k16 with fp32 accumulators; no `cp.async` pipeline yet). The fp32
+// forward and the backward do every product with scalar fp32 FMAs on the
+// CUDA cores (67 TFLOP/s, not the tensor cores' 989): their floor is
+// ~0.5 ms forward and ~1.8 ms backward. Tensor-core backward kernels and
+// `wgmma` tiles are later work.
 //
-// Design: 256 threads per block as a 16 x 16 grid. A block owns 64 rows
+// Design of the scalar kernels: 256 threads per block as a 16 x 16 grid.
+// A block owns 64 rows
 // (query rows for the forward and dq kernels, key rows for dk/dv) and walks
 // the other side in tiles of 64, staged in shared memory as fp32 with a
 // padded row stride (d + 1 floats, so a column read by 16 threads hits 16
@@ -38,12 +42,20 @@
 // tiles, so no output is written by two blocks and no atomics are needed.
 //
 // Rounding: the TPU forward normalises p over the whole row, rounds it to
-// v's type and then multiplies by v. Here p stays fp32, p.v accumulates in
-// fp32 and the row sum divides once at the end, so a bf16 output differs by
-// the rounding of p to bf16 (2^-8 relative per term) plus the output's own
-// rounding; an fp32 output differs only in summation order.
+// v's type and then multiplies by v. The scalar forward keeps p in fp32,
+// accumulates p.v in fp32 and divides by the row sum once at the end; the
+// tensor-core forward rounds the unnormalised p (<= 1) to bf16 for the p.v
+// product, accumulates in fp32 and divides at the end. So a bf16 output
+// differs from the TPU kernel's by the rounding of p to bf16 (2^-8 relative
+// per term) plus the output's own rounding; an fp32 output differs only in
+// summation order. The tensor-core logits are exact bf16 products summed
+// in fp32, scaled by d^-1/2 after the product (the TPU kernel scales the
+// fp32 q before it): a difference at fp32 rounding level.
 
 #include <math.h>
+#include <stdint.h>
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -235,6 +247,192 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
+// Forward on the tensor cores, bf16 only: one block of 4 warps per (64-row
+// query tile, bh); each warp owns 16 query rows.
+// ---------------------------------------------------------------------------
+//
+// The products run as `mma.sync.m16n8k16` (bf16 inputs, fp32 accumulators),
+// with the fragment layouts of the PTX ISA: lane = 4 * g + c (g = lane / 4,
+// c = lane % 4); an A fragment holds rows g and g + 8, columns 2c, 2c + 1
+// and 2c + 8, 2c + 9 of a 16 x 16 tile; a B fragment holds column g, rows
+// 2c, 2c + 1 and 2c + 8, 2c + 9 of a 16 x 8 tile; an accumulator holds
+// rows g and g + 8, columns 2c and 2c + 1 of a 16 x 8 tile. So an
+// accumulator row pair is a B-fragment-ready pair of keys, and the
+// accumulators of two adjacent 8-key tiles of the logits are, rounded to
+// bf16, the A fragment of p for the p.v product. B fragments want two
+// consecutive k-elements in one 32-bit word: K rows (k = d) are stored as
+// they come, V is stored transposed (k = key).
+
+constexpr int kWarpsMma = 4;
+constexpr int kThreadsMma = 32 * kWarpsMma;
+
+__device__ __forceinline__ void mma_bf16(float (&acc)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(acc[0]), "+f"(acc[1]), "+f"(acc[2]), "+f"(acc[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// The 32-bit word holding elements [col, col + 1] of row `row` of a bf16
+// tile with row stride `ld` elements.
+__device__ __forceinline__ uint32_t word(const __nv_bfloat16* tile, int ld,
+                                         int row, int col) {
+  return *reinterpret_cast<const uint32_t*>(tile + row * ld + col);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreadsMma)
+flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                     const __nv_bfloat16* __restrict__ k,
+                     const __nv_bfloat16* __restrict__ v,
+                     __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                     int seq, float scale) {
+  constexpr int LDQ = D + 8;          // bf16 row stride of Q and K tiles
+  constexpr int LDV = kTile + 8;      // bf16 row stride of the V^T tile
+  constexpr int VPR = D / 8;          // 16-byte vectors per row
+  constexpr int NKT = kTile / 8;      // 8-key accumulator tiles per tile
+  constexpr int NDT = D / 8;          // 8-column output tiles
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* ks = qs + kTile * LDQ;   // [64][LDQ]
+  __nv_bfloat16* vt = ks + kTile * LDQ;   // [D][LDV], V transposed
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4;
+  const int c = lane % 4;
+  const int q0 = blockIdx.x * kTile;
+  const long long base = static_cast<long long>(blockIdx.y) * seq * D;
+  const uint4 zero = make_uint4(0, 0, 0, 0);
+
+  for (int idx = threadIdx.x; idx < kTile * VPR; idx += kThreadsMma) {
+    const int r = idx / VPR, col = (idx % VPR) * 8;
+    *reinterpret_cast<uint4*>(qs + r * LDQ + col) =
+        q0 + r < seq ? *reinterpret_cast<const uint4*>(
+                           q + base + static_cast<long long>(q0 + r) * D + col)
+                     : zero;
+  }
+  __syncthreads();
+  uint32_t qa[D / 16][4];  // this warp's 16 rows of q as A fragments
+  const int r0 = warp * 16 + g;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    qa[kk][0] = word(qs, LDQ, r0, kk * 16 + 2 * c);
+    qa[kk][1] = word(qs, LDQ, r0 + 8, kk * 16 + 2 * c);
+    qa[kk][2] = word(qs, LDQ, r0, kk * 16 + 8 + 2 * c);
+    qa[kk][3] = word(qs, LDQ, r0 + 8, kk * 16 + 8 + 2 * c);
+  }
+
+  float m[2] = {-INFINITY, -INFINITY};
+  float l[2] = {0.f, 0.f};  // this thread's share of the two row sums
+  float acc[NDT][4];
+#pragma unroll
+  for (int t = 0; t < NDT; ++t)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[t][e] = 0.f;
+
+  for (int k0 = 0; k0 < seq; k0 += kTile) {
+    __syncthreads();  // the previous tile is consumed
+    for (int idx = threadIdx.x; idx < kTile * VPR; idx += kThreadsMma) {
+      const int r = idx / VPR, col = (idx % VPR) * 8;
+      uint4 kv = zero, vv = zero;
+      if (k0 + r < seq) {
+        const long long off = base + static_cast<long long>(k0 + r) * D + col;
+        kv = *reinterpret_cast<const uint4*>(k + off);
+        vv = *reinterpret_cast<const uint4*>(v + off);
+      }
+      *reinterpret_cast<uint4*>(ks + r * LDQ + col) = kv;
+      const __nv_bfloat16* ve = reinterpret_cast<const __nv_bfloat16*>(&vv);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) vt[(col + e) * LDV + r] = ve[e];
+    }
+    __syncthreads();
+
+    // s = q . k^T for this warp's 16 rows and the tile's 64 keys
+    float s[NKT][4];
+#pragma unroll
+    for (int t = 0; t < NKT; ++t) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[t][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        mma_bf16(s[t], qa[kk], word(ks, LDQ, t * 8 + g, kk * 16 + 2 * c),
+                 word(ks, LDQ, t * 8 + g, kk * 16 + 8 + 2 * c));
+    }
+    // online softmax over rows g (elements 0, 1) and g + 8 (elements 2, 3)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float tmax = -INFINITY;
+#pragma unroll
+      for (int t = 0; t < NKT; ++t)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float& x = s[t][2 * h + e];
+          x = k0 + t * 8 + 2 * c + e < seq ? x * scale : -INFINITY;
+          tmax = fmaxf(tmax, x);
+        }
+      // the 4 lanes of a row are adjacent lanes of one quad
+      tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 1));
+      tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 2));
+      const float mnew = fmaxf(m[h], tmax);  // finite: key k0 < seq is valid
+      const float alpha = expf(m[h] - mnew);  // 0 on the first tile
+      m[h] = mnew;
+      float psum = 0.f;
+#pragma unroll
+      for (int t = 0; t < NKT; ++t)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float& x = s[t][2 * h + e];
+          x = expf(x - mnew);
+          psum += x;
+        }
+      l[h] = l[h] * alpha + psum;
+#pragma unroll
+      for (int t = 0; t < NDT; ++t) {
+        acc[t][2 * h] *= alpha;
+        acc[t][2 * h + 1] *= alpha;
+      }
+    }
+    // acc += p . v, p rounded to bf16, 16 keys per step
+#pragma unroll
+    for (int kk = 0; kk < kTile / 16; ++kk) {
+      const uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+                              pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                              pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+      for (int t = 0; t < NDT; ++t)
+        mma_bf16(acc[t], pa, word(vt, LDV, t * 8 + g, kk * 16 + 2 * c),
+                 word(vt, LDV, t * 8 + g, kk * 16 + 8 + 2 * c));
+    }
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float total = l[h];
+    total += __shfl_xor_sync(0xffffffffu, total, 1);
+    total += __shfl_xor_sync(0xffffffffu, total, 2);
+    const int row = q0 + r0 + 8 * h;
+    if (row >= seq) continue;
+    if (c == 0)
+      lse[static_cast<long long>(blockIdx.y) * seq + row] = m[h] + logf(total);
+    const float inv = 1.f / total;
+    __nv_bfloat16* orow = o + base + static_cast<long long>(row) * D;
+#pragma unroll
+    for (int t = 0; t < NDT; ++t)
+      *reinterpret_cast<__nv_bfloat162*>(orow + t * 8 + 2 * c) =
+          __floats2bfloat162_rn(acc[t][2 * h] * inv, acc[t][2 * h + 1] * inv);
+  }
+}
+
+// ---------------------------------------------------------------------------
 // Backward, dq: one block per (64-row query tile, bh), looping over keys.
 // ---------------------------------------------------------------------------
 
@@ -378,17 +576,28 @@ cudaError_t allow_smem(size_t bytes) {
   return err;
 }
 
+// fp32 inputs take the scalar kernel, bf16 inputs the tensor-core kernel.
 template <typename T, int D>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o,
                        float* lse, int bh, int seq, float scale,
                        cudaStream_t stream) {
-  const size_t bytes = (3 * tile_floats(D) + kTile * kPS) * sizeof(float);
-  cudaError_t err = allow_smem<flash_fwd_kernel<T, D>>(bytes);
-  if (err != cudaSuccess) return err;
   const dim3 grid((seq + kTile - 1) / kTile, bh);
-  flash_fwd_kernel<T, D><<<grid, kThreads, bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), lse, seq, scale);
+  if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+    const size_t bytes =
+        (2 * kTile * (D + 8) + D * (kTile + 8)) * sizeof(__nv_bfloat16);
+    cudaError_t err = allow_smem<flash_fwd_mma_kernel<D>>(bytes);
+    if (err != cudaSuccess) return err;
+    flash_fwd_mma_kernel<D><<<grid, kThreadsMma, bytes, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<T*>(o), lse, seq, scale);
+  } else {
+    const size_t bytes = (3 * tile_floats(D) + kTile * kPS) * sizeof(float);
+    cudaError_t err = allow_smem<flash_fwd_kernel<T, D>>(bytes);
+    if (err != cudaSuccess) return err;
+    flash_fwd_kernel<T, D><<<grid, kThreads, bytes, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<T*>(o), lse, seq, scale);
+  }
   return cudaGetLastError();
 }
 
