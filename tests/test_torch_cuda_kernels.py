@@ -109,7 +109,7 @@ def test_cuda_flash_forward_matches_plain(cuda, dtype, bh, t, d):
 @pytest.mark.parametrize("dtype,bh,t,d", [
     (torch.bfloat16, 8, 1024, 64), (torch.float32, 4, 1024, 64),
     (torch.float32, 3, 1000, 64), (torch.bfloat16, 2, 100, 32),
-    (torch.float32, 2, 130, 128)])
+    (torch.float32, 2, 130, 128), (torch.bfloat16, 2, 130, 128)])
 def test_cuda_flash_backward_matches_plain(cuda, dtype, bh, t, d):
     q, k, v, g = _flash_inputs(t * d, bh, t, d, dtype, cuda)
     o, lse = attention.flash_attention_fwd_ref(q, k, v)
@@ -122,7 +122,8 @@ def test_cuda_flash_backward_matches_plain(cuda, dtype, bh, t, d):
     for a, b in zip(got, want):
         assert a.dtype == dtype
         # relative to the gradient's scale: fp32 sums of T terms in another
-        # order; bf16 one output rounding on each side
+        # order; bf16: the tensor-core kernels round p and ds to bf16 for
+        # their products, and each side rounds its output once
         scale = b.float().abs().max().item()
         tol = (1e-5 if dtype == torch.float32 else 1e-2) * scale
         torch.testing.assert_close(a.float(), b.float(), atol=tol, rtol=0)

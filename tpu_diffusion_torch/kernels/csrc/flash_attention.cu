@@ -18,28 +18,29 @@
 // forward's 34.4 GFLOP need 34.7 us at the bf16 tensor-core rate against
 // 20 us for its 68 MB, and the backward's 120 GFLOP (6 T^2 d per slice in
 // the dq kernel, 8 T^2 d in the dk/dv kernel) need 122 us against 35 us for
-// its 118 MB, so both are bound by operations. The bf16 forward runs its
-// products on the tensor cores (`flash_fwd_mma_kernel`, `mma.sync`
-// m16n8k16 with fp32 accumulators; no `cp.async` pipeline yet). The fp32
-// forward and the backward do every product with scalar fp32 FMAs on the
-// CUDA cores (67 TFLOP/s, not the tensor cores' 989): their floor is
-// ~0.5 ms forward and ~1.8 ms backward. Tensor-core backward kernels and
-// `wgmma` tiles are later work.
+// its 118 MB, so both are bound by operations. For bf16 inputs every
+// product runs on the tensor cores (`flash_fwd_mma_kernel`,
+// `flash_bwd_dq_mma_kernel`, `flash_bwd_dkdv_mma_kernel`: `mma.sync`
+// m16n8k16 with fp32 accumulators, 4 warps of 16 rows per 64-row tile; no
+// `cp.async` pipeline or `wgmma` yet). For fp32 inputs the scalar kernels
+// (`flash_fwd_kernel`, `flash_bwd_dq_kernel`, `flash_bwd_dkdv_kernel`) do
+// every product with fp32 FMAs on the CUDA cores (67 TFLOP/s, not the
+// tensor cores' 989), with a floor of ~0.5 ms forward and ~1.8 ms backward
+// at that shape.
 //
-// Design of the scalar kernels: 256 threads per block as a 16 x 16 grid.
-// A block owns 64 rows
-// (query rows for the forward and dq kernels, key rows for dk/dv) and walks
-// the other side in tiles of 64, staged in shared memory as fp32 with a
-// padded row stride (d + 1 floats, so a column read by 16 threads hits 16
-// banks). Each thread computes a 4 x 4 block of the 64 x 64 logits (rows
-// ty + 16i, columns tx + 16j) from shared memory, and accumulates a
-// 4 x d/16 block of its output (rows ty + 16i, columns tx + 16j). The T x T
-// logits never reach device memory. The forward keeps a running max and
-// sum per row (online softmax), so any T works: the last tile is masked
-// (keys past T get p = 0 and zero-filled K/V rows), rows past T compute and
-// store nothing. The backward needs no online statistics: p comes from the
-// saved lse. The dq kernel loops over key tiles, the dk/dv kernel over query
-// tiles, so no output is written by two blocks and no atomics are needed.
+// Both sets share one design. A block owns 64 rows (query rows for the
+// forward and dq kernels, key rows for dk/dv) and walks the other side in
+// tiles of 64 staged in shared memory, with padded row strides so that the
+// threads of a warp read distinct banks. The T x T logits never reach
+// device memory. The forward keeps a running max and sum per row (online
+// softmax), so any T works: the last tile is masked (keys past T get
+// p = 0 and zero-filled K/V rows), rows past T compute and store nothing.
+// The backward needs no online statistics: p comes from the saved lse. The
+// dq kernel loops over key tiles, the dk/dv kernel over query tiles, so no
+// output is written by two blocks and no atomics are needed. The scalar
+// kernels run 256 threads as a 16 x 16 grid; each thread computes a 4 x 4
+// block of the 64 x 64 logits (rows ty + 16i, columns tx + 16j) from fp32
+// tiles and accumulates a 4 x d/16 block of its output.
 //
 // Rounding: the TPU forward normalises p over the whole row, rounds it to
 // v's type and then multiplies by v. The scalar forward keeps p in fp32,
@@ -50,7 +51,10 @@
 // per term) plus the output's own rounding; an fp32 output differs only in
 // summation order. The tensor-core logits are exact bf16 products summed
 // in fp32, scaled by d^-1/2 after the product (the TPU kernel scales the
-// fp32 q before it): a difference at fp32 rounding level.
+// fp32 q before it): a difference at fp32 rounding level. The tensor-core
+// backward rounds p and ds to bf16 for the products that take them (dq,
+// dk, dv), where the TPU kernels keep them fp32; the gradients, bf16
+// themselves, differ by a few units of their last place.
 
 #include <math.h>
 #include <stdint.h>
@@ -247,8 +251,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// Forward on the tensor cores, bf16 only: one block of 4 warps per (64-row
-// query tile, bh); each warp owns 16 query rows.
+// Tensor-core kernels, bf16 only: one block of 4 warps per 64-row tile and
+// bh; each warp owns 16 of the block's rows.
 // ---------------------------------------------------------------------------
 //
 // The products run as `mma.sync.m16n8k16` (bf16 inputs, fp32 accumulators),
@@ -256,18 +260,21 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // c = lane % 4); an A fragment holds rows g and g + 8, columns 2c, 2c + 1
 // and 2c + 8, 2c + 9 of a 16 x 16 tile; a B fragment holds column g, rows
 // 2c, 2c + 1 and 2c + 8, 2c + 9 of a 16 x 8 tile; an accumulator holds
-// rows g and g + 8, columns 2c and 2c + 1 of a 16 x 8 tile. So an
-// accumulator row pair is a B-fragment-ready pair of keys, and the
-// accumulators of two adjacent 8-key tiles of the logits are, rounded to
-// bf16, the A fragment of p for the p.v product. B fragments want two
-// consecutive k-elements in one 32-bit word: K rows (k = d) are stored as
-// they come, V is stored transposed (k = key).
+// rows g and g + 8, columns 2c and 2c + 1 of a 16 x 8 tile. So the
+// accumulators of two adjacent 8-column tiles of a 16 x 64 product are,
+// rounded to bf16, the A fragment of that product for the next one (p for
+// p.v, ds for ds.k, ...). A B fragment wants two consecutive k-elements in
+// one 32-bit word: for a product over d (q.k^T, g.v^T) the tiles are staged
+// row-major, [64][d]; for a product over the tile's 64 rows (p.v, ds.k,
+// p^T.g, ds^T.q) the second operand is staged transposed, [d][64].
 
 constexpr int kWarpsMma = 4;
 constexpr int kThreadsMma = 32 * kWarpsMma;
+constexpr int kLdT = kTile + 8;  // bf16 row stride of a transposed tile
 
-__device__ __forceinline__ void mma_bf16(float (&acc)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
+__device__ __forceinline__ void mma_bf16(float (&acc)[4],
+                                         const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
   asm volatile(
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
@@ -287,6 +294,94 @@ __device__ __forceinline__ uint32_t word(const __nv_bfloat16* tile, int ld,
   return *reinterpret_cast<const uint32_t*>(tile + row * ld + col);
 }
 
+// Stage rows [row0, row0 + 64) of a [seq, D] bf16 slice into `rows`
+// ([64][D + 8]) and/or, transposed, into `cols` ([D][64 + 8]); rows past
+// seq are zero.
+template <int D>
+__device__ __forceinline__ void stage(const __nv_bfloat16* __restrict__ src,
+                                      int row0, int seq, __nv_bfloat16* rows,
+                                      __nv_bfloat16* cols) {
+  constexpr int VPR = D / 8;  // 16-byte vectors per row
+  for (int idx = threadIdx.x; idx < kTile * VPR; idx += kThreadsMma) {
+    const int r = idx / VPR, col = (idx % VPR) * 8;
+    uint4 val = make_uint4(0, 0, 0, 0);
+    if (row0 + r < seq)
+      val = *reinterpret_cast<const uint4*>(
+          src + static_cast<long long>(row0 + r) * D + col);
+    if (rows) *reinterpret_cast<uint4*>(rows + r * (D + 8) + col) = val;
+    if (cols) {
+      const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&val);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) cols[(col + i) * kLdT + r] = e[i];
+    }
+  }
+}
+
+// acc[t] = a . b^T for this warp's 16 rows of the staged [64][D + 8] tile
+// a (rows w16 .. w16 + 15) and the 64 rows of b: a 16 x 64 product over D,
+// as 8 accumulator tiles of 8 columns.
+template <int D>
+__device__ __forceinline__ void mma_abt(const __nv_bfloat16* a,
+                                        const __nv_bfloat16* b, int w16,
+                                        int g, int c, float (&acc)[8][4]) {
+  constexpr int LD = D + 8;
+#pragma unroll
+  for (int t = 0; t < 8; ++t)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[t][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const int k = kk * 16 + 2 * c;
+    const uint32_t af[4] = {
+        word(a, LD, w16 + g, k), word(a, LD, w16 + g + 8, k),
+        word(a, LD, w16 + g, k + 8), word(a, LD, w16 + g + 8, k + 8)};
+#pragma unroll
+    for (int t = 0; t < 8; ++t)
+      mma_bf16(acc[t], af, word(b, LD, t * 8 + g, k),
+               word(b, LD, t * 8 + g, k + 8));
+  }
+}
+
+// acc[t] += p . x over the tile's 64 rows of x, for this warp's 16 x 64 p
+// (accumulators of `mma_abt`, rounded to bf16) and x staged transposed,
+// xt = [D][64 + 8]: a 16 x D product as D / 8 accumulator tiles.
+template <int D>
+__device__ __forceinline__ void mma_pxt(const float (&p)[8][4],
+                                        const __nv_bfloat16* xt, int g, int c,
+                                        float (&acc)[D / 8][4]) {
+#pragma unroll
+  for (int kk = 0; kk < kTile / 16; ++kk) {
+    const uint32_t pa[4] = {pack_bf16(p[2 * kk][0], p[2 * kk][1]),
+                            pack_bf16(p[2 * kk][2], p[2 * kk][3]),
+                            pack_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1]),
+                            pack_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3])};
+    const int k = kk * 16 + 2 * c;
+#pragma unroll
+    for (int t = 0; t < D / 8; ++t)
+      mma_bf16(acc[t], pa, word(xt, kLdT, t * 8 + g, k),
+               word(xt, kLdT, t * 8 + g, k + 8));
+  }
+}
+
+// Write this warp's 16 x D accumulators, times `mul`, to rows row0 + w16 ..
+// of a [seq, D] bf16 slice.
+template <int D>
+__device__ __forceinline__ void store_mma(__nv_bfloat16* __restrict__ dst,
+                                          int row0, int seq, int w16, int g,
+                                          int c, const float (&acc)[D / 8][4],
+                                          float mul) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = row0 + w16 + g + 8 * h;
+    if (row >= seq) continue;
+    __nv_bfloat16* out = dst + static_cast<long long>(row) * D;
+#pragma unroll
+    for (int t = 0; t < D / 8; ++t)
+      *reinterpret_cast<__nv_bfloat162*>(out + t * 8 + 2 * c) =
+          __floats2bfloat162_rn(acc[t][2 * h] * mul, acc[t][2 * h + 1] * mul);
+  }
+}
+
 template <int D>
 __global__ void __launch_bounds__(kThreadsMma)
 flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
@@ -294,84 +389,40 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
                      const __nv_bfloat16* __restrict__ v,
                      __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
                      int seq, float scale) {
-  constexpr int LDQ = D + 8;          // bf16 row stride of Q and K tiles
-  constexpr int LDV = kTile + 8;      // bf16 row stride of the V^T tile
-  constexpr int VPR = D / 8;          // 16-byte vectors per row
-  constexpr int NKT = kTile / 8;      // 8-key accumulator tiles per tile
-  constexpr int NDT = D / 8;          // 8-column output tiles
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* ks = qs + kTile * LDQ;   // [64][LDQ]
-  __nv_bfloat16* vt = ks + kTile * LDQ;   // [D][LDV], V transposed
+  __nv_bfloat16* ks = qs + kTile * (D + 8);  // [64][D + 8]
+  __nv_bfloat16* vt = ks + kTile * (D + 8);  // [D][64 + 8], V transposed
 
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane / 4;
-  const int c = lane % 4;
+  const int w16 = threadIdx.x / 32 * 16;
+  const int g = threadIdx.x % 32 / 4;
+  const int c = threadIdx.x % 4;
   const int q0 = blockIdx.x * kTile;
   const long long base = static_cast<long long>(blockIdx.y) * seq * D;
-  const uint4 zero = make_uint4(0, 0, 0, 0);
-
-  for (int idx = threadIdx.x; idx < kTile * VPR; idx += kThreadsMma) {
-    const int r = idx / VPR, col = (idx % VPR) * 8;
-    *reinterpret_cast<uint4*>(qs + r * LDQ + col) =
-        q0 + r < seq ? *reinterpret_cast<const uint4*>(
-                           q + base + static_cast<long long>(q0 + r) * D + col)
-                     : zero;
-  }
-  __syncthreads();
-  uint32_t qa[D / 16][4];  // this warp's 16 rows of q as A fragments
-  const int r0 = warp * 16 + g;
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    qa[kk][0] = word(qs, LDQ, r0, kk * 16 + 2 * c);
-    qa[kk][1] = word(qs, LDQ, r0 + 8, kk * 16 + 2 * c);
-    qa[kk][2] = word(qs, LDQ, r0, kk * 16 + 8 + 2 * c);
-    qa[kk][3] = word(qs, LDQ, r0 + 8, kk * 16 + 8 + 2 * c);
-  }
+  stage<D>(q + base, q0, seq, qs, nullptr);
 
   float m[2] = {-INFINITY, -INFINITY};
   float l[2] = {0.f, 0.f};  // this thread's share of the two row sums
-  float acc[NDT][4];
+  float acc[D / 8][4];
 #pragma unroll
-  for (int t = 0; t < NDT; ++t)
+  for (int t = 0; t < D / 8; ++t)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[t][e] = 0.f;
 
   for (int k0 = 0; k0 < seq; k0 += kTile) {
     __syncthreads();  // the previous tile is consumed
-    for (int idx = threadIdx.x; idx < kTile * VPR; idx += kThreadsMma) {
-      const int r = idx / VPR, col = (idx % VPR) * 8;
-      uint4 kv = zero, vv = zero;
-      if (k0 + r < seq) {
-        const long long off = base + static_cast<long long>(k0 + r) * D + col;
-        kv = *reinterpret_cast<const uint4*>(k + off);
-        vv = *reinterpret_cast<const uint4*>(v + off);
-      }
-      *reinterpret_cast<uint4*>(ks + r * LDQ + col) = kv;
-      const __nv_bfloat16* ve = reinterpret_cast<const __nv_bfloat16*>(&vv);
-#pragma unroll
-      for (int e = 0; e < 8; ++e) vt[(col + e) * LDV + r] = ve[e];
-    }
+    stage<D>(k + base, k0, seq, ks, nullptr);
+    stage<D>(v + base, k0, seq, nullptr, vt);
     __syncthreads();
 
-    // s = q . k^T for this warp's 16 rows and the tile's 64 keys
-    float s[NKT][4];
-#pragma unroll
-    for (int t = 0; t < NKT; ++t) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[t][e] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
-        mma_bf16(s[t], qa[kk], word(ks, LDQ, t * 8 + g, kk * 16 + 2 * c),
-                 word(ks, LDQ, t * 8 + g, kk * 16 + 8 + 2 * c));
-    }
+    float s[8][4];
+    mma_abt<D>(qs, ks, w16, g, c, s);
     // online softmax over rows g (elements 0, 1) and g + 8 (elements 2, 3)
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       float tmax = -INFINITY;
 #pragma unroll
-      for (int t = 0; t < NKT; ++t)
+      for (int t = 0; t < 8; ++t)
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           float& x = s[t][2 * h + e];
@@ -386,7 +437,7 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
       m[h] = mnew;
       float psum = 0.f;
 #pragma unroll
-      for (int t = 0; t < NKT; ++t)
+      for (int t = 0; t < 8; ++t)
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           float& x = s[t][2 * h + e];
@@ -395,23 +446,12 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
         }
       l[h] = l[h] * alpha + psum;
 #pragma unroll
-      for (int t = 0; t < NDT; ++t) {
+      for (int t = 0; t < D / 8; ++t) {
         acc[t][2 * h] *= alpha;
         acc[t][2 * h + 1] *= alpha;
       }
     }
-    // acc += p . v, p rounded to bf16, 16 keys per step
-#pragma unroll
-    for (int kk = 0; kk < kTile / 16; ++kk) {
-      const uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                              pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                              pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-      for (int t = 0; t < NDT; ++t)
-        mma_bf16(acc[t], pa, word(vt, LDV, t * 8 + g, kk * 16 + 2 * c),
-                 word(vt, LDV, t * 8 + g, kk * 16 + 8 + 2 * c));
-    }
+    mma_pxt<D>(s, vt, g, c, acc);  // acc += p . v, p rounded to bf16
   }
 
 #pragma unroll
@@ -419,17 +459,149 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
     float total = l[h];
     total += __shfl_xor_sync(0xffffffffu, total, 1);
     total += __shfl_xor_sync(0xffffffffu, total, 2);
-    const int row = q0 + r0 + 8 * h;
-    if (row >= seq) continue;
-    if (c == 0)
+    l[h] = 1.f / total;
+    const int row = q0 + w16 + g + 8 * h;
+    if (c == 0 && row < seq)
       lse[static_cast<long long>(blockIdx.y) * seq + row] = m[h] + logf(total);
-    const float inv = 1.f / total;
-    __nv_bfloat16* orow = o + base + static_cast<long long>(row) * D;
 #pragma unroll
-    for (int t = 0; t < NDT; ++t)
-      *reinterpret_cast<__nv_bfloat162*>(orow + t * 8 + 2 * c) =
-          __floats2bfloat162_rn(acc[t][2 * h] * inv, acc[t][2 * h + 1] * inv);
+    for (int t = 0; t < D / 8; ++t) {
+      acc[t][2 * h] *= l[h];
+      acc[t][2 * h + 1] *= l[h];
+    }
   }
+  store_mma<D>(o + base, q0, seq, w16, g, c, acc, 1.f);
+}
+
+// Backward, dq: one block per (64-row query tile, bh), looping over keys.
+template <int D>
+__global__ void __launch_bounds__(kThreadsMma)
+flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                        const __nv_bfloat16* __restrict__ k,
+                        const __nv_bfloat16* __restrict__ v,
+                        const __nv_bfloat16* __restrict__ g_in,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ delta,
+                        __nv_bfloat16* __restrict__ dq, int seq, float scale) {
+  constexpr int TILE = kTile * (D + 8);
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* gs = qs + TILE;   // [64][D + 8]
+  __nv_bfloat16* ks = gs + TILE;   // [64][D + 8]
+  __nv_bfloat16* vs = ks + TILE;   // [64][D + 8]
+  __nv_bfloat16* kt = vs + TILE;   // [D][64 + 8], K transposed
+
+  const int w16 = threadIdx.x / 32 * 16;
+  const int g = threadIdx.x % 32 / 4;
+  const int c = threadIdx.x % 4;
+  const int q0 = blockIdx.x * kTile;
+  const long long base = static_cast<long long>(blockIdx.y) * seq * D;
+  const long long rbase = static_cast<long long>(blockIdx.y) * seq;
+  stage<D>(q + base, q0, seq, qs, nullptr);
+  stage<D>(g_in + base, q0, seq, gs, nullptr);
+  float row_lse[2], row_delta[2], acc[D / 8][4];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = q0 + w16 + g + 8 * h;
+    row_lse[h] = row < seq ? lse[rbase + row] : 0.f;
+    row_delta[h] = row < seq ? delta[rbase + row] : 0.f;
+  }
+#pragma unroll
+  for (int t = 0; t < D / 8; ++t)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[t][e] = 0.f;
+
+  for (int k0 = 0; k0 < seq; k0 += kTile) {
+    __syncthreads();
+    stage<D>(k + base, k0, seq, ks, kt);
+    stage<D>(v + base, k0, seq, vs, nullptr);
+    __syncthreads();
+
+    float s[8][4], dp[8][4];
+    mma_abt<D>(qs, ks, w16, g, c, s);
+    mma_abt<D>(gs, vs, w16, g, c, dp);
+#pragma unroll
+    for (int t = 0; t < 8; ++t)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int h = e / 2;
+        const float p = k0 + t * 8 + 2 * c + e % 2 < seq
+                            ? expf(s[t][e] * scale - row_lse[h]) : 0.f;
+        s[t][e] = p * (dp[t][e] - row_delta[h]);  // ds
+      }
+    mma_pxt<D>(s, kt, g, c, acc);  // acc += ds . k
+  }
+  store_mma<D>(dq + base, q0, seq, w16, g, c, acc, scale);
+}
+
+// Backward, dk and dv: one block per (64-row key tile, bh), looping over
+// queries. The products are taken transposed: s^T = k . q^T, dp^T = v . g^T,
+// dv = p^T . g, dk = ds^T . q.
+template <int D>
+__global__ void __launch_bounds__(kThreadsMma)
+flash_bwd_dkdv_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                          const __nv_bfloat16* __restrict__ k,
+                          const __nv_bfloat16* __restrict__ v,
+                          const __nv_bfloat16* __restrict__ g_in,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ delta,
+                          __nv_bfloat16* __restrict__ dk,
+                          __nv_bfloat16* __restrict__ dv, int seq,
+                          float scale) {
+  constexpr int TILE = kTile * (D + 8);
+  constexpr int TILE_T = D * kLdT;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* vs = ks + TILE;      // [64][D + 8]
+  __nv_bfloat16* qs = vs + TILE;      // [64][D + 8]
+  __nv_bfloat16* gs = qs + TILE;      // [64][D + 8]
+  __nv_bfloat16* qt = gs + TILE;      // [D][64 + 8]
+  __nv_bfloat16* gt = qt + TILE_T;    // [D][64 + 8]
+  float* lses = reinterpret_cast<float*>(gt + TILE_T);  // [64]
+  float* deltas = lses + kTile;                          // [64]
+
+  const int w16 = threadIdx.x / 32 * 16;
+  const int g = threadIdx.x % 32 / 4;
+  const int c = threadIdx.x % 4;
+  const int k0 = blockIdx.x * kTile;
+  const long long base = static_cast<long long>(blockIdx.y) * seq * D;
+  const long long rbase = static_cast<long long>(blockIdx.y) * seq;
+  stage<D>(k + base, k0, seq, ks, nullptr);
+  stage<D>(v + base, k0, seq, vs, nullptr);
+  float dk_acc[D / 8][4], dv_acc[D / 8][4];
+#pragma unroll
+  for (int t = 0; t < D / 8; ++t)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[t][e] = dv_acc[t][e] = 0.f;
+
+  for (int q0 = 0; q0 < seq; q0 += kTile) {
+    __syncthreads();
+    stage<D>(q + base, q0, seq, qs, qt);
+    stage<D>(g_in + base, q0, seq, gs, gt);
+    if (threadIdx.x < kTile) {
+      const int row = q0 + threadIdx.x;
+      lses[threadIdx.x] = row < seq ? lse[rbase + row] : 0.f;
+      deltas[threadIdx.x] = row < seq ? delta[rbase + row] : 0.f;
+    }
+    __syncthreads();
+
+    float st[8][4], dpt[8][4];
+    mma_abt<D>(ks, qs, w16, g, c, st);   // key rows, query columns
+    mma_abt<D>(vs, gs, w16, g, c, dpt);
+#pragma unroll
+    for (int t = 0; t < 8; ++t)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = t * 8 + 2 * c + e % 2;
+        const float p = q0 + col < seq ? expf(st[t][e] * scale - lses[col])
+                                       : 0.f;
+        st[t][e] = p;                               // p^T
+        dpt[t][e] = p * (dpt[t][e] - deltas[col]);  // ds^T
+      }
+    mma_pxt<D>(st, gt, g, c, dv_acc);   // dv += p^T . g
+    mma_pxt<D>(dpt, qt, g, c, dk_acc);  // dk += ds^T . q
+  }
+  store_mma<D>(dk + base, k0, seq, w16, g, c, dk_acc, scale);
+  store_mma<D>(dv + base, k0, seq, w16, g, c, dv_acc, 1.f);
 }
 
 // ---------------------------------------------------------------------------
@@ -563,7 +735,9 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   store_rows<T, D>(dv + base, k0, seq, ty, tx, dv_acc, 1.f);
 }
 
-constexpr size_t tile_floats(int d) { return static_cast<size_t>(kTile) * (d + 1); }
+constexpr size_t tile_floats(int d) {
+  return static_cast<size_t>(kTile) * (d + 1);
+}
 
 // Let `Kern` use `bytes` of dynamic shared memory (above the 48 KB default).
 // Set once per kernel, on its first launch, so that a launch captured into
@@ -584,7 +758,7 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o,
   const dim3 grid((seq + kTile - 1) / kTile, bh);
   if constexpr (std::is_same_v<T, __nv_bfloat16>) {
     const size_t bytes =
-        (2 * kTile * (D + 8) + D * (kTile + 8)) * sizeof(__nv_bfloat16);
+        (2 * kTile * (D + 8) + D * kLdT) * sizeof(__nv_bfloat16);
     cudaError_t err = allow_smem<flash_fwd_mma_kernel<D>>(bytes);
     if (err != cudaSuccess) return err;
     flash_fwd_mma_kernel<D><<<grid, kThreadsMma, bytes, stream>>>(
@@ -601,6 +775,7 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o,
   return cudaGetLastError();
 }
 
+// fp32 inputs take the scalar kernels, bf16 inputs the tensor-core ones.
 template <typename T, int D>
 cudaError_t launch_bwd(const void* q, const void* k, const void* v,
                        const void* g, const float* lse, const float* delta,
@@ -611,23 +786,41 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v,
   const T* kp = static_cast<const T*>(k);
   const T* vp = static_cast<const T*>(v);
   const T* gp = static_cast<const T*>(g);
-
-  const size_t dq_bytes = (4 * tile_floats(D) + kTile * kPS) * sizeof(float);
-  cudaError_t err = allow_smem<flash_bwd_dq_kernel<T, D>>(dq_bytes);
-  if (err != cudaSuccess) return err;
-  flash_bwd_dq_kernel<T, D><<<grid, kThreads, dq_bytes, stream>>>(
-      qp, kp, vp, gp, lse, delta, static_cast<T*>(dq), seq, scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-
-  const size_t kv_bytes =
-      (4 * tile_floats(D) + 2 * kTile * kPS + 2 * kTile) * sizeof(float);
-  err = allow_smem<flash_bwd_dkdv_kernel<T, D>>(kv_bytes);
-  if (err != cudaSuccess) return err;
-  flash_bwd_dkdv_kernel<T, D><<<grid, kThreads, kv_bytes, stream>>>(
-      qp, kp, vp, gp, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv),
-      seq, scale);
-  return cudaGetLastError();
+  if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+    constexpr size_t tile = kTile * (D + 8), tile_t = D * kLdT;
+    const size_t dq_bytes = (4 * tile + tile_t) * sizeof(T);
+    cudaError_t err = allow_smem<flash_bwd_dq_mma_kernel<D>>(dq_bytes);
+    if (err != cudaSuccess) return err;
+    flash_bwd_dq_mma_kernel<D><<<grid, kThreadsMma, dq_bytes, stream>>>(
+        qp, kp, vp, gp, lse, delta, static_cast<T*>(dq), seq, scale);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    const size_t kv_bytes =
+        (4 * tile + 2 * tile_t) * sizeof(T) + 2 * kTile * sizeof(float);
+    err = allow_smem<flash_bwd_dkdv_mma_kernel<D>>(kv_bytes);
+    if (err != cudaSuccess) return err;
+    flash_bwd_dkdv_mma_kernel<D><<<grid, kThreadsMma, kv_bytes, stream>>>(
+        qp, kp, vp, gp, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv),
+        seq, scale);
+    return cudaGetLastError();
+  } else {
+    const size_t dq_bytes =
+        (4 * tile_floats(D) + kTile * kPS) * sizeof(float);
+    cudaError_t err = allow_smem<flash_bwd_dq_kernel<T, D>>(dq_bytes);
+    if (err != cudaSuccess) return err;
+    flash_bwd_dq_kernel<T, D><<<grid, kThreads, dq_bytes, stream>>>(
+        qp, kp, vp, gp, lse, delta, static_cast<T*>(dq), seq, scale);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    const size_t kv_bytes =
+        (4 * tile_floats(D) + 2 * kTile * kPS + 2 * kTile) * sizeof(float);
+    err = allow_smem<flash_bwd_dkdv_kernel<T, D>>(kv_bytes);
+    if (err != cudaSuccess) return err;
+    flash_bwd_dkdv_kernel<T, D><<<grid, kThreads, kv_bytes, stream>>>(
+        qp, kp, vp, gp, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv),
+        seq, scale);
+    return cudaGetLastError();
+  }
 }
 
 template <typename T>
