@@ -40,7 +40,7 @@ def test_attention_matches_jax_kernel(interpret, t, c, heads, bq):
     want = np.asarray(jax_attention(jnp.asarray(qkv), heads, bq))
     before = attention.launches
     got = attention.flash_attention_fused(torch.from_numpy(qkv), heads)
-    ref = attention.fused_attention_ref(torch.from_numpy(qkv), heads)
+    ref = attention.dense_attention(torch.from_numpy(qkv), heads)
     # fp32 softmax on both sides; sums taken in another order
     np.testing.assert_allclose(got.numpy(), want, atol=2e-5, rtol=2e-5)
     assert torch.equal(got, ref)  # a CPU tensor takes the plain version

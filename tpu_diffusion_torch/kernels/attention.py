@@ -5,7 +5,7 @@ Counterparts of `tpu_diffusion/kernels/attention.py`:
 - `flash_attention_fused` (`_fused_kernel_call`): from the raw `[B, T, 3C]`
   qkv projection with channel order `((s*heads + h)*d + i)` for s in
   {q, k, v} to the merged `[B, T, C]` context. Plain version
-  `fused_attention_ref`, kernel `csrc/attention_fused.cu`.
+  `dense_attention`, kernel `csrc/attention_fused.cu`.
 - `flash_attention` (the JAX custom-VJP `flash_attention`): a
   `torch.autograd.Function` on `[B, H, T, d]` or `[BH, T, d]` whose forward
   is `flash_attention_fwd` (`_flash_attention_3d`: o and the fp32 row
@@ -38,14 +38,19 @@ flash_bwd_launches = 0
 HEAD_DIMS = (32, 64, 128)
 
 
-def fused_attention_ref(qkv: torch.Tensor, heads: int) -> torch.Tensor:
-    """Plain PyTorch version: fp32 logits and softmax, p cast to v's type."""
+def dense_attention(qkv: torch.Tensor, heads: int) -> torch.Tensor:
+    """Plain PyTorch attention from the raw [B, T, 3C] qkv to [B, T, C]: the
+    JAX "xla" path (`tpu_diffusion/models/unet.py:187-202`), with heads
+    kept in the trailing axes, q * d^-1/2 in the model's type, fp32 logits
+    and softmax, and probabilities cast to v's type. It is the UNet's
+    "dense" attention and the plain version of `flash_attention_fused`."""
     b, t, c3 = qkv.shape
     c = c3 // 3
     d = c // heads
     r = qkv.reshape(b, t, 3, heads, d)
     q, k, v = r[:, :, 0], r[:, :, 1], r[:, :, 2]
-    logits = torch.einsum("bqhd,bkhd->bhqk", q.float() * d ** -0.5, k.float())
+    logits = torch.einsum("bqhd,bkhd->bhqk", (q * d ** -0.5).float(),
+                          k.float())
     p = torch.softmax(logits, dim=-1).to(v.dtype)
     return torch.einsum("bhqk,bkhd->bqhd", p, v).reshape(b, t, c)
 
@@ -63,7 +68,7 @@ def _entry():
 def flash_attention_fused(qkv: torch.Tensor, heads: int) -> torch.Tensor:
     """softmax(q k^T / sqrt(d)) v per head, from the raw [B, T, 3C] qkv."""
     if qkv.device.type == "cpu":
-        return fused_attention_ref(qkv, heads)
+        return dense_attention(qkv, heads)
     return _launch(qkv, heads)
 
 

@@ -15,18 +15,20 @@
 //             dv = p^T . g, dk = ds^T . q * d^-1/2.
 //
 // Bound on the H100: at the 64px UNet's shape ([128, 1024, 64] bf16) the
-// forward's 34.4 GFLOP need 34.7 us at the bf16 tensor-core rate against
-// 20 us for its 68 MB, and the backward's 120 GFLOP (6 T^2 d per slice in
-// the dq kernel, 8 T^2 d in the dk/dv kernel) need 122 us against 35 us for
-// its 118 MB, so both are bound by operations. For bf16 inputs every
-// product runs on the tensor cores (`flash_fwd_mma_kernel`,
+// forward's 34.4 GFLOP (s and p.v, 4 T^2 d per slice) need 34.7 us at the
+// bf16 tensor-core rate against 20 us for its 68 MB, and the backward's
+// 85.9 GFLOP (s, dp, dq, dk and dv, 10 T^2 d per slice) need 86.9 us
+// against 35 us for its 118 MB, so both are bound by operations. The
+// backward as built does 14 T^2 d per slice, 120 GFLOP: with no atomics,
+// the dq kernel and the dk/dv kernel each recompute s and dp. For bf16
+// inputs every product runs on the tensor cores (`flash_fwd_mma_kernel`,
 // `flash_bwd_dq_mma_kernel`, `flash_bwd_dkdv_mma_kernel`: `mma.sync`
 // m16n8k16 with fp32 accumulators, 4 warps of 16 rows per 64-row tile; no
 // `cp.async` pipeline or `wgmma` yet). For fp32 inputs the scalar kernels
 // (`flash_fwd_kernel`, `flash_bwd_dq_kernel`, `flash_bwd_dkdv_kernel`) do
 // every product with fp32 FMAs on the CUDA cores (67 TFLOP/s, not the
 // tensor cores' 989), with a floor of ~0.5 ms forward and ~1.8 ms backward
-// at that shape.
+// (its 14 T^2 d) at that shape.
 //
 // Both sets share one design. A block owns 64 rows (query rows for the
 // forward and dq kernels, key rows for dk/dv) and walks the other side in
@@ -59,8 +61,6 @@
 #include <math.h>
 #include <stdint.h>
 
-#include <type_traits>
-
 #include "common.cuh"
 
 namespace {
@@ -71,10 +71,11 @@ constexpr int kPS = kTile + 1;  // padded row stride of a 64 x 64 fp32 tile
 
 // Stage rows [row0, row0 + 64) of a [seq, D] slice into dst[64][D + 1] as
 // fp32 times `mul`; rows past seq are zero.
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(const T* __restrict__ src, int row0,
-                                          int seq, float* dst, float mul) {
-  constexpr int VEC = tdt::vec16<T>();
+template <int D>
+__device__ __forceinline__ void load_tile(const float* __restrict__ src,
+                                          int row0, int seq, float* dst,
+                                          float mul) {
+  constexpr int VEC = tdt::vec16<float>();
   constexpr int VPR = D / VEC;
   constexpr int LD = D + 1;
   for (int idx = threadIdx.x; idx < kTile * VPR; idx += kThreads) {
@@ -153,8 +154,8 @@ __device__ __forceinline__ float row_sum(float x) {
   return x;
 }
 
-template <typename T, int D>
-__device__ __forceinline__ void store_rows(T* __restrict__ dst, int row0,
+template <int D>
+__device__ __forceinline__ void store_rows(float* __restrict__ dst, int row0,
                                            int seq, int ty, int tx,
                                            const float (&acc)[4][D / 16],
                                            float mul) {
@@ -164,19 +165,18 @@ __device__ __forceinline__ void store_rows(T* __restrict__ dst, int row0,
     if (row >= seq) continue;
 #pragma unroll
     for (int j = 0; j < D / 16; ++j)
-      dst[static_cast<long long>(row) * D + tx + 16 * j] =
-          tdt::from_f<T>(acc[i][j] * mul);
+      dst[static_cast<long long>(row) * D + tx + 16 * j] = acc[i][j] * mul;
   }
 }
 
 // ---------------------------------------------------------------------------
-// Forward: one block per (64-row query tile, bh).
+// Scalar forward, fp32 only: one block per (64-row query tile, bh).
 // ---------------------------------------------------------------------------
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o,
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ o,
                  float* __restrict__ lse, int seq, float scale) {
   constexpr int LD = D + 1;
   constexpr int NC = D / 16;
@@ -191,7 +191,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int q0 = blockIdx.x * kTile;
   const long long base = static_cast<long long>(blockIdx.y) * seq * D;
 
-  load_tile<T, D>(q + base, q0, seq, qs, scale);
+  load_tile<D>(q + base, q0, seq, qs, scale);
   float m[4], l[4], acc[4][NC];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -203,8 +203,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int k0 = 0; k0 < seq; k0 += kTile) {
     __syncthreads();  // the previous tile is consumed
-    load_tile<T, D>(k + base, k0, seq, ks, 1.f);
-    load_tile<T, D>(v + base, k0, seq, vs, 1.f);
+    load_tile<D>(k + base, k0, seq, ks, 1.f);
+    load_tile<D>(v + base, k0, seq, vs, 1.f);
     __syncthreads();
 
     float s[4][4];
@@ -247,7 +247,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = 0; i < 4; ++i)
 #pragma unroll
     for (int j = 0; j < NC; ++j) acc[i][j] *= l[i];
-  store_rows<T, D>(o + base, q0, seq, ty, tx, acc, 1.f);
+  store_rows<D>(o + base, q0, seq, ty, tx, acc, 1.f);
 }
 
 // ---------------------------------------------------------------------------
@@ -605,15 +605,16 @@ flash_bwd_dkdv_mma_kernel(const __nv_bfloat16* __restrict__ q,
 }
 
 // ---------------------------------------------------------------------------
-// Backward, dq: one block per (64-row query tile, bh), looping over keys.
+// Scalar backward, fp32 only, dq: one block per (64-row query tile, bh),
+// looping over keys.
 // ---------------------------------------------------------------------------
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ g,
+flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, const float* __restrict__ g,
                     const float* __restrict__ lse,
-                    const float* __restrict__ delta, T* __restrict__ dq,
+                    const float* __restrict__ delta, float* __restrict__ dq,
                     int seq, float scale) {
   constexpr int LD = D + 1;
   constexpr int NC = D / 16;
@@ -630,8 +631,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const long long base = static_cast<long long>(blockIdx.y) * seq * D;
   const long long rbase = static_cast<long long>(blockIdx.y) * seq;
 
-  load_tile<T, D>(q + base, q0, seq, qs, scale);
-  load_tile<T, D>(g + base, q0, seq, gs, 1.f);
+  load_tile<D>(q + base, q0, seq, qs, scale);
+  load_tile<D>(g + base, q0, seq, gs, 1.f);
   float row_lse[4], row_delta[4], acc[4][NC];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -644,8 +645,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int k0 = 0; k0 < seq; k0 += kTile) {
     __syncthreads();
-    load_tile<T, D>(k + base, k0, seq, ks, 1.f);
-    load_tile<T, D>(v + base, k0, seq, vs, 1.f);
+    load_tile<D>(k + base, k0, seq, ks, 1.f);
+    load_tile<D>(v + base, k0, seq, vs, 1.f);
     __syncthreads();
 
     float s[4][4], dp[4][4];
@@ -662,21 +663,24 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();
     acc_pv<D>(dss, ks, ty, tx, acc);
   }
-  store_rows<T, D>(dq + base, q0, seq, ty, tx, acc, scale);
+  store_rows<D>(dq + base, q0, seq, ty, tx, acc, scale);
 }
 
 // ---------------------------------------------------------------------------
-// Backward, dk and dv: one block per (64-row key tile, bh), looping over
-// queries.
+// Scalar backward, fp32 only, dk and dv: one block per (64-row key tile,
+// bh), looping over queries.
 // ---------------------------------------------------------------------------
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                      const T* __restrict__ v, const T* __restrict__ g,
+flash_bwd_dkdv_kernel(const float* __restrict__ q,
+                      const float* __restrict__ k,
+                      const float* __restrict__ v,
+                      const float* __restrict__ g,
                       const float* __restrict__ lse,
-                      const float* __restrict__ delta, T* __restrict__ dk,
-                      T* __restrict__ dv, int seq, float scale) {
+                      const float* __restrict__ delta,
+                      float* __restrict__ dk, float* __restrict__ dv, int seq,
+                      float scale) {
   constexpr int LD = D + 1;
   constexpr int NC = D / 16;
   extern __shared__ float smem[];
@@ -695,8 +699,8 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const long long base = static_cast<long long>(blockIdx.y) * seq * D;
   const long long rbase = static_cast<long long>(blockIdx.y) * seq;
 
-  load_tile<T, D>(k + base, k0, seq, ks, 1.f);
-  load_tile<T, D>(v + base, k0, seq, vs, 1.f);
+  load_tile<D>(k + base, k0, seq, ks, 1.f);
+  load_tile<D>(v + base, k0, seq, vs, 1.f);
   float dk_acc[4][NC], dv_acc[4][NC];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
@@ -705,8 +709,8 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int q0 = 0; q0 < seq; q0 += kTile) {
     __syncthreads();
-    load_tile<T, D>(q + base, q0, seq, qs, scale);
-    load_tile<T, D>(g + base, q0, seq, gs, 1.f);
+    load_tile<D>(q + base, q0, seq, qs, scale);
+    load_tile<D>(g + base, q0, seq, gs, 1.f);
     if (threadIdx.x < kTile) {
       const int row = q0 + threadIdx.x;
       lses[threadIdx.x] = row < seq ? lse[rbase + row] : 0.f;
@@ -731,8 +735,8 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     acc_pv<D>(pts, gs, ty, tx, dv_acc);
     acc_pv<D>(dsts, qs, ty, tx, dk_acc);  // qs holds q * scale
   }
-  store_rows<T, D>(dk + base, k0, seq, ty, tx, dk_acc, 1.f);
-  store_rows<T, D>(dv + base, k0, seq, ty, tx, dv_acc, 1.f);
+  store_rows<D>(dk + base, k0, seq, ty, tx, dk_acc, 1.f);
+  store_rows<D>(dv + base, k0, seq, ty, tx, dv_acc, 1.f);
 }
 
 constexpr size_t tile_floats(int d) {
@@ -750,109 +754,80 @@ cudaError_t allow_smem(size_t bytes) {
   return err;
 }
 
-// fp32 inputs take the scalar kernel, bf16 inputs the tensor-core kernel.
-template <typename T, int D>
+// bf16 inputs take the tensor-core kernel, fp32 inputs the scalar kernel.
+template <int D>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o,
-                       float* lse, int bh, int seq, float scale,
+                       float* lse, int bh, int seq, float scale, bool bf16,
                        cudaStream_t stream) {
   const dim3 grid((seq + kTile - 1) / kTile, bh);
-  if constexpr (std::is_same_v<T, __nv_bfloat16>) {
-    const size_t bytes =
-        (2 * kTile * (D + 8) + D * kLdT) * sizeof(__nv_bfloat16);
+  if (bf16) {
+    using bf = __nv_bfloat16;
+    const size_t bytes = (2 * kTile * (D + 8) + D * kLdT) * sizeof(bf);
     cudaError_t err = allow_smem<flash_fwd_mma_kernel<D>>(bytes);
     if (err != cudaSuccess) return err;
     flash_fwd_mma_kernel<D><<<grid, kThreadsMma, bytes, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<T*>(o), lse, seq, scale);
+        static_cast<const bf*>(q), static_cast<const bf*>(k),
+        static_cast<const bf*>(v), static_cast<bf*>(o), lse, seq, scale);
   } else {
     const size_t bytes = (3 * tile_floats(D) + kTile * kPS) * sizeof(float);
-    cudaError_t err = allow_smem<flash_fwd_kernel<T, D>>(bytes);
+    cudaError_t err = allow_smem<flash_fwd_kernel<D>>(bytes);
     if (err != cudaSuccess) return err;
-    flash_fwd_kernel<T, D><<<grid, kThreads, bytes, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<T*>(o), lse, seq, scale);
+    flash_fwd_kernel<D><<<grid, kThreads, bytes, stream>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<float*>(o), lse, seq,
+        scale);
   }
   return cudaGetLastError();
 }
 
-// fp32 inputs take the scalar kernels, bf16 inputs the tensor-core ones.
-template <typename T, int D>
+// bf16 inputs take the tensor-core kernels, fp32 inputs the scalar kernels.
+template <int D>
 cudaError_t launch_bwd(const void* q, const void* k, const void* v,
                        const void* g, const float* lse, const float* delta,
                        void* dq, void* dk, void* dv, int bh, int seq,
-                       float scale, cudaStream_t stream) {
+                       float scale, bool bf16, cudaStream_t stream) {
   const dim3 grid((seq + kTile - 1) / kTile, bh);
-  const T* qp = static_cast<const T*>(q);
-  const T* kp = static_cast<const T*>(k);
-  const T* vp = static_cast<const T*>(v);
-  const T* gp = static_cast<const T*>(g);
-  if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+  if (bf16) {
+    using bf = __nv_bfloat16;
+    const bf *qp = static_cast<const bf*>(q), *kp = static_cast<const bf*>(k),
+             *vp = static_cast<const bf*>(v), *gp = static_cast<const bf*>(g);
     constexpr size_t tile = kTile * (D + 8), tile_t = D * kLdT;
-    const size_t dq_bytes = (4 * tile + tile_t) * sizeof(T);
+    const size_t dq_bytes = (4 * tile + tile_t) * sizeof(bf);
     cudaError_t err = allow_smem<flash_bwd_dq_mma_kernel<D>>(dq_bytes);
     if (err != cudaSuccess) return err;
     flash_bwd_dq_mma_kernel<D><<<grid, kThreadsMma, dq_bytes, stream>>>(
-        qp, kp, vp, gp, lse, delta, static_cast<T*>(dq), seq, scale);
+        qp, kp, vp, gp, lse, delta, static_cast<bf*>(dq), seq, scale);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
     const size_t kv_bytes =
-        (4 * tile + 2 * tile_t) * sizeof(T) + 2 * kTile * sizeof(float);
+        (4 * tile + 2 * tile_t) * sizeof(bf) + 2 * kTile * sizeof(float);
     err = allow_smem<flash_bwd_dkdv_mma_kernel<D>>(kv_bytes);
     if (err != cudaSuccess) return err;
     flash_bwd_dkdv_mma_kernel<D><<<grid, kThreadsMma, kv_bytes, stream>>>(
-        qp, kp, vp, gp, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv),
+        qp, kp, vp, gp, lse, delta, static_cast<bf*>(dk), static_cast<bf*>(dv),
         seq, scale);
-    return cudaGetLastError();
   } else {
+    const float *qp = static_cast<const float*>(q),
+                *kp = static_cast<const float*>(k),
+                *vp = static_cast<const float*>(v),
+                *gp = static_cast<const float*>(g);
     const size_t dq_bytes =
         (4 * tile_floats(D) + kTile * kPS) * sizeof(float);
-    cudaError_t err = allow_smem<flash_bwd_dq_kernel<T, D>>(dq_bytes);
+    cudaError_t err = allow_smem<flash_bwd_dq_kernel<D>>(dq_bytes);
     if (err != cudaSuccess) return err;
-    flash_bwd_dq_kernel<T, D><<<grid, kThreads, dq_bytes, stream>>>(
-        qp, kp, vp, gp, lse, delta, static_cast<T*>(dq), seq, scale);
+    flash_bwd_dq_kernel<D><<<grid, kThreads, dq_bytes, stream>>>(
+        qp, kp, vp, gp, lse, delta, static_cast<float*>(dq), seq, scale);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
     const size_t kv_bytes =
         (4 * tile_floats(D) + 2 * kTile * kPS + 2 * kTile) * sizeof(float);
-    err = allow_smem<flash_bwd_dkdv_kernel<T, D>>(kv_bytes);
+    err = allow_smem<flash_bwd_dkdv_kernel<D>>(kv_bytes);
     if (err != cudaSuccess) return err;
-    flash_bwd_dkdv_kernel<T, D><<<grid, kThreads, kv_bytes, stream>>>(
-        qp, kp, vp, gp, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv),
-        seq, scale);
-    return cudaGetLastError();
+    flash_bwd_dkdv_kernel<D><<<grid, kThreads, kv_bytes, stream>>>(
+        qp, kp, vp, gp, lse, delta, static_cast<float*>(dk),
+        static_cast<float*>(dv), seq, scale);
   }
-}
-
-template <typename T>
-cudaError_t fwd_dispatch(const void* q, const void* k, const void* v, void* o,
-                         float* lse, int bh, int seq, int head_dim,
-                         float scale, cudaStream_t s) {
-  switch (head_dim) {
-    case 32: return launch_fwd<T, 32>(q, k, v, o, lse, bh, seq, scale, s);
-    case 64: return launch_fwd<T, 64>(q, k, v, o, lse, bh, seq, scale, s);
-    case 128: return launch_fwd<T, 128>(q, k, v, o, lse, bh, seq, scale, s);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
-template <typename T>
-cudaError_t bwd_dispatch(const void* q, const void* k, const void* v,
-                         const void* g, const float* lse, const float* delta,
-                         void* dq, void* dk, void* dv, int bh, int seq,
-                         int head_dim, float scale, cudaStream_t s) {
-  switch (head_dim) {
-    case 32:
-      return launch_bwd<T, 32>(q, k, v, g, lse, delta, dq, dk, dv, bh, seq,
-                               scale, s);
-    case 64:
-      return launch_bwd<T, 64>(q, k, v, g, lse, delta, dq, dk, dv, bh, seq,
-                               scale, s);
-    case 128:
-      return launch_bwd<T, 128>(q, k, v, g, lse, delta, dq, dk, dv, bh, seq,
-                                scale, s);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -865,10 +840,13 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
                                    int head_dim, float scale, int is_bf16,
                                    void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    return fwd_dispatch<__nv_bfloat16>(q, k, v, o, lse, bh, seq, head_dim,
-                                       scale, s);
-  return fwd_dispatch<float>(q, k, v, o, lse, bh, seq, head_dim, scale, s);
+  const bool bf16 = is_bf16 != 0;
+  switch (head_dim) {
+    case 32: return launch_fwd<32>(q, k, v, o, lse, bh, seq, scale, bf16, s);
+    case 64: return launch_fwd<64>(q, k, v, o, lse, bh, seq, scale, bf16, s);
+    case 128: return launch_fwd<128>(q, k, v, o, lse, bh, seq, scale, bf16, s);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 // As above, with g (the gradient of o) in the inputs' type, delta =
@@ -880,9 +858,18 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v,
                                    void* dv, int bh, int seq, int head_dim,
                                    float scale, int is_bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    return bwd_dispatch<__nv_bfloat16>(q, k, v, g, lse, delta, dq, dk, dv, bh,
-                                       seq, head_dim, scale, s);
-  return bwd_dispatch<float>(q, k, v, g, lse, delta, dq, dk, dv, bh, seq,
-                             head_dim, scale, s);
+  const bool bf16 = is_bf16 != 0;
+  switch (head_dim) {
+    case 32:
+      return launch_bwd<32>(q, k, v, g, lse, delta, dq, dk, dv, bh, seq,
+                            scale, bf16, s);
+    case 64:
+      return launch_bwd<64>(q, k, v, g, lse, delta, dq, dk, dv, bh, seq,
+                            scale, bf16, s);
+    case 128:
+      return launch_bwd<128>(q, k, v, g, lse, delta, dq, dk, dv, bh, seq,
+                             scale, bf16, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }

@@ -18,7 +18,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from tpu_diffusion_torch.kernels.attention import (flash_attention,
+from tpu_diffusion_torch.kernels.attention import (dense_attention,
+                                                   flash_attention,
                                                    flash_attention_fused)
 from tpu_diffusion_torch.models.nn import (NORM_IMPLS, FusedNormAct,
                                            GroupNorm32, avg_pool_2x,
@@ -117,21 +118,6 @@ class ResBlock(nn.Module):
         if self.skip is not None:
             x = self.skip(x)
         return x + h
-
-
-def dense_attention(qkv: torch.Tensor, heads: int) -> torch.Tensor:
-    """The JAX "xla" attention (`models/unet.py:187-202`): heads stay in the
-    trailing axes, q * d^-1/2 in the model's type, fp32 logits and softmax,
-    probabilities cast to v's type. [B, T, 3C] -> [B, T, C]."""
-    b, t, c3 = qkv.shape
-    c = c3 // 3
-    d = c // heads
-    r = qkv.reshape(b, t, 3, heads, d)
-    q, k, v = r[:, :, 0], r[:, :, 1], r[:, :, 2]
-    logits = torch.einsum("bqhd,bkhd->bhqk", (q * d ** -0.5).float(),
-                          k.float())
-    probs = torch.softmax(logits, dim=-1).to(v.dtype)
-    return torch.einsum("bhqk,bkhd->bqhd", probs, v).reshape(b, t, c)
 
 
 class AttentionBlock(nn.Module):
