@@ -21,6 +21,19 @@ The DDIM path of the CIFAR-10 bench UNet:
            configurations, each timed twice: samples/s, outputs finite and
            in [-1, 1], the kernels' launch counts equal to what the path
            implies, and every attention block on the fused kernel.
+The fused-inference engine (`models/unet_infer.py`) on the same UNet:
+  resblock_kernel  the whole-ResBlock kernel against its plain version at
+           the five shapes the engine gives it (batch 64, bf16), plus an
+           fp32, an additive-mode and an identity-skip case; times as in
+           `kernel`, with the port's own `ResBlock` module (cuDNN convs; the
+           eager norm chain, and the GN kernel) as the library yardstick;
+  engine_forward  eps through the engine (its five 32x32 ResBlocks on the
+           kernel) against eps of the plain model, both norm
+           configurations, with the engine's decision log; one forward's
+           device and eager time beside the model's own;
+  engine_ddim  DDIM-100 through the engine, K=3 and K=1: samples/s, outputs
+           finite and in [-1, 1], and the ResBlock kernel's launch count
+           equal to what the path implies (368 and 500).
 The conditional path of `tpu_diffusion_torch.cli.main --mode eval` on the
 64px flowers UNet (128 channels, channel_mult (1,2,3,4), 2 res blocks,
 64-channel heads, attention at 32/16/8, FiLM, bf16 weights, fp32 norms,
@@ -45,6 +58,15 @@ batch 32, random weights from seed 0):
            MSE/PSNR/SSIM against the (synthetic) test images (random
            weights: no quality claim), outputs finite and in [-1, 1], and
            the flash kernels' launch counts equal to what the path implies.
+DDPM training of `tpu_diffusion_torch.cli.main --mode train` on the same
+64px configuration (flowers,inpainting,amortized; fp32 parameters, bf16
+forward, batch 32, synthetic images):
+  train    20 steps through the cli's own functions (`build`, `init_state`,
+           `make_loss`, the trainer): ms per step after the first, loss and
+           gradient norm finite at every step, parameters and EMA
+           parameters moved, 5 flash forward and 5 flash backward launches
+           per step, a checkpoint written and read back equal, then
+           `cli.main --mode eval` from that checkpoint on a 50-step chain.
 Then the kernel table line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Any failure exits nonzero before that line.
 Needs one CUDA card; imports nothing of JAX.
@@ -211,32 +233,105 @@ def capture_shapes(torch, model, x, t, nn_mod, unet):
     return attn, norm, res
 
 
-def resblock_bound(card_info, res_shapes, min_tokens=1024):
-    """The bound of the TPU kernel not ported yet, `fused_resblock`
-    (tpu_diffusion/kernels/resblock.py:242), per full bench-UNet forward:
-    its engine (models/unet_infer.py) sends every ResBlock of >= 1024 tokens
-    to it. Per call, bf16: read x and the weights, write the output; the
-    operations of its two 3x3 convs and the 1x1 skip (resblock.py:292)."""
-    calls, bnd_total, by_total = 0, 0.0, {}
-    for ((b, h, w, cin), cout, skip), count in sorted(res_shapes.items()):
-        if h * w < min_tokens:
-            continue
-        weights = 9 * cin * cout + 9 * cout * cout + (cin * cout if skip
-                                                      else 0)
-        nbytes = 2 * (b * h * w * (cin + cout) + weights)
-        bnd, by = bound_ms(nbytes, 2 * b * h * w * weights, BF16_FLOPS)
-        calls += count
-        bnd_total += count * bnd
-        by_total[by] = by_total.get(by, 0.0) + count * bnd
-    emit(card_info, phase="unported_kernel", kernel="fused_resblock",
-         replaces="tpu_diffusion/kernels/resblock.py:242",
-         calls_per_forward=calls, bound_ms=bnd_total,
-         bound_by=max(by_total, key=by_total.get),
-         shapes=[[list(k[0]), k[1], k[2], v]
-                 for k, v in sorted(res_shapes.items())
-                 if k[0][1] * k[0][2] >= min_tokens],
-         note="not on any path yet: computed from the bench UNet's shapes "
-              "at batch 64, no kernel runs")
+def resblock_bound(b, h, w, cin, cout, skip, itemsize, op_rate):
+    """The bound of one `fused_resblock` call: read x and the weights, write
+    the output, each once; the operations of its two 3x3 convs and the 1x1
+    skip (tpu_diffusion/kernels/resblock.py:292)."""
+    weights = 9 * cin * cout + 9 * cout * cout + (cin * cout if skip else 0)
+    nbytes = itemsize * (b * h * w * (cin + cout) + weights)
+    return bound_ms(nbytes, 2 * b * h * w * weights, op_rate)
+
+
+def resblock_inputs(torch, gen, dev, b, hw, cin, cout, film, skip, dtype):
+    """Arguments of `fused_resblock`: x ~ N(0.3, 1.5^2), conv weights
+    ~ N(0, 1 / fan_in), norm scales 1 + N(0, 0.1^2), FiLM 1 + N(0, 0.2^2)."""
+    def rand(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    args = [(rand(b, hw, hw, cin) * 1.5 + 0.3).to(dtype),
+            1 + rand(cin, scale=0.1), rand(cin, scale=0.1),
+            rand(3, 3, cin, cout, scale=(9 * cin) ** -0.5).to(dtype),
+            rand(cout, scale=0.1), 1 + rand(cout, scale=0.1),
+            rand(cout, scale=0.1),
+            1 + rand(b, cout, scale=0.2) if film else None,
+            rand(b, cout, scale=0.2),
+            rand(3, 3, cout, cout, scale=(9 * cout) ** -0.5).to(dtype),
+            rand(cout, scale=0.1), None, None]
+    if skip:
+        args[11:] = [rand(cin, cout, scale=cin ** -0.5).to(dtype),
+                     rand(cout, scale=0.1)]
+    return args
+
+
+def resblock_phase(torch, card_info, res_shapes, unet, dev, min_tokens=1024):
+    """`fused_resblock` against `resblock_reference` at the shapes the engine
+    gives it, plus an fp32, an additive-mode and an identity-skip case;
+    returns {kernel: per-forward sums}."""
+    from tpu_diffusion_torch.kernels import resblock
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    bf16, fp32 = torch.bfloat16, torch.float32
+    cases = [(shape[0], shape[1], shape[3], cout, True, skip, bf16, count)
+             for (shape, cout, skip), count in sorted(res_shapes.items())
+             if shape[1] * shape[2] >= min_tokens]
+    cases += [(8, 32, 128, 128, True, False, fp32, 0),
+              (8, 32, 256, 128, False, True, bf16, 0),   # additive mode
+              (8, 16, 256, 256, True, False, bf16, 0)]   # identity skip
+    tot = dict(max_abs_err=0.0, bound_ms=0.0, by={})
+    for b, hw, cin, cout, film, skip, dtype, count in cases:
+        args = resblock_inputs(torch, gen, dev, b, hw, cin, cout, film, skip,
+                               dtype)
+        got = resblock.fused_resblock(*args)
+        want = resblock.resblock_reference(*args)
+        torch.cuda.synchronize()
+        ref_max = want.float().abs().max().item()
+        err = (got.float() - want.float()).abs().max().item()
+        # fp32: the order of the sums through two convs and two norms. bf16:
+        # the kernel rounds conv1's output to bf16 before GN2 where the
+        # plain version keeps it fp32 (2^-9 relative per element, averaged
+        # out by conv2's sum over 9 * Cout terms), and each side rounds its
+        # output once: a bf16 ulp, at most 2^-8 of the largest entry
+        tol = (2e-5 if dtype == fp32 else 1e-2) * ref_max
+        check(math.isfinite(err) and err <= tol,
+              f"resblock {b, hw, cin, cout} {dtype} film={film} skip={skip}: "
+              f"max abs err {err}, tol {tol}")
+        # the library yardstick: the port's own ResBlock module on the same
+        # input (cuDNN convs; it also runs the small emb projection)
+        emb = torch.randn((b, 512), generator=gen, device=dev).to(dtype)
+        xn = args[0].permute(0, 3, 1, 2)
+        blocks = {impl: unet.ResBlock(
+            cin, cout, 512, film, dtype=dtype, device=dev, norm_impl=impl,
+            norm_dtype=dtype if impl == "plain" else None).eval()
+            for impl in ("plain", "fused")}
+
+        def module(impl):
+            def run():
+                with torch.no_grad():
+                    return blocks[impl](xn, emb)
+            return run
+
+        times = measure(lambda: resblock.fused_resblock(*args),
+                        lambda: resblock.resblock_reference(*args),
+                        module("plain"))
+        gn_ms, gn_eager = time_ms(module("fused"))
+        bnd, by = resblock_bound(b, hw, hw, cin, cout, skip,
+                                 args[0].element_size(),
+                                 BF16_FLOPS if dtype == bf16 else FP32_FLOPS)
+        emit(card_info, phase="resblock_kernel", kernel="fused_resblock",
+             shape=[b, hw, hw, cin], cout=cout, film=film, skip_conv=skip,
+             dtype=str(dtype), count_per_forward=count, max_abs_err=err,
+             max_abs_ref=ref_max, tol=tol, **times,
+             library_gn_kernel_ms=gn_ms, library_gn_kernel_eager_ms=gn_eager,
+             bound_ms=bnd, bound_by=by,
+             library="the port's ResBlock module: cuDNN convs with the "
+                     "eager bf16 norm chain (library_ms) or the GN kernel "
+                     "(library_gn_kernel_ms)")
+        if count:
+            tot["max_abs_err"] = max(tot["max_abs_err"], err)
+            tot["bound_ms"] += count * bnd
+            tot["by"][by] = tot["by"].get(by, 0.0) + count * bnd
+            for k, v in {**times, "library_gn_kernel_ms": gn_ms}.items():
+                tot[k] = tot.get(k, 0.0) + count * v
+    return {"fused_resblock": tot}
 
 
 def kernel_phase(torch, F, card_info, attn_shapes, norm_shapes):
@@ -757,6 +852,229 @@ def conditional_phase(torch, F, card_info, dev):
     return totals, launches
 
 
+ENGINE_BLOCKS = ["dec_0_0", "dec_0_1", "dec_0_2", "enc_0_0", "enc_0_1"]
+
+
+def engine_phase(torch, card_info, models, samplers, x, t, xT):
+    """The fused-inference engine on the CIFAR UNet: its forward against the
+    plain model's for both norm configurations, then DDIM-100 (K=3 and K=1)
+    through the engine over the fused-norm model. Returns the ResBlock
+    kernel's launches in the two DDIM runs."""
+    from tpu_diffusion_torch.kernels import resblock
+    from tpu_diffusion_torch.models.unet_infer import make_fused_apply
+    engines = {}
+    for name, (mk, mp) in models.items():
+        fn = engines[name] = make_fused_apply(mk)
+        before = resblock.launches
+        with torch.no_grad():
+            got, want = fn(x, t), mp(x, t)
+        torch.cuda.synchronize()
+        fields, ok = compare(torch, got, want, "eps")
+        on_kernel = sorted(n for n, d in fn.res_decisions.items()
+                           if d["impl"] == "kernel")
+        device_ms, eager_ms = time_ms(lambda fn=fn: fn(x, t), iters=5)
+
+        def forward(model=mk):
+            with torch.no_grad():
+                return model(x, t)
+
+        model_ms, model_eager = time_ms(forward, iters=5)
+        emit(card_info, phase="engine_forward", config=name, batch=BATCH,
+             shape=list(got.shape), **fields, res_decisions={
+                 n: d["impl"] for n, d in fn.res_decisions.items()},
+             kernel_launches=resblock.launches - before,
+             layout_copies=fn.layout_copies, device_ms=device_ms,
+             eager_ms=eager_ms, model_device_ms=model_ms,
+             model_eager_ms=model_eager,
+             note="model_*: the same UNet without the engine (cuDNN "
+                  "ResBlocks), timed in turn")
+        check(ok, f"engine_forward {name}: the engine disagrees with the "
+                  f"plain model")
+        check(on_kernel == ENGINE_BLOCKS
+              and all(fn.res_decisions[n]["tokens"] == 1024
+                      for n in on_kernel)
+              and len(fn.res_decisions) == 22,
+              f"engine_forward {name}: decisions {fn.res_decisions}")
+        check(fn.layout_copies == 0,
+              f"engine_forward {name}: {fn.layout_copies} layout copies")
+
+    fn = engines["norm_fused"]
+    for k in (REUSE, 1):  # warm-up, not counted
+        samplers(fn, 2 * REUSE)[k](xT)
+    torch.cuda.synchronize()
+    resblock.launches = 0
+    n_enc = math.ceil(STEPS / REUSE)
+    for k, want_n in ((REUSE, 2 * n_enc + 3 * STEPS), (1, 5 * STEPS)):
+        before = resblock.launches
+        sample = samplers(fn, STEPS)[k]
+        torch.cuda.synchronize()
+        s0 = time.perf_counter()
+        out = sample(xT)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - s0
+        got_n = resblock.launches - before
+        emit(card_info, phase="engine_ddim", config="norm_fused",
+             encoder_reuse=k, batch=BATCH, steps=STEPS, seconds=seconds,
+             samples_per_s=BATCH / seconds, ms_per_step=seconds * 1e3 / STEPS,
+             resblock_launches=got_n, resblock_expected=want_n,
+             out_min=out.min().item(), out_max=out.max().item(),
+             out_std=out.float().std().item())
+        check(bool(torch.isfinite(out).all()) and out.abs().max() <= 1.0
+              and out.shape == xT.shape, f"engine_ddim K={k}: bad output")
+        check(got_n == want_n, f"engine_ddim K={k}: {got_n} ResBlock kernel "
+                               f"launches, want {want_n}")
+    return resblock.launches
+
+
+TRAIN_STEPS = 20
+
+
+def train_phase(torch, card_info, dev):
+    """DDPM training of `cli.main --mode train` at 64px width through the
+    cli's own functions, a checkpoint round trip, and `--mode eval` from
+    it. Returns the flash kernels' launches in the training steps."""
+    import shutil
+    import tempfile
+
+    from tpu_diffusion_torch.cli import main as cli
+    from tpu_diffusion_torch.data.registry import (get_dataset,
+                                                   infinite_batches)
+    from tpu_diffusion_torch.kernels import attention
+    from tpu_diffusion_torch.train.checkpoint import CheckpointManager
+    from tpu_diffusion_torch.train.trainer import Trainer, make_train_step
+    from tpu_diffusion_torch.utils import config as config_mod
+    spec = "flowers,inpainting,amortized"
+    overrides = ["testing.lpips=false", f"training.num_steps={TRAIN_STEPS}",
+                 f"training.seed={SEED}"]
+    config = config_mod.get_config(spec)
+    config_mod.apply_overrides(config, overrides)
+    torch.manual_seed(SEED)  # the model's own initialisation
+    parts = cli.build(config, dev)
+    state, _ = cli.init_state(config, parts)
+    step_fn = make_train_step(
+        cli.make_loss(parts), ema_decay=config.training.ema_decay,
+        ema_update_every=config.training.ema_update_every)
+    before = {k: v.detach().clone() for k, v in state.params.items()}
+    ema_before = {k: v.clone() for k, v in state.ema.params.items()}
+    train_ds = get_dataset("flowers")("data", train=True)
+    batches = infinite_batches(train_ds, config.training.batch_size,
+                               seed=SEED)
+    trace = []
+
+    def hook(step, m):  # reading the metrics synchronises the device
+        trace.append((time.perf_counter(), m["loss"], m["grad_norm"]))
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    attention.flash_fwd_launches = 0
+    attention.flash_bwd_launches = 0
+    t0 = time.perf_counter()
+    state = Trainer(step_fn, state, batches).fit(TRAIN_STEPS,
+                                                 metrics_hook=hook)
+    torch.cuda.synchronize()
+    launches = {"flash_attention_fwd": attention.flash_fwd_launches,
+                "flash_attention_bwd": attention.flash_bwd_launches}
+    stamps = [t0] + [s for s, _, _ in trace]
+    step_ms = [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])]
+    later = sorted(step_ms[1:])
+    losses = [l for _, l, _ in trace]
+    gnorms = [g for _, _, g in trace]
+    still = [k for k, v in state.params.items() if torch.equal(v, before[k])]
+    moved = len(before) - len(still)
+    ema_moved = sum(1 for k, v in state.ema.params.items()
+                    if not torch.equal(v, ema_before[k]))
+    dtypes = sorted({str(v.dtype) for v in state.params.values()})
+
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        ckpt = CheckpointManager(f"{workdir}/ckpt")
+        assets = {"params": state.params, "ema": state.ema.params,
+                  "step": state.step}
+        ckpt.save(state.step, assets)
+        loaded, restored = ckpt.load(assets)
+        same = restored == state.step and all(
+            torch.equal(loaded[tree][k], v.cpu())
+            for tree in ("params", "ema") for k, v in assets[tree].items())
+        emit(card_info, phase="train", config=spec, batch=config.training
+             .batch_size, steps=TRAIN_STEPS, first_step_ms=step_ms[0],
+             ms_per_step_median=later[len(later) // 2],
+             ms_per_step_min=later[0], ms_per_step_max=later[-1],
+             loss_first=losses[0], loss_last=losses[-1],
+             grad_norm_first=gnorms[0], grad_norm_last=gnorms[-1],
+             param_dtypes=dtypes, compute_dtype=str(state.model.dtype),
+             params_moved=moved, ema_params_moved=ema_moved,
+             params_not_moved=still[:20],
+             n_param_tensors=len(before),
+             n_params=sum(v.numel() for v in before.values()),
+             peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+             flash_fwd_launches=launches["flash_attention_fwd"],
+             flash_bwd_launches=launches["flash_attention_bwd"],
+             checkpoint_equal=same,
+             note="ms per step: host clock between the per-step metric "
+                  "reads (each a device synchronisation), after the first "
+                  "step; synthetic images; the model's own initialisation "
+                  "from the seed")
+        check(all(math.isfinite(v) for v in losses + gnorms),
+              f"train: loss {losses} grad_norm {gnorms}")
+        check(dtypes == ["torch.float32"]
+              and state.model.dtype == torch.bfloat16,
+              f"train: parameter types {dtypes}")
+        # the output convs start at zero and the schedule warms up over 1000
+        # steps, so the gradients that reach the deepest blocks in 20 steps
+        # are still below Adam's eps and an fp32 ulp of their parameters
+        check(2 * moved >= len(before) and 2 * ema_moved >= len(before)
+              and "conv_out.weight" not in still,
+              f"train: {moved} parameters and {ema_moved} EMA parameters of "
+              f"{len(before)} moved")
+        check(launches == {"flash_attention_fwd": 5 * TRAIN_STEPS,
+                           "flash_attention_bwd": 5 * TRAIN_STEPS},
+              f"train: flash launches {launches}")
+        check(same, "train: the checkpoint read back differs")
+        del loaded, before, ema_before
+        ema = {k: v.clone() for k, v in state.ema.params.items()}
+        del state, assets
+        torch.cuda.empty_cache()
+
+        # --mode eval from that workdir: the EMA parameters, a 50-step chain
+        seen = {}
+        real_run_eval = cli.run_eval
+
+        def spy(cfg, prts, model, *a, **kw):
+            seen.update({k: v.detach().clone()
+                         for k, v in model.named_parameters()})
+            return real_run_eval(cfg, prts, model, *a, **kw)
+
+        cli.run_eval = spy
+        try:
+            args = ["--config", spec, "--mode", "eval", "--workdir", workdir,
+                    "--device", dev.type]
+            for o in overrides + [f"diffusion.num_steps={SHORT_STEPS}",
+                                  f"testing.num_test={COND_BATCH}",
+                                  f"testing.batch_size={COND_BATCH}"]:
+                args += ["--override", o]
+            s0 = time.perf_counter()
+            results = cli.main(args)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - s0
+        finally:
+            cli.run_eval = real_run_eval
+        restored_ema = sorted(seen) == sorted(ema) and all(
+            torch.equal(seen[k], v) for k, v in ema.items())
+        emit(card_info, phase="train", run="eval_from_checkpoint",
+             steps=SHORT_STEPS, seconds=seconds, results=results,
+             ema_restored=restored_ema,
+             note=f"chain cut from 1000 to {SHORT_STEPS} steps; 20 training "
+                  f"steps: the metrics make no quality claim")
+        check(restored_ema, "train: --mode eval did not restore the EMA "
+                            "parameters of the checkpoint")
+        check(results["num_images"] == COND_BATCH
+              and all(math.isfinite(v) for v in results.values()),
+              f"train: eval results {results}")
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    return launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -796,7 +1114,7 @@ def main():
     attn_shapes, norm_shapes, res_shapes = capture_shapes(
         torch, models["norm_fused"][0], x, t, nn_mod, unet)
     totals = kernel_phase(torch, F, card_info, attn_shapes, norm_shapes)
-    resblock_bound(card_info, res_shapes)
+    totals.update(resblock_phase(torch, card_info, res_shapes, unet, dev))
 
     # --- full-width forward: kernels against plain versions ------------
     for name, (mk, mp) in models.items():
@@ -859,10 +1177,20 @@ def main():
     counts = {"flash_attention_fused": attention.launches,
               "fused_groupnorm_silu": groupnorm.launches}
 
+    # --- the fused-inference engine on the same UNet ----------------------
+    counts["fused_resblock"] = engine_phase(torch, card_info, models,
+                                            samplers, x, t, xT)
+    del models
+    torch.cuda.empty_cache()
+
     # --- the conditional path of cli.main at 64px -------------------------
     cond_totals, cond_counts = conditional_phase(torch, F, card_info, dev)
     totals.update(cond_totals)
     counts.update(cond_counts)
+
+    # --- DDPM training of cli.main at 64px ---------------------------------
+    for name, n in train_phase(torch, card_info, dev).items():
+        counts[name] += n
     for name, n in counts.items():
         check(n > 0, f"{name} was not launched on the main path")
 
@@ -879,6 +1207,9 @@ def main():
         "flash_attention_bwd": (
             "tpu_diffusion_torch/kernels/csrc/flash_attention.cu",
             "tpu_diffusion/kernels/attention.py:171"),
+        "fused_resblock": (
+            "tpu_diffusion_torch/kernels/csrc/resblock.cu",
+            "tpu_diffusion/kernels/resblock.py:242"),
     }
     per = {
         "flash_attention_fused": "one full CIFAR UNet forward at batch 64 "
@@ -889,12 +1220,17 @@ def main():
                                 "four DDIM-100 runs",
         "flash_attention_fwd": "one full 64px UNet forward at batch 32 (5 "
                                "calls); launches: the five conditional "
-                               "sampling runs",
+                               "sampling runs and the 20 training steps",
         "flash_attention_bwd": "one guidance gradient through the 64px UNet "
                                "at batch 32 (5 calls); launches: the "
-                               "guidance run; max_rel_err: the largest "
-                               "|dq, dk, dv - plain| over each gradient's "
-                               "largest entry",
+                               "guidance run and the 20 training steps; "
+                               "max_rel_err: the largest |dq, dk, dv - "
+                               "plain| over each gradient's largest entry",
+        "fused_resblock": "one full CIFAR UNet forward through the engine "
+                          "at batch 64 (its 5 calls); launches: the two "
+                          "engine DDIM-100 runs; library_ms: the port's "
+                          "ResBlock module, cuDNN convs with the eager norm "
+                          "chain (library_gn_kernel_ms: with the GN kernel)",
     }
     table = []
     for name, (source, replaces) in meta.items():
@@ -903,8 +1239,8 @@ def main():
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": counts[name],
             "max_abs_err": tot["max_abs_err"],
-            **({"max_rel_err": tot["max_rel_err"]} if "max_rel_err" in tot
-               else {}),
+            **{k: tot[k] for k in ("max_rel_err", "library_gn_kernel_ms")
+               if k in tot},
             "ms": tot["ms"],
             "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
             "bound_by": max(tot["by"], key=tot["by"].get),

@@ -265,8 +265,16 @@ def test_ddpm_methods_match_jax():
 def test_loss_function_gives_the_eps_adapter():
     seen = []
     loss_fn, eps = get_loss_function(lambda x, t: seen.append(t) or x,
-                                     DDPM.create(STEPS), pg.Amortized())
+                                     DDPM.create(STEPS),
+                                     pg.ReconstructionGuidance())
     eps(torch.zeros(2), torch.tensor([5, 10]))
     torch.testing.assert_close(seen[0], torch.tensor([0.2, 0.4]))
-    with pytest.raises(NotImplementedError, match="training"):
-        loss_fn(None, None)
+    # the loss beside it is the plain DDPM objective: with the network
+    # returning x_i, mean((x_i - eps)^2) for the given draws
+    x = torch.ones(2, 4, 4, 1)
+    i, noise = torch.tensor([5, 10]), torch.full((2, 4, 4, 1), 0.5)
+    ddpm = DDPM.create(STEPS)
+    want = ((ddpm.q_sample_with_noise(x, noise, i) - noise) ** 2).mean()
+    torch.testing.assert_close(loss_fn(None, x, i=i, noise=noise), want)
+    with pytest.raises(ValueError, match="likelihood"):
+        get_loss_function(lambda x, t: x, ddpm, pg.Amortized())

@@ -154,8 +154,93 @@ def test_prior_sample_rides_the_none_condition():
 
 
 def test_main_refuses_what_is_not_ported(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-        cli.main(["--mode", "train", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        cli.main(["--mode", "eval", "--device", "cpu", "--workdir",
-                  str(tmp_path)])  # testing.lpips defaults to true
+    # testing.lpips defaults to true; training's periodic eval needs it too
+    for mode in ("train", "eval"):
+        with pytest.raises(NotImplementedError, match="ROADMAP A6"):
+            cli.main(["--mode", mode, "--device", "cpu", "--workdir",
+                      str(tmp_path)])
+    assert not list(tmp_path.iterdir())  # refused before anything is written
+
+
+TRAIN_OVERRIDES = EVAL_OVERRIDES + [
+    "diffusion.num_steps=22", "training.num_steps=4", "training.batch_size=2",
+    "training.warmup=2", "network.num_channels=16",
+    "network.num_head_channels=16", "testing.num_test=2"]
+
+
+def _cli(mode, workdir, extra=()):
+    args = ["--config", "mnist,inpainting,amortized", "--mode", mode,
+            "--device", "cpu", "--workdir", str(workdir)]
+    for o in list(TRAIN_OVERRIDES) + list(extra):
+        args += ["--override", o]
+    return cli.main(args)
+
+
+def test_train_all_then_eval_restores_the_ema_parameters(
+        tmp_path, capsys, monkeypatch):
+    results = _cli("all", tmp_path)
+    out = capsys.readouterr().out
+    assert "steps=4" in out and "RANDOM-INIT" not in out
+    # every = max(4 // 10, 1) = 1: a checkpoint per step, the newest three
+    # kept, the final save on top of the last
+    ckpts = sorted(p.name for p in (tmp_path / "ckpt").iterdir())
+    assert ckpts == ["ckpt_00000002.pt", "ckpt_00000003.pt",
+                     "ckpt_00000004.pt"]
+    assert json.loads((tmp_path / "results.json").read_text()) == results
+    per_epoch = json.loads((tmp_path / "results_per_epoch.json").read_text())
+    assert [r["step"] for r in per_epoch] == [1, 2, 3, 4]
+    assert per_epoch[-1]["results"] == results
+    assert results["num_images"] == 2
+    assert (tmp_path / "metrics.csv").exists()
+    saved = torch.load(tmp_path / "ckpt" / "ckpt_00000004.pt",
+                       weights_only=True)
+    assert saved["step"] == 4
+    assert all(v.dtype == torch.float32 for v in saved["params"].values())
+    # training moved the parameters, and the EMA trails them
+    moved = [k for k in saved["params"]
+             if not torch.equal(saved["params"][k], saved["ema"][k])]
+    assert len(moved) > len(saved["params"]) // 2
+
+    # --mode eval on the workdir evaluates exactly those EMA parameters
+    seen = {}
+    real_run_eval = cli.run_eval
+
+    def spy(config, parts, model, *a, **kw):
+        seen.update({k: v.detach().clone()
+                     for k, v in model.named_parameters()})
+        return real_run_eval(config, parts, model, *a, **kw)
+
+    monkeypatch.setattr(cli, "run_eval", spy)
+    again = _cli("eval", tmp_path)
+    out = capsys.readouterr().out
+    assert "RANDOM-INIT" not in out and "warm-start" not in out
+    assert sorted(seen) == sorted(saved["ema"])
+    for k, v in saved["ema"].items():
+        assert torch.equal(seen[k], v), k
+    assert again == results  # same parameters, same testing.seed
+
+
+def test_eval_messages_follow_the_jax_package(tmp_path, capsys):
+    trained, fresh, other = (tmp_path / n for n in ("a", "b", "c"))
+    _cli("train", trained)
+    capsys.readouterr()
+    # a foreign checkpoint through network.model_path: the warm-start message
+    _cli("eval", fresh, [f"network.model_path={trained / 'ckpt'}"])
+    out = capsys.readouterr().out
+    assert "warm-start from" in out and "tensors copied, 0 skipped" in out
+    assert "no local checkpoint; evaluating the" in out
+    assert "RANDOM-INIT" not in out
+    # a path with no checkpoint: from scratch, then the random-init warning
+    _cli("eval", other, [f"network.model_path={tmp_path / 'nowhere'}"])
+    out = capsys.readouterr().out
+    assert "no pretrained weights at" in out and "RANDOM-INIT" in out
+
+
+def test_num_steps_zero_is_derived_from_the_epochs(tmp_path, monkeypatch):
+    fits = []
+    monkeypatch.setattr(cli.Trainer, "fit",
+                        lambda self, n: fits.append(n) or self.state)
+    _cli("train", tmp_path, ["training.num_steps=0", "training.epochs=2",
+                             "training.batch_size=64"])
+    n_train = len(cli.get_dataset("mnist")("data", train=True))
+    assert fits == [2 * n_train // 64]

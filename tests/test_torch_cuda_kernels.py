@@ -10,7 +10,7 @@ without JAX it runs as
 import pytest
 import torch
 
-from tpu_diffusion_torch.kernels import attention, groupnorm
+from tpu_diffusion_torch.kernels import attention, groupnorm, resblock
 
 
 @pytest.fixture
@@ -146,6 +146,82 @@ def test_cuda_flash_autograd_uses_both_kernels(cuda):
     want = torch.autograd.grad((ref * g).sum(), (q, k, v))
     for a, b in zip(grads, want):
         torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+
+
+def _resblock_inputs(seed, b, hw, cin, cout, film, skip, dtype, dev):
+    g = torch.Generator().manual_seed(seed)
+
+    def rand(*shape, scale=1.0):
+        return torch.randn(shape, generator=g) * scale
+
+    x = (rand(b, hw, hw, cin) * 1.5 + 0.3).to(dtype)
+    args = [x, 1 + rand(cin, scale=0.1), rand(cin, scale=0.1),
+            rand(3, 3, cin, cout, scale=(9 * cin) ** -0.5).to(dtype),
+            rand(cout, scale=0.1), 1 + rand(cout, scale=0.1),
+            rand(cout, scale=0.1),
+            (1 + rand(b, cout, scale=0.2)) if film else None,
+            rand(b, cout, scale=0.2),
+            rand(3, 3, cout, cout, scale=(9 * cout) ** -0.5).to(dtype),
+            rand(cout, scale=0.1)]
+    if skip:
+        args += [rand(cin, cout, scale=cin ** -0.5).to(dtype),
+                 rand(cout, scale=0.1)]
+    return [None if a is None else a.to(dev) for a in args]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,b,hw,cin,cout,film,skip", [
+    (torch.bfloat16, 3, 32, 128, 128, True, False),   # the CIFAR shapes
+    (torch.bfloat16, 2, 32, 256, 128, True, True),
+    (torch.bfloat16, 2, 32, 384, 128, True, True),
+    (torch.float32, 2, 32, 128, 128, True, False),
+    (torch.float32, 2, 16, 96, 64, False, True),      # additive, 32-chunks
+    (torch.bfloat16, 2, 16, 96, 192, False, True),    # 64-channel tiles
+    (torch.bfloat16, 1, 64, 64, 256, True, True),     # two rows per block
+    (torch.float32, 3, 16, 64, 64, True, False)])     # 8 rows per block
+def test_cuda_resblock_matches_plain(cuda, dtype, b, hw, cin, cout, film,
+                                     skip):
+    args = _resblock_inputs(cin + cout, b, hw, cin, cout, film, skip, dtype,
+                            cuda)
+    before = resblock.launches
+    got = resblock.fused_resblock(*args)
+    torch.backends.cudnn.allow_tf32 = False  # the plain convs in full fp32
+    want = resblock.resblock_reference(*args)
+    torch.cuda.synchronize()
+    assert resblock.launches == before + 1
+    assert got.dtype == dtype and got.shape == (b, hw, hw, cout)
+    scale = want.float().abs().max().item()
+    # fp32: the order of the sums, through two convolutions and two norms;
+    # bf16: the mid tensor is rounded to bf16 before GN2 where the plain
+    # version keeps it fp32 (2^-9 relative per element, averaged out by the
+    # second convolution), and each side rounds its output once (one bf16
+    # ulp, at most 2^-8 of the largest entry)
+    tol = (2e-5 if dtype == torch.float32 else 1e-2) * scale
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=0)
+
+
+@pytest.mark.cuda
+def test_cuda_resblock_rejects_what_the_kernel_does_not_take(cuda):
+    args = _resblock_inputs(0, 2, 16, 64, 64, True, False, torch.float32,
+                            cuda)
+    with pytest.raises(ValueError, match="unsupported shape"):
+        bad = _resblock_inputs(0, 2, 12, 64, 64, True, False, torch.float32,
+                               cuda)
+        resblock.fused_resblock(*bad)  # 12 does not divide 128
+    with pytest.raises(ValueError, match="unsupported shape"):
+        bad = _resblock_inputs(0, 2, 16, 48, 64, True, True, torch.float32,
+                               cuda)
+        resblock.fused_resblock(*bad)  # Cin not a multiple of 32
+    with pytest.raises(ValueError, match="bf16 or fp32"):
+        resblock.fused_resblock(args[0].half(), *args[1:])
+    with pytest.raises(ValueError, match="contiguous"):
+        resblock.fused_resblock(args[0].transpose(1, 2), *args[1:])
+    with pytest.raises(ValueError, match="w1 must be"):
+        resblock.fused_resblock(*args[:3], args[3].bfloat16(), *args[4:])
+    with pytest.raises(ValueError, match="identity skip"):
+        bad = _resblock_inputs(0, 2, 16, 32, 64, True, False, torch.float32,
+                               cuda)
+        resblock.fused_resblock(*bad)
 
 
 @pytest.mark.cuda

@@ -33,7 +33,10 @@ def test_port_has_modules():
                    "sampling/ancestral.py", "convert.py", "__init__.py",
                    "conditioning/likelihoods.py", "conditioning/guidance.py",
                    "losses/ddpm.py", "eval/metrics.py", "utils/config.py",
-                   "data/registry.py", "cli/main.py"):
+                   "data/registry.py", "cli/main.py", "kernels/resblock.py",
+                   "models/unet_infer.py", "core/ema.py", "train/trainer.py",
+                   "train/actions.py", "train/writers.py",
+                   "train/checkpoint.py"):
         assert f"tpu_diffusion_torch/{module}" in names
 
 
@@ -47,7 +50,8 @@ def test_no_jax_imports(path):
 
 def test_import_leaves_jax_unloaded():
     code = ("import sys, tpu_diffusion_torch, tpu_diffusion_torch.kernels."
-            "build, tpu_diffusion_torch.cli.main\n"
+            "build, tpu_diffusion_torch.cli.main, tpu_diffusion_torch.models."
+            "unet_infer, tpu_diffusion_torch.train.trainer\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{sorted(FORBIDDEN)!r})\n"
             "assert not bad, bad\n")

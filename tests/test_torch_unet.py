@@ -206,8 +206,9 @@ def test_create_model_takes_the_jax_signature():
               channel_mult=(1, 2), attention_resolutions="16", device="cpu")
     m = create_model(**kw, learn_sigma=True, dropout=0.0, num_classes=10)
     assert m.conv_out.out_channels == 6  # 2 * in_channels with learn_sigma
-    with pytest.raises(NotImplementedError, match="dropout"):
-        create_model(**kw, dropout=0.1)
+    dropped = create_model(**kw, dropout=0.1)
+    assert {b.dropout for b in dropped.modules() if hasattr(b, "dropout")
+            } == {0.1}
     with pytest.raises(NotImplementedError, match="class"):
         create_model(**kw, class_cond=True, num_classes=10)
 

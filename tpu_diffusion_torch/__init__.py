@@ -6,7 +6,10 @@ weight converter, the DDIM samplers, and the conditional-generation path of
 `cli/main.py --mode eval`: likelihoods, conditioning mechanisms, the prior,
 amortized (plain and encoder-reuse), reconstruction-guidance and replacement
 ancestral samplers, MSE/PSNR/SSIM, the experiment config and the dataset
-registry. Hand-written Hopper kernels are in `kernels/`.
+registry; the fused-inference engine (`models/unet_infer.py`) with the
+whole-ResBlock kernel; and DDPM training (`losses/ddpm.py`, `core/ema.py`,
+`train/`) through `cli/main.py --mode train|all`. Hand-written Hopper
+kernels are in `kernels/`.
 """
 
 from tpu_diffusion_torch.conditioning import (Amortized, HyperResolution,
@@ -14,17 +17,21 @@ from tpu_diffusion_torch.conditioning import (Amortized, HyperResolution,
                                               ReconstructionGuidance,
                                               Replacement, get_conditioning,
                                               get_likelihood)
-from tpu_diffusion_torch.convert import unet_state_dict_from_flax
+from tpu_diffusion_torch.convert import (load_flax_train_state,
+                                         unet_state_dict_from_flax)
 from tpu_diffusion_torch.core.schedules import DDPM
 from tpu_diffusion_torch.eval.metrics import eval_statistics
 from tpu_diffusion_torch.losses.ddpm import make_eps_model
 from tpu_diffusion_torch.models.unet import create_model
+from tpu_diffusion_torch.models.unet_infer import (FusedUNetInference,
+                                                   make_fused_apply)
 from tpu_diffusion_torch.sampling.ancestral import (
     make_cached_amortized_sampler, make_cached_ddim_sampler,
     make_conditional_sampler, make_ddim_sampler, make_prior_sampler)
 from tpu_diffusion_torch.utils.config import apply_overrides, get_config
 
-__all__ = ["Amortized", "DDPM", "HyperResolution", "InPainting",
+__all__ = ["Amortized", "DDPM", "FusedUNetInference", "HyperResolution",
+           "InPainting", "load_flax_train_state", "make_fused_apply",
            "OutPainting", "ReconstructionGuidance", "Replacement",
            "apply_overrides", "create_model", "eval_statistics",
            "get_conditioning", "get_config", "get_likelihood",

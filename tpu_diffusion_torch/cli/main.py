@@ -1,27 +1,32 @@
-"""Amortised-diffusion experiment runner, evaluation mode, in PyTorch.
+"""Amortised-diffusion experiment runner, in PyTorch.
 
 Counterpart of `tpu_diffusion/cli/main.py`:
 
     python -m tpu_diffusion_torch.cli.main \\
-        --config flowers,inpainting,amortized --mode eval \\
+        --config flowers,inpainting,amortized --mode all \\
         --override testing.lpips=false
 
 Builds the UNet, the DDPM process, the likelihood and the conditioning from
-the `<dataset>,<likelihood>,<conditioning>` spec, samples conditionally over
-`testing.num_test` test images (1000 ancestral steps by default; the
-encoder-reuse sampler for amortized conditioning), and writes MSE/PSNR/SSIM
-statistics to `results.json` under the versioned experiment directory
-`logs/<ds>_<cond>_<lik>/version_XX`. Runs on the CUDA card unless
-`--device cpu`. Not ported yet, and raising when asked for: training
-(`--mode train|all`, ROADMAP A5), checkpoint loading (ROADMAP A9), LPIPS
-and FID (ROADMAP A6), and the mesh (ROADMAP A10). With no checkpoint it
-evaluates the model's random initialisation, as the JAX package does, and
-says so.
+the `<dataset>,<likelihood>,<conditioning>` spec. `--mode train` trains the
+DDPM (or amortized) objective with Adam, global-norm clipping and an EMA of
+the parameters, with the JAX package's callback cadence (scalars every 10
+steps; checkpoint, sample grid and periodic eval every num_steps / 10) and
+a final checkpoint under `<workdir>/ckpt/`. `--mode eval` restores the EMA
+parameters from there and samples conditionally over `testing.num_test`
+test images (1000 ancestral steps by default; the encoder-reuse sampler for
+amortized conditioning), writing MSE/PSNR/SSIM statistics to `results.json`
+under the versioned experiment directory
+`logs/<ds>_<cond>_<lik>/version_XX`. `--mode all` does both. Runs on the
+CUDA card unless `--device cpu`. Not ported yet, and raising when asked
+for: LPIPS and FID (ROADMAP A6) and the mesh (ROADMAP A10). With no
+checkpoint, `--mode eval` evaluates the model's random initialisation, as
+the JAX package does, and says so.
 """
 
 from __future__ import annotations
 
 import argparse
+import copy
 import json
 import os
 from typing import Optional
@@ -33,13 +38,22 @@ from tpu_diffusion_torch.conditioning.guidance import (Amortized,
                                                        get_conditioning)
 from tpu_diffusion_torch.conditioning.likelihoods import get_likelihood
 from tpu_diffusion_torch.core.schedules import DDPM
-from tpu_diffusion_torch.data.registry import get_dataset
+from tpu_diffusion_torch.data.registry import get_dataset, infinite_batches
 from tpu_diffusion_torch.eval.metrics import eval_statistics
 from tpu_diffusion_torch.losses.ddpm import get_loss_function
 from tpu_diffusion_torch.models.unet import create_model, resolve_device
 from tpu_diffusion_torch.sampling.ancestral import (
     make_cached_amortized_sampler, make_conditional_sampler,
     make_prior_sampler)
+from tpu_diffusion_torch.train.actions import PeriodicCallback
+from tpu_diffusion_torch.train.checkpoint import (CheckpointManager,
+                                                  load_matching_params,
+                                                  load_pretrained)
+from tpu_diffusion_torch.train.trainer import (TrainState, Trainer,
+                                               make_optimizer,
+                                               make_train_step)
+from tpu_diffusion_torch.train.writers import (LocalWriter, MultiWriter,
+                                               TensorBoardWriter)
 from tpu_diffusion_torch.utils.config import apply_overrides, get_config
 
 
@@ -85,9 +99,65 @@ def build(config, device="cuda") -> dict:
         attention_impl=net_c.attention_impl,
         dtype=torch.bfloat16 if net_c.dtype == "bfloat16" else torch.float32,
         device=device)
-    ddpm = DDPM.create(config.diffusion.num_steps)
+    ddpm = DDPM.create(config.diffusion.num_steps).to(device)
     return dict(model=model, ddpm=ddpm, likelihood=likelihood,
                 conditioning=conditioning, in_channels=in_channels)
+
+
+def init_state(config, parts):
+    """(train state, tensors warm-started) for `parts["model"]` (already
+    initialised from `training.seed`): a `network.model_path` warm start
+    copies every shape-matching tensor of the newest checkpoint there (its
+    EMA parameters when it has them), then Adam with the config's schedule,
+    the EMA, and the generator of the training draws on the model's device.
+    The count (0 = none) lets --mode eval tell "evaluating warm-started
+    pretrained weights" from "evaluating the random initialisation"."""
+    warm_started = 0
+    model = parts["model"]
+    model_path = config.network.get("model_path", "")
+    if model_path:
+        loaded = load_pretrained(model_path)
+        if loaded is None:
+            print(f"[main] no pretrained weights at {model_path!r}; training "
+                  "from scratch")
+        else:
+            src = loaded.get("ema", loaded.get("params", loaded))
+            merged, n_copied, n_skipped = load_matching_params(
+                dict(model.named_parameters()), src)
+            set_params(model, merged)
+            warm_started = n_copied
+            print(f"[main] warm-start from {model_path!r}: {n_copied} "
+                  f"tensors copied, {n_skipped} skipped")
+    tr = config.training
+    optimizer = make_optimizer(
+        model.parameters(), tr.learning_rate, warmup=tr.warmup,
+        grad_clip=tr.grad_clip, total_steps=max(tr.num_steps, 1),
+        schedule=tr.lr_schedule)
+    device = next(model.parameters()).device
+    generator = torch.Generator(device=device).manual_seed(tr.seed)
+    return TrainState.create(model, optimizer, generator), warm_started
+
+
+@torch.no_grad()
+def set_params(model, params) -> None:
+    """Copy {name: tensor} into the model's parameters."""
+    own = dict(model.named_parameters())
+    for name, value in params.items():
+        own[name].copy_(value)
+
+
+def make_loss(parts):
+    """loss(model, generator, batch): the training objective of the
+    conditioning (amortized condition-dropout, or plain DDPM), with the
+    dropout masks drawn from the same generator."""
+    ddpm, cond, lik = parts["ddpm"], parts["conditioning"], parts["likelihood"]
+
+    def loss_fn(model, generator, batch):
+        def net(x, t):
+            return model(x, t, generator=generator)
+        return get_loss_function(net, ddpm, cond, lik)[0](generator, batch)
+
+    return loss_fn
 
 
 def make_samplers(config, parts):
@@ -130,10 +200,12 @@ def _check_metrics(config) -> None:
             "(ROADMAP A6); pass --override testing.lpips=false")
 
 
-def run_eval(config, parts, model, logdir: str, cond_sample=None) -> dict:
+def run_eval(config, parts, model, logdir: str, writer=None, step: int = 0,
+             tag: str = "eval", cond_sample=None) -> dict:
     """Conditional sampling over the test set, MSE/PSNR/SSIM statistics per
-    batch averaged over the batches, and results.json (main.py:261-314).
-    The condition, xT and the chain's noise come from one generator on the
+    batch averaged over the batches, and results.json (main.py:261-314);
+    with a `writer`, the first batch's samples and the scalars too. The
+    condition, xT and the chain's noise come from one generator on the
     model's device, seeded with `testing.seed`."""
     dsc = config.dataset
     lik = parts["likelihood"]
@@ -152,6 +224,7 @@ def run_eval(config, parts, model, logdir: str, cond_sample=None) -> dict:
     num_batches = max(config.testing.num_test // bs, 1)
     gen = torch.Generator(device=device).manual_seed(config.testing.seed)
     stats = []
+    samples, gts = [], []
     n_eval = 0
     for b in range(num_batches):
         imgs = test.images[b * bs:(b + 1) * bs]
@@ -164,11 +237,19 @@ def run_eval(config, parts, model, logdir: str, cond_sample=None) -> dict:
         stats.append({k: float(v) for k, v in
                       eval_statistics(x0, imgs).items()})
         n_eval += len(imgs)
+        if b == 0:
+            samples, gts = x0.cpu().numpy(), imgs.cpu().numpy()
     results = {k: float(np.mean([s[k] for s in stats]))
                for k in (stats[0] if stats else {})}
     results["num_images"] = n_eval
     with open(os.path.join(logdir, "results.json"), "w") as f:
         json.dump(results, f, indent=2)
+    if writer is not None and len(samples):
+        writer.write_images(step, {f"{tag}_samples": samples[:64],
+                                   f"{tag}_ground_truth": gts[:64]})
+        writer.write_scalars(step, {f"{tag}/{k}": v
+                                    for k, v in results.items()
+                                    if isinstance(v, (int, float))})
     return results
 
 
@@ -185,10 +266,6 @@ def main(argv: Optional[list] = None):
                    help="cuda (default) or cpu (the plain PyTorch versions "
                         "of the kernels)")
     args = p.parse_args(argv)
-    if args.mode != "eval":
-        raise NotImplementedError(
-            f"--mode {args.mode}: training is not ported yet (ROADMAP A5, "
-            f"the training slice); the port runs --mode eval")
 
     config = get_config(args.config)
     apply_overrides(config, args.override)
@@ -196,31 +273,111 @@ def main(argv: Optional[list] = None):
     device = resolve_device(args.device)
     logdir = args.workdir or experiment_dir(config.logdir, args.config)
     os.makedirs(logdir, exist_ok=True)
+    writer = MultiWriter([LocalWriter(logdir),
+                          TensorBoardWriter(os.path.join(logdir, "tb"))])
+    writer.log_hparams(config.to_dict())
 
     torch.manual_seed(config.training.seed)  # the model's random init
     parts = build(config, device)
-    model = parts["model"].eval().requires_grad_(False)
-    model_path = config.network.get("model_path", "")
-    if model_path:
-        if os.path.exists(model_path):
-            raise NotImplementedError(
-                f"network.model_path={model_path!r}: loading checkpoints is "
-                f"not ported yet (ROADMAP A9)")
-        print(f"[main] no pretrained weights at {model_path!r}; training "
-              "from scratch")
-    ckpt_dir = os.path.join(logdir, "ckpt")
-    if os.path.isdir(ckpt_dir) and os.listdir(ckpt_dir):
-        raise NotImplementedError(
-            f"{ckpt_dir}: loading checkpoints is not ported yet (ROADMAP A9)")
-    n_params = sum(x.numel() for x in model.parameters())
+    dsc = config.dataset
+    train_ds = get_dataset(dsc.name)(dsc.root, train=True)
+
+    num_steps = config.training.num_steps
+    if num_steps == 0:
+        num_steps = (config.training.epochs * len(train_ds)
+                     // config.training.batch_size)
+        config.training.num_steps = num_steps
+
+    state, warm_started = init_state(config, parts)
+    cond_sample, prior_sample = make_samplers(config, parts)
+    train_step = make_train_step(
+        make_loss(parts), ema_decay=config.training.ema_decay,
+        ema_update_every=config.training.ema_update_every)
+    ckpt = CheckpointManager(os.path.join(logdir, "ckpt"), maximum=3)
+    # the EMA parameters are evaluated in a twin of the model
+    ema_model = copy.deepcopy(state.model).eval().requires_grad_(False)
+
+    n_params = sum(x.numel() for x in state.model.parameters())
     print(f"[main] {args.config} -> {logdir}; params={n_params / 1e6:.2f}M; "
-          f"device={device}")
-    # no checkpoint in this workdir: the JAX package's warning
-    print("[main] WARNING: --mode eval found no checkpoint under this "
-          "workdir; evaluating RANDOM-INIT params (pass --workdir pointing "
-          "at a trained run)")
-    results = run_eval(config, parts, model, logdir)
-    print("[main] eval:", json.dumps(results, indent=2))
+          f"steps={num_steps}; device={device}")
+
+    if args.mode in ("train", "all"):
+        batches = infinite_batches(train_ds, config.training.batch_size,
+                                   seed=config.training.seed)
+        every = max(num_steps // 10, 1)
+
+        def save_ckpt(step, state, **kw):
+            ckpt.save(step, {"params": state.params, "ema": state.ema.params,
+                             "step": step})
+
+        def plot_samples(step, state, **kw):
+            imgs = torch.from_numpy(train_ds.images[:16]).to(device)
+            set_params(ema_model, state.ema.params)
+            # one generator per plot, seeded from the step: mask placement,
+            # prior noise and the chain's noise are successive draws
+            gen = torch.Generator(device=device).manual_seed(
+                (1 << 20) + step)
+            xT = torch.randn(imgs.shape, generator=gen, device=device)
+            if parts["likelihood"] is None:  # unconditional config
+                x0 = prior_sample(ema_model, xT, gen)
+                writer.write_images(step, {"samples": x0.cpu().numpy()})
+                return
+            cond = parts["likelihood"].sample(gen, imgs)
+            x0 = cond_sample(ema_model, xT, cond, gen)
+            writer.write_images(step, {
+                "samples": x0.cpu().numpy(),
+                "condition": cond.clamp(-1, 1).cpu().numpy()})
+
+        def scalars(step, metrics, **kw):
+            writer.write_scalars(step, metrics)
+
+        results_per_step = []
+
+        def periodic_eval(step, state, **kw):
+            # conditional samples on the test set -> MSE/PSNR/SSIM
+            # statistics, appended per eval period
+            set_params(ema_model, state.ema.params)
+            res = run_eval(config, parts, ema_model, logdir, writer,
+                           step=step, tag="train_eval",
+                           cond_sample=cond_sample)
+            results_per_step.append({"step": step, "results": res})
+            with open(os.path.join(logdir, "results_per_epoch.json"),
+                      "w") as f:
+                json.dump(results_per_step, f, indent=2)
+
+        callbacks = [
+            PeriodicCallback(callback_fn=scalars, every_steps=10),
+            PeriodicCallback(callback_fn=save_ckpt, every_steps=every),
+            PeriodicCallback(callback_fn=plot_samples, every_steps=every),
+            PeriodicCallback(callback_fn=periodic_eval, every_steps=every),
+        ]
+        state = Trainer(train_step, state, batches,
+                        callbacks=callbacks).fit(num_steps)
+        save_ckpt(state.step, state)
+
+    results = None
+    if args.mode in ("eval", "all"):
+        ema_params = state.ema.params
+        if args.mode == "eval":
+            assets, restored_step = ckpt.load(
+                {"params": state.params, "ema": state.ema.params, "step": 0})
+            ema_params = assets["ema"]
+            if not restored_step and warm_started:
+                # no checkpoint in this workdir, but network.model_path
+                # warm-started the parameters: evaluate a foreign trained
+                # checkpoint under this config's conditioning
+                print(f"[main] --mode eval: no local checkpoint; evaluating "
+                      f"the {warm_started}-tensor warm-start from "
+                      f"network.model_path")
+            elif not restored_step:
+                print("[main] WARNING: --mode eval found no checkpoint under "
+                      "this workdir; evaluating RANDOM-INIT params (pass "
+                      "--workdir pointing at a trained run)")
+        set_params(ema_model, ema_params)
+        results = run_eval(config, parts, ema_model, logdir, writer,
+                           step=state.step, cond_sample=cond_sample)
+        print("[main] eval:", json.dumps(results, indent=2))
+    writer.flush()
     return results
 
 

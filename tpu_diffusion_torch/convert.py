@@ -92,3 +92,25 @@ def unet_state_dict_from_flax(params: Mapping) -> dict:
             raise KeyError(f"two flax leaves map to {key}")
         out[key] = torch.from_numpy(np.array(arr, np.float32, order="C"))
     return out
+
+
+@torch.no_grad()
+def load_flax_train_state(state, params: Mapping,
+                          ema_params: Mapping | None = None, step: int = 0,
+                          ema_count: int = 0):
+    """A JAX `TrainState`'s `params` and `ema.params` (flax trees of numpy
+    arrays), its `step` and its EMA counter into the port's train state
+    (`train/trainer.py:TrainState`), in place, so that both packages take
+    the same step from the same state. The optimizer's moments are not
+    carried: the state must be fresh on both sides."""
+    if state.optimizer.count:
+        raise ValueError("the optimizer has taken steps: its moments cannot "
+                         "be carried over")
+    state.model.load_state_dict(unet_state_dict_from_flax(params))
+    ema = unet_state_dict_from_flax(params if ema_params is None
+                                    else ema_params)
+    for name, value in state.ema.params.items():
+        value.copy_(ema[name])
+    state.step = step
+    state.ema.count = ema_count
+    return state

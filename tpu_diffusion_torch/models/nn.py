@@ -100,6 +100,61 @@ class FusedNormAct(nn.Module):
         return y.permute(0, 3, 1, 2)
 
 
+class _CastParams:
+    """Mixin of a layer whose parameters are fp32 and whose forward runs in
+    `compute_dtype`: the JAX package's flax layers (`param_dtype` fp32,
+    `dtype` the compute type). Where autograd needs the parameter (training)
+    the cast is part of the graph, so the gradient and the optimizer's
+    update are fp32. Elsewhere (sampling) the cast copy is kept until the
+    parameter changes, so a forward pays no cast."""
+
+    def _init_cast(self, dtype) -> None:
+        self.compute_dtype = dtype or torch.float32
+        self._cast_cache: dict = {}
+
+    def cast(self, name: str) -> torch.Tensor | None:
+        p = self._parameters[name]
+        if p is None or p.dtype is self.compute_dtype:
+            return p
+        if p.requires_grad and torch.is_grad_enabled():
+            return p.to(self.compute_dtype)
+        # an in-place update bumps the version, a move to another device
+        # changes the address
+        key = (p._version, p.data_ptr())
+        hit = self._cast_cache.get(name)
+        if hit is None or hit[0] != key:
+            hit = (key, p.detach().to(self.compute_dtype))
+            self._cast_cache[name] = hit
+        return hit[1]
+
+
+class CastConv2d(_CastParams, nn.Conv2d):
+    def __init__(self, *args, dtype=None, **kw):
+        super().__init__(*args, dtype=torch.float32, **kw)
+        self._init_cast(dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self._conv_forward(x, self.cast("weight"), self.cast("bias"))
+
+
+class CastLinear(_CastParams, nn.Linear):
+    def __init__(self, *args, dtype=None, **kw):
+        super().__init__(*args, dtype=torch.float32, **kw)
+        self._init_cast(dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x, self.cast("weight"), self.cast("bias"))
+
+
+def dropout(x: torch.Tensor, p: float,
+            generator: torch.Generator | None = None) -> torch.Tensor:
+    """Inverted dropout with the mask drawn from `generator`
+    (`torch.nn.functional.dropout` takes none): an entry is kept with
+    probability 1 - p and scaled by 1 / (1 - p)."""
+    keep = torch.rand(x.shape, generator=generator, device=x.device) >= p
+    return x * keep.to(x.dtype) / (1.0 - p)
+
+
 def zero_init_conv(module: nn.Module) -> nn.Module:
     """Zero a conv's or linear's weight and bias (the reference's
     `zero_module`)."""

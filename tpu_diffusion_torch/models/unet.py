@@ -6,7 +6,10 @@ The public layout is the JAX package's: `model(x_nhwc, t)` returns NHWC
 eps, and the encode/decode cache holds NHWC tensors. Internally activations
 are NCHW in `channels_last` memory (see `models/nn.py`). Submodules carry
 the flax module names (`enc_0_0`, `mid_attn`, `dec_attn_1_2`, ...), so
-`convert.py` maps one tree onto the other by name.
+`convert.py` maps one tree onto the other by name. As in the JAX package
+(flax `param_dtype`), every parameter is fp32 and the convs and dense
+layers cast theirs to `dtype` at use (`models/nn.py:CastConv2d`), so the
+optimizer updates fp32 values whatever the forward's type.
 """
 
 from __future__ import annotations
@@ -21,9 +24,11 @@ from torch import nn
 from tpu_diffusion_torch.kernels.attention import (dense_attention,
                                                    flash_attention,
                                                    flash_attention_fused)
-from tpu_diffusion_torch.models.nn import (NORM_IMPLS, FusedNormAct,
+from tpu_diffusion_torch.models.nn import (NORM_IMPLS, CastConv2d,
+                                           CastLinear, FusedNormAct,
                                            GroupNorm32, avg_pool_2x,
-                                           channels_last, nearest_upsample,
+                                           channels_last, dropout,
+                                           nearest_upsample,
                                            timestep_embedding, zero_init_conv)
 
 # "fused": the fused-QKV kernel (JAX "pallas_fused"); "flash": split heads
@@ -46,7 +51,7 @@ def resolve_device(device) -> torch.device:
     return device
 
 
-class SameConv2d(nn.Conv2d):
+class SameConv2d(CastConv2d):
     """Conv2d with flax's "SAME" padding, which for a strided conv puts the
     odd padding row and column at the end (bottom/right)."""
 
@@ -63,8 +68,8 @@ class SameConv2d(nn.Conv2d):
         return super().forward(F.pad(x, pads))
 
 
-def conv3x3(cin: int, cout: int, dtype, device) -> nn.Conv2d:
-    return nn.Conv2d(cin, cout, 3, padding=1, dtype=dtype, device=device)
+def conv3x3(cin: int, cout: int, dtype, device) -> CastConv2d:
+    return CastConv2d(cin, cout, 3, padding=1, dtype=dtype, device=device)
 
 
 def make_norm(channels: int, norm_impl: str, norm_dtype, device,
@@ -80,23 +85,27 @@ class ResBlock(nn.Module):
     def __init__(self, cin: int, cout: int, emb_dim: int,
                  use_scale_shift_norm: bool = False, up: bool = False,
                  down: bool = False, dtype=torch.bfloat16, norm_dtype=None,
-                 norm_impl: str = "plain", device=None):
+                 norm_impl: str = "plain", device=None,
+                 dropout: float = 0.0):
         super().__init__()
         self.cout = cout
+        self.dropout = dropout
         self.use_scale_shift_norm = use_scale_shift_norm
         self.up, self.down = up, down
         self.fused = norm_impl == "fused"
         self.in_norm = make_norm(cin, norm_impl, norm_dtype, device)
         self.in_conv = conv3x3(cin, cout, dtype, device)
-        self.emb_dense = nn.Linear(
+        self.emb_dense = CastLinear(
             emb_dim, 2 * cout if use_scale_shift_norm else cout, dtype=dtype,
             device=device)
         self.out_norm = make_norm(cout, norm_impl, norm_dtype, device)
         self.out_conv = zero_init_conv(conv3x3(cout, cout, dtype, device))
-        self.skip = (nn.Conv2d(cin, cout, 1, dtype=dtype, device=device)
+        self.skip = (CastConv2d(cin, cout, 1, dtype=dtype, device=device)
                      if cin != cout else None)
 
-    def forward(self, x: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, emb: torch.Tensor,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        """`generator` draws the dropout mask (in `train()` mode only)."""
         h = self.in_norm(x) if self.fused else F.silu(self.in_norm(x))
         if self.up:
             h, x = nearest_upsample(h), nearest_upsample(x)
@@ -114,6 +123,8 @@ class ResBlock(nn.Module):
         else:
             h = h + emb_out[:, :, None, None]
             h = self.out_norm(h) if self.fused else F.silu(self.out_norm(h))
+        if self.training and self.dropout > 0:
+            h = dropout(h, self.dropout, generator)
         h = self.out_conv(h)
         if self.skip is not None:
             x = self.skip(x)
@@ -142,10 +153,10 @@ class AttentionBlock(nn.Module):
         self.impl = impl
         self.norm = make_norm(channels, norm_impl, norm_dtype, device,
                               act="none")
-        self.qkv = nn.Linear(channels, 3 * channels, dtype=dtype,
-                             device=device)
-        self.proj = zero_init_conv(nn.Linear(channels, channels, dtype=dtype,
-                                             device=device))
+        self.qkv = CastLinear(channels, 3 * channels, dtype=dtype,
+                              device=device)
+        self.proj = zero_init_conv(CastLinear(channels, channels,
+                                              dtype=dtype, device=device))
 
     def resolved_impl(self, tokens: int) -> str:
         """The implementation a call over `tokens` tokens runs."""
@@ -208,7 +219,8 @@ class UNetModel(nn.Module):
                  use_scale_shift_norm: bool = False,
                  resblock_updown: bool = False,
                  attention_impl: str = "fused", dtype=torch.bfloat16,
-                 norm_dtype=None, norm_impl: str = "plain", device="cuda"):
+                 norm_dtype=None, norm_impl: str = "plain", device="cuda",
+                 dropout: float = 0.0):
         super().__init__()
         if norm_impl not in NORM_IMPLS:
             raise ValueError(f"norm_impl must be one of {NORM_IMPLS}, got "
@@ -229,15 +241,15 @@ class UNetModel(nn.Module):
             self.add_module(name, ResBlock(
                 cin, cout, time_dim, use_scale_shift_norm, dtype=dtype,
                 norm_dtype=norm_dtype, norm_impl=norm_impl, device=device,
-                **kw))
+                dropout=dropout, **kw))
 
         def attn(name, ch):
             self.add_module(name, AttentionBlock(
                 ch, num_heads, num_head_channels, attention_impl, dtype,
                 norm_dtype, norm_impl, device))
 
-        self.time_dense_0 = nn.Linear(ch0, time_dim, **dd)
-        self.time_dense_1 = nn.Linear(time_dim, time_dim, **dd)
+        self.time_dense_0 = CastLinear(ch0, time_dim, **dd)
+        self.time_dense_1 = CastLinear(time_dim, time_dim, **dd)
         self.conv_in = conv3x3(in_channels, ch0, dtype, device)
         chans = [ch0]
         ch, ds = ch0, 1
@@ -287,10 +299,18 @@ class UNetModel(nn.Module):
         return block(h)
 
     def forward(self, x: torch.Tensor, t, *, mode: str = "full",
-                cache=None):
+                cache=None, generator: torch.Generator | None = None):
         """mode="full": the plain forward. mode="encode": the
         `(bottleneck, skips)` cache (NHWC). mode="decode": middle and
-        decoder from such a cache, with the current timestep's embedding."""
+        decoder from such a cache, with the current timestep's embedding.
+        `generator` draws the dropout masks in `train()` mode."""
+        return self.run(x, t, mode, cache,
+                        lambda name, h, emb: getattr(self, name)(h, emb,
+                                                                 generator))
+
+    def run(self, x: torch.Tensor, t, mode: str, cache, res_fn):
+        """The forward with every ResBlock called as `res_fn(name, h, emb)`
+        (`models/unet_infer.py` passes its own)."""
         if mode not in MODES:
             raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
         ch0 = self.model_channels
@@ -306,13 +326,14 @@ class UNetModel(nn.Module):
             ds = 1
             for level, _ in enumerate(self.channel_mult):
                 for i in range(self.num_res_blocks):
-                    h = getattr(self, f"enc_{level}_{i}")(h, emb)
+                    h = res_fn(f"enc_{level}_{i}", h, emb)
                     if ds in self.attention_resolutions:
                         h = self._attn(f"enc_attn_{level}_{i}", h)
                     hs.append(h)
                 if level != len(self.channel_mult) - 1:
-                    down = getattr(self, f"down_{level}")
-                    h = down(h, emb) if self.resblock_updown else down(h)
+                    h = (res_fn(f"down_{level}", h, emb)
+                         if self.resblock_updown
+                         else getattr(self, f"down_{level}")(h))
                     hs.append(h)
                     ds *= 2
             if mode == "encode":
@@ -325,18 +346,19 @@ class UNetModel(nn.Module):
             hs = [s.permute(0, 3, 1, 2) for s in cache[1]]
             ds = 2 ** (len(self.channel_mult) - 1)
 
-        h = self.mid_res_0(h, emb)
+        h = res_fn("mid_res_0", h, emb)
         h = self._attn("mid_attn", h)
-        h = self.mid_res_1(h, emb)
+        h = res_fn("mid_res_1", h, emb)
         for level, _ in reversed(list(enumerate(self.channel_mult))):
             for i in range(self.num_res_blocks + 1):
                 h = channels_last(torch.cat([h, hs.pop()], dim=1))
-                h = getattr(self, f"dec_{level}_{i}")(h, emb)
+                h = res_fn(f"dec_{level}_{i}", h, emb)
                 if ds in self.attention_resolutions:
                     h = self._attn(f"dec_attn_{level}_{i}", h)
                 if level and i == self.num_res_blocks:
-                    up = getattr(self, f"up_{level}")
-                    h = up(h, emb) if self.resblock_updown else up(h)
+                    h = (res_fn(f"up_{level}", h, emb)
+                         if self.resblock_updown
+                         else getattr(self, f"up_{level}")(h))
                     ds //= 2
         if hs:
             raise RuntimeError(f"{len(hs)} skip tensors left unused")
@@ -381,10 +403,6 @@ def create_model(image_size: int, num_channels: int, num_res_blocks: int,
                  device="cuda") -> UNetModel:
     """The JAX `create_model` signature (less `use_checkpoint`, `sp_mesh`
     and `time_scale`); what the port does not implement raises."""
-    if dropout:
-        raise NotImplementedError(
-            f"dropout={dropout}: the port has no dropout yet (it acts in "
-            f"training only; ROADMAP A5, the training slice)")
     if class_cond:
         raise NotImplementedError(
             "class_cond=True: the class embedding is not ported yet "
@@ -407,7 +425,7 @@ def create_model(image_size: int, num_channels: int, num_res_blocks: int,
         use_scale_shift_norm=use_scale_shift_norm,
         resblock_updown=resblock_updown, attention_impl=attention_impl,
         dtype=dtype, norm_dtype=norm_dtype, norm_impl=norm_impl,
-        device=device)
+        device=device, dropout=dropout)
 
 
 @torch.no_grad()

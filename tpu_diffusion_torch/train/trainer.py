@@ -1,0 +1,196 @@
+"""The training loop, in PyTorch.
+
+Counterpart of `tpu_diffusion/train/trainer.py`: `make_optimizer` (Adam with
+the JAX package's three learning-rate schedules and global-norm clipping),
+`make_train_step` (loss, gradients, update, EMA), the train state, and
+`Trainer.fit`, whose host loop feeds batches and fires periodic callbacks.
+The model's parameters are fp32 whatever the forward's type
+(`models/nn.py:CastConv2d`), so Adam and the EMA run on fp32 values as in
+the JAX package. The state is updated in place. `fit_scanned` (the
+device-resident batch sampler), the mesh and tensor parallelism are not
+ported.
+"""
+
+from __future__ import annotations
+
+import math
+import time
+from dataclasses import dataclass
+from typing import Callable, Dict, Iterator, List, Optional
+
+import torch
+from torch import nn
+
+from tpu_diffusion_torch.core.ema import EMAState, ema_update
+
+# loss(model, generator, batch) -> scalar
+LossFn = Callable[[nn.Module, Optional[torch.Generator], torch.Tensor],
+                  torch.Tensor]
+
+
+def make_schedule(lr: float, warmup: int = 0,
+                  total_steps: Optional[int] = None,
+                  schedule: str = "warmup") -> Callable[[int], float]:
+    """step (0 for the first update) -> learning rate.
+
+    "warmup": lr * min((step + 1) / warmup, 1). "warmup_cosine": linear from
+    0 to lr over `warmup` steps, then half a cosine down to 0 at
+    max(total_steps, warmup + 1); with warmup=0 it starts at lr and still
+    decays. "constant", or "warmup" with warmup=0: lr.
+    """
+    if schedule == "warmup_cosine":
+        if total_steps is None:
+            raise ValueError("warmup_cosine needs total_steps")
+        decay_steps = max(total_steps, warmup + 1) - warmup
+
+        def sched(step: int) -> float:
+            if step < warmup:
+                return lr * step / warmup
+            c = min(step - warmup, decay_steps)
+            return lr * 0.5 * (1.0 + math.cos(math.pi * c / decay_steps))
+        return sched
+    if schedule == "constant" or warmup == 0:
+        return lambda step: lr
+    return lambda step: lr * min((step + 1) / max(warmup, 1), 1.0)
+
+
+def global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:
+    """sqrt of the sum of squares over all tensors, fp32, on the device."""
+    norms = torch._foreach_norm(tensors)
+    return torch.linalg.vector_norm(torch.stack(norms).float())
+
+
+class Optimizer:
+    """Adam (b1 0.9, b2 0.999, eps 1e-8) behind a schedule, after clipping
+    the gradients to a global norm: scaled by clip / max(norm, clip), the
+    JAX package's rule (`torch.nn.utils.clip_grad_norm_` divides by
+    norm + 1e-6 instead)."""
+
+    def __init__(self, params, schedule: Callable[[int], float],
+                 grad_clip: Optional[float] = 1.0):
+        self.params = [p for p in params]
+        self.schedule = schedule
+        self.grad_clip = grad_clip
+        self.adam = torch.optim.Adam(self.params, lr=schedule(0),
+                                     betas=(0.9, 0.999), eps=1e-8)
+        self.count = 0  # updates made so far
+
+    def zero_grad(self) -> None:
+        self.adam.zero_grad(set_to_none=True)
+
+    @torch.no_grad()
+    def step(self) -> torch.Tensor:
+        """One update from the parameters' `.grad`; returns the gradients'
+        global norm before clipping."""
+        grads = [p.grad for p in self.params if p.grad is not None]
+        gnorm = global_norm(grads)
+        if self.grad_clip is not None:
+            torch._foreach_mul_(
+                grads, self.grad_clip / torch.clamp(gnorm,
+                                                    min=self.grad_clip))
+        for group in self.adam.param_groups:
+            group["lr"] = self.schedule(self.count)
+        self.adam.step()
+        self.count += 1
+        return gnorm
+
+
+def make_optimizer(params, lr: float, warmup: int = 0,
+                   grad_clip: Optional[float] = 1.0,
+                   total_steps: Optional[int] = None,
+                   schedule: str = "warmup") -> Optimizer:
+    """Adam + warmup (+ optional cosine decay) + global-norm clipping over
+    `params` (an iterable of parameters)."""
+    return Optimizer(params, make_schedule(lr, warmup, total_steps, schedule),
+                     grad_clip)
+
+
+@dataclass
+class TrainState:
+    step: int
+    model: nn.Module
+    optimizer: Optimizer
+    ema: EMAState
+    generator: Optional[torch.Generator]
+
+    @classmethod
+    def create(cls, model: nn.Module, optimizer: Optimizer,
+               generator: Optional[torch.Generator] = None) -> "TrainState":
+        return cls(step=0, model=model, optimizer=optimizer,
+                   ema=EMAState.create(dict(model.named_parameters())),
+                   generator=generator)
+
+    @property
+    def params(self) -> Dict[str, torch.Tensor]:
+        return dict(self.model.named_parameters())
+
+
+def make_train_step(loss_fn: LossFn, ema_decay: float = 0.9999,
+                    ema_update_every: int = 1, ema_update_after: int = 0,
+                    ema_warmup: bool = True) -> Callable:
+    """train_step(state, batch) -> (state, {"loss", "grad_norm"}), the
+    metrics as tensors on the device; `grad_norm` is taken before
+    clipping."""
+
+    def train_step(state: TrainState, batch: torch.Tensor):
+        state.model.train()
+        state.optimizer.zero_grad()
+        loss = loss_fn(state.model, state.generator, batch)
+        loss.backward()
+        gnorm = state.optimizer.step()
+        ema_update(state.ema, state.params, ema_decay,
+                   update_every=ema_update_every,
+                   update_after=ema_update_after, warmup=ema_warmup)
+        state.step += 1
+        return state, {"loss": loss.detach(), "grad_norm": gnorm}
+
+    return train_step
+
+
+class Trainer:
+    """fit() = feed batches to the step + fire periodic callbacks.
+
+    Callbacks receive (step, state=..., metrics=...), as `PeriodicCallback`
+    expects. `batches` yields numpy arrays or tensors; they are moved to the
+    model's device.
+    """
+
+    def __init__(self, train_step: Callable, state: TrainState,
+                 batches: Iterator,
+                 callbacks: Optional[List[Callable]] = None):
+        self.state = state
+        self.callbacks = callbacks or []
+        self._step_fn = train_step
+        self._batches = batches
+        self._device = next(state.model.parameters()).device
+
+    def fit(self, num_steps: int,
+            metrics_hook: Optional[Callable[[int, Dict], None]] = None
+            ) -> TrainState:
+        t0 = time.monotonic()
+        step0 = self.state.step
+        for local_step in range(num_steps):
+            batch = torch.as_tensor(next(self._batches)).to(self._device)
+            self.state, metrics = self._step_fn(self.state, batch)
+            step = step0 + local_step + 1
+            # The metrics come to the host (a device synchronisation) only
+            # on steps where some consumer runs. Each callback's decision is
+            # sampled once and passed back in: an every_secs deadline
+            # crossing between this preview and the callback's own re-check
+            # would otherwise fire with the device tensors.
+            decisions = [getattr(cb, "should_fire", lambda s: True)(step)
+                         for cb in self.callbacks]
+            if metrics_hook is not None or any(decisions):
+                m = {k: float(v) for k, v in metrics.items()}
+                m["steps_per_sec"] = (local_step + 1) / (
+                    time.monotonic() - t0)
+            else:
+                m = metrics  # device tensors; no callback will read them
+            if metrics_hook is not None:
+                metrics_hook(step, m)
+            for cb, d in zip(self.callbacks, decisions):
+                if hasattr(cb, "should_fire"):
+                    cb(step, state=self.state, metrics=m, _fire=d)
+                else:
+                    cb(step, state=self.state, metrics=m)
+        return self.state
