@@ -343,6 +343,7 @@ def test_bf16_compute_trains_fp32_parameters(setup):
     # Adam's normalised update has size ~lr whatever the gradient's, so
     # where the two bf16 forwards round a small gradient to opposite signs
     # the parameters differ by up to 2 * 3 * lr; most agree far better
+    # (this run: max 5.8e-4, 99th percentile 9.0e-5, mean 5.2e-6)
     nothing = {k: np.zeros(tuple(v.shape), bool)
                for k, v in state.params.items()}
     _check_state(state, jstate, 6.5e-4, nothing)
@@ -350,7 +351,7 @@ def test_bf16_compute_trains_fp32_parameters(setup):
         (p.detach() - unet_state_dict_from_flax(
             jax.tree.map(np.asarray, jstate.params))[k]).abs().flatten()
         for k, p in state.params.items()])
-    assert diffs.mean().item() < 5e-5
+    assert diffs.mean().item() < 2e-5
 
 
 # --- dropout -----------------------------------------------------------------
