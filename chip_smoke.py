@@ -9,10 +9,12 @@ Phases, each printing one JSON line (with the card's name and power limit):
 The DDIM path of the CIFAR-10 bench UNet:
   kernel   the fused-QKV attention and GroupNorm+FiLM+SiLU kernels against
            their plain PyTorch versions at every shape the bench UNet gives
-           them (batch 64, bf16), plus fp32 cases; time of the kernel, the
-           plain version and one PyTorch library call (device time from
-           CUDA-graph replay, and eager time from Python), beside the
-           kernel's bound;
+           them (batch 64, bf16), plus fp32 cases and, for the attention
+           kernel in bf16, T=16, an uneven T, T=1024 (its key ring refilled),
+           d=32 and d=128; time of the kernel, the plain version and one
+           PyTorch library call (device time from CUDA-graph replay, and
+           eager time from Python; for attention also SDPA with the layout
+           copies a library route would pay), beside the kernel's bound;
   forward  the full-width bench UNet (CIFAR-10, 128 channels, batch 64,
            bf16, random weights from seed 0): eps with the kernels against
            eps with the plain versions, for both norm configurations;
@@ -45,9 +47,11 @@ batch 32, random weights from seed 0):
            time;
   flash_kernel  the flash forward (o, lse) and backward (dq, dk, dv)
            kernels against their plain versions at the path's shape
-           [128, 1024, 64] bf16, an fp32 case and an uneven T; times as in
-           `kernel`, SDPA forward and its autograd backward as the library
-           yardstick;
+           [128, 1024, 64] bf16, fp32 cases, and in bf16 an uneven T, one
+           tile (T=64), d=32 and d=128; whether two backward calls on the
+           same inputs agree bitwise (dq is summed with atomics); times as
+           in `kernel`, SDPA forward and its autograd backward as the
+           library yardstick;
   guidance_grad  the reconstruction-guidance gradient w.r.t. x_i through
            the whole UNet with the kernels against the plain versions;
   sample   amortized inpainting over 1000 steps with encoder reuse K=3 and
@@ -70,6 +74,12 @@ forward, batch 32, synthetic images):
 Then the kernel table line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Any failure exits nonzero before that line.
 Needs one CUDA card; imports nothing of JAX.
+
+    python3 chip_smoke.py --kernels
+
+builds the kernels and runs only the attention kernels' cases of the
+`kernel` and `flash_kernel` phases, at the shapes the two paths give them
+(a quick check while working on a kernel; it does not print the ok line).
 """
 
 import copy
@@ -91,6 +101,10 @@ FP32_FLOPS = 67e12            # fp32 outside the tensor cores
 BENCH_MODEL = dict(image_size=32, num_channels=128, num_res_blocks=2,
                    in_channels=3, channel_mult=(1, 2, 2, 2), num_heads=4,
                    attention_resolutions="16", use_scale_shift_norm=True)
+# what the two paths give the attention kernels per forward (checked against
+# the models' own calls in the full run): {call shape: calls}
+ATTN_PATH_SHAPES = {((BATCH, 256, 768), 4): 5, ((BATCH, 16, 768), 4): 1}
+FLASH_PATH_SHAPES = {(128, 1024, 64): 5}
 
 
 def card():
@@ -357,7 +371,15 @@ def kernel_phase(torch, F, card_info, attn_shapes, norm_shapes):
     cases = [(shape, heads, torch.bfloat16, count)
              for (shape, heads), count in sorted(attn_shapes.items())]
     cases += [((4, 256, 768), 4, torch.float32, 0),
-              ((4, 100, 384), 2, torch.float32, 0)]
+              ((4, 100, 384), 2, torch.float32, 0),
+              # bf16, off the path: one partly filled tile, an uneven T, the
+              # ring refilled (T > 256), d = 32, d = 128 (two slots, uneven)
+              ((4, 16, 768), 4, torch.bfloat16, 0),
+              ((4, 100, 768), 4, torch.bfloat16, 0),
+              ((8, 1024, 768), 4, torch.bfloat16, 0),
+              ((4, 256, 384), 4, torch.bfloat16, 0),
+              ((4, 256, 1536), 4, torch.bfloat16, 0),
+              ((4, 300, 1536), 4, torch.bfloat16, 0)]
     for (b, t, c3), heads, dtype, count in cases:
         c, d = c3 // 3, c3 // 3 // heads
         qkv = torch.randn((b, t, c3), generator=gen, device=dev).to(dtype)
@@ -373,6 +395,17 @@ def kernel_phase(torch, F, card_info, attn_shapes, norm_shapes):
             lambda: attention.flash_attention_fused(qkv, heads),
             lambda: attention.dense_attention(qkv, heads),
             lambda: F.scaled_dot_product_attention(q, k, v))
+
+        def library_with_layout():
+            # what a library route would pay on this layout: three copies
+            # to [B, H, T, d], SDPA, one copy back to [B, T, C]
+            q_, k_, v_ = (x.contiguous() for x in qkv.view(
+                b, t, 3, heads, d).permute(2, 0, 3, 1, 4))
+            return F.scaled_dot_product_attention(q_, k_, v_).transpose(
+                1, 2).reshape(b, t, c)
+
+        (times["library_with_layout_ms"],
+         times["library_with_layout_eager_ms"]) = time_ms(library_with_layout)
         isz = qkv.element_size()
         bnd, by = bound_ms(b * t * 4 * c * isz, 4 * b * heads * t * t * d,
                            BF16_FLOPS if dtype == torch.bfloat16
@@ -516,7 +549,11 @@ def flash_kernel_phase(torch, F, card_info, path_shapes, dev):
              for shape, count in sorted(path_shapes.items())]
     cases += [((16, 1024, 64), torch.float32, 0),
               ((32, 1000, 64), torch.bfloat16, 0),
-              ((8, 1000, 32), torch.float32, 0)]
+              ((8, 1000, 32), torch.float32, 0),
+              # bf16, off the path: one tile, d = 32, d = 128 (uneven T)
+              ((16, 64, 64), torch.bfloat16, 0),
+              ((16, 1000, 32), torch.bfloat16, 0),
+              ((8, 520, 128), torch.bfloat16, 0)]
     for (bh, t, d), dtype, count in cases:
         q, k, v, g = (torch.randn((bh, t, d), generator=gen, device=dev)
                       .to(dtype) for _ in range(4))
@@ -546,6 +583,21 @@ def flash_kernel_phase(torch, F, card_info, path_shapes, dev):
                 for e, b in zip(abs_errs, want)]
         check(all(math.isfinite(e) and e <= rel for e in errs),
               f"flash backward {bh, t, d} {name}: relative errs {errs}")
+        # the bf16 backward sums dq with atomics: two calls on the same
+        # inputs may differ in dq's last bits (dk, dv and fp32 may not)
+        again = attention.flash_attention_bwd(*bwd_args)
+        torch.cuda.synchronize()
+        repeat = {"bitwise_equal_dq_dk_dv": [torch.equal(a, b) for a, b
+                                             in zip(got, again)],
+                  "max_abs_diff_dq_dk_dv": [
+                      (a.float() - b.float()).abs().max().item()
+                      for a, b in zip(got, again)]}
+        check(all(repeat["bitwise_equal_dq_dk_dv"][1:])
+              and (dtype == torch.bfloat16
+                   or repeat["bitwise_equal_dq_dk_dv"][0])
+              and repeat["max_abs_diff_dq_dk_dv"][0]
+              <= rel * want[0].float().abs().max().item(),
+              f"flash backward {bh, t, d} {name}: two calls differ: {repeat}")
 
         # SDPA takes its fused backends only for 4-D [B, H, T, d] inputs
         q4, k4, v4, g4 = (x.view(1, bh, t, d) for x in (q, k, v, g))
@@ -574,7 +626,8 @@ def flash_kernel_phase(torch, F, card_info, path_shapes, dev):
         fwd_bound = bound_ms(4 * n * isz + bh * t * 4, 4 * bh * t * t * d,
                              op_rate)
         # backward: read q, k, v, g, lse, delta, write dq, dk, dv; the
-        # function needs 10 T^2 d per slice (s, dp, dq, dk, dv); the two
+        # function needs 10 T^2 d per slice (s, dp, dq, dk, dv), which is
+        # what the one-pass bf16 kernel executes; the two scalar fp32
         # kernels do 14 (each recomputes s and dp), not counted in the bound
         bwd_bound = bound_ms(7 * n * isz + 2 * bh * t * 4,
                              10 * bh * t * t * d, op_rate)
@@ -585,7 +638,9 @@ def flash_kernel_phase(torch, F, card_info, path_shapes, dev):
                 ("flash_attention_bwd", bwd_times, bwd_bound,
                  {"max_abs_err": max(abs_errs), "max_rel_err": max(errs)},
                  {"abs_err_dq_dk_dv": abs_errs, "rel_err_dq_dk_dv": errs,
-                  "rel_tol": rel, "ops_executed": 14 * bh * t * t * d})):
+                  "rel_tol": rel, "two_calls": repeat,
+                  "ops_executed": (10 if dtype == torch.bfloat16 else 14)
+                  * bh * t * t * d})):
             emit(card_info, phase="flash_kernel", kernel=kname,
                  shape=[bh, t, d], dtype=name, count_per_forward=count,
                  **errors, **extra, **times, bound_ms=bnd, bound_by=by)
@@ -713,6 +768,8 @@ def conditional_phase(torch, F, card_info, dev):
                 c = getattr(mk, n).qkv.in_features
                 key = (COND_BATCH * d["heads"], d["tokens"], c // d["heads"])
                 path_shapes[key] = path_shapes.get(key, 0) + 1
+    check(path_shapes == FLASH_PATH_SHAPES,
+          f"the 64px UNet's flash calls {path_shapes}")
     totals = flash_kernel_phase(torch, F, card_info, path_shapes, dev)
 
     # --- guidance gradient: kernels against plain versions ---------------
@@ -1105,6 +1162,12 @@ def main():
                   for k, v in report.items()})
 
     dev = torch.device("cuda")
+    if sys.argv[1:] == ["--kernels"]:
+        kernel_phase(torch, F, card_info, ATTN_PATH_SHAPES, {})
+        flash_kernel_phase(torch, F, card_info, FLASH_PATH_SHAPES, dev)
+        print(json.dumps({"partial": "--kernels: the attention kernels' "
+                                     "cases only"}), flush=True)
+        return 0
     gen = torch.Generator().manual_seed(SEED + 1)
     x = torch.randn((BATCH, 32, 32, 3), generator=gen).to(dev)
     t = torch.full((BATCH,), 0.5, device=dev)
@@ -1113,6 +1176,8 @@ def main():
               for name, cfg in NORM_CONFIGS.items()}
     attn_shapes, norm_shapes, res_shapes = capture_shapes(
         torch, models["norm_fused"][0], x, t, nn_mod, unet)
+    check(attn_shapes == ATTN_PATH_SHAPES,
+          f"the CIFAR UNet's attention calls {attn_shapes}")
     totals = kernel_phase(torch, F, card_info, attn_shapes, norm_shapes)
     totals.update(resblock_phase(torch, card_info, res_shapes, unet, dev))
 
@@ -1239,8 +1304,8 @@ def main():
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": counts[name],
             "max_abs_err": tot["max_abs_err"],
-            **{k: tot[k] for k in ("max_rel_err", "library_gn_kernel_ms")
-               if k in tot},
+            **{k: tot[k] for k in ("max_rel_err", "library_gn_kernel_ms",
+                                   "library_with_layout_ms") if k in tot},
             "ms": tot["ms"],
             "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
             "bound_by": max(tot["by"], key=tot["by"].get),

@@ -37,7 +37,12 @@ def _gn_inputs(seed, b, hw, c, film, dev):
 @pytest.mark.parametrize("dtype,t,c,heads", [
     (torch.float32, 256, 256, 4), (torch.bfloat16, 256, 256, 4),
     (torch.bfloat16, 16, 256, 4), (torch.float32, 100, 96, 3),
-    (torch.bfloat16, 130, 256, 2)])
+    (torch.bfloat16, 130, 256, 2),
+    # the tensor-core kernel: an uneven T, the refilled ring (T > 256),
+    # d = 32, d = 128 with its two slots refilled, one key
+    (torch.bfloat16, 100, 256, 4), (torch.bfloat16, 1024, 256, 4),
+    (torch.bfloat16, 256, 128, 4), (torch.bfloat16, 300, 256, 2),
+    (torch.bfloat16, 1, 64, 1)])
 def test_cuda_attention_matches_plain(cuda, dtype, t, c, heads):
     g = torch.Generator().manual_seed(t)
     qkv = torch.randn((3, t, 3 * c), generator=g).to(cuda, dtype)
@@ -85,7 +90,8 @@ def _flash_inputs(seed, bh, t, d, dtype, dev):
 @pytest.mark.parametrize("dtype,bh,t,d", [
     (torch.bfloat16, 8, 1024, 64), (torch.float32, 4, 1024, 64),
     (torch.float32, 3, 1000, 64), (torch.bfloat16, 2, 100, 32),
-    (torch.float32, 2, 130, 128), (torch.bfloat16, 2, 64, 128)])
+    (torch.float32, 2, 130, 128), (torch.bfloat16, 2, 64, 128),
+    (torch.bfloat16, 3, 1000, 64), (torch.bfloat16, 2, 520, 128)])
 def test_cuda_flash_forward_matches_plain(cuda, dtype, bh, t, d):
     q, k, v, _ = _flash_inputs(t + d, bh, t, d, dtype, cuda)
     before = attention.flash_fwd_launches
@@ -111,7 +117,11 @@ def test_cuda_flash_forward_matches_plain(cuda, dtype, bh, t, d):
 @pytest.mark.parametrize("dtype,bh,t,d", [
     (torch.bfloat16, 8, 1024, 64), (torch.float32, 4, 1024, 64),
     (torch.float32, 3, 1000, 64), (torch.bfloat16, 2, 100, 32),
-    (torch.float32, 2, 130, 128), (torch.bfloat16, 2, 130, 128)])
+    (torch.float32, 2, 130, 128), (torch.bfloat16, 2, 130, 128),
+    # the one-pass kernel: an uneven T over several key blocks, one tile,
+    # d = 32 and d = 128 over several key blocks
+    (torch.bfloat16, 4, 1000, 64), (torch.bfloat16, 3, 64, 64),
+    (torch.bfloat16, 2, 1000, 32), (torch.bfloat16, 2, 520, 128)])
 def test_cuda_flash_backward_matches_plain(cuda, dtype, bh, t, d):
     q, k, v, g = _flash_inputs(t * d, bh, t, d, dtype, cuda)
     o, lse = attention.flash_attention_fwd_ref(q, k, v)
@@ -129,6 +139,23 @@ def test_cuda_flash_backward_matches_plain(cuda, dtype, bh, t, d):
         scale = b.float().abs().max().item()
         tol = (1e-5 if dtype == torch.float32 else 1e-2) * scale
         torch.testing.assert_close(a.float(), b.float(), atol=tol, rtol=0)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_backward_twice(cuda):
+    """The bf16 backward sums dq with atomics, in an order that changes from
+    run to run: two calls agree within the tolerance against the plain
+    version, and dk and dv (no atomics) bitwise."""
+    q, k, v, g = _flash_inputs(7, 8, 1024, 64, torch.bfloat16, cuda)
+    o, lse = attention.flash_attention_fwd_ref(q, k, v)
+    delta = (g.float() * o.float()).sum(-1)
+    one = attention.flash_attention_bwd(q, k, v, g, lse, delta)
+    two = attention.flash_attention_bwd(q, k, v, g, lse, delta)
+    torch.cuda.synchronize()
+    tol = 1e-2 * one[0].float().abs().max().item()
+    torch.testing.assert_close(one[0].float(), two[0].float(), atol=tol,
+                               rtol=0)
+    assert torch.equal(one[1], two[1]) and torch.equal(one[2], two[2])
 
 
 @pytest.mark.cuda
@@ -247,6 +274,17 @@ def test_cuda_wrappers_reject_what_the_kernels_do_not_take(cuda):
     lse = torch.zeros((2, 16), device=cuda)
     with pytest.raises(ValueError, match="lse"):
         attention.flash_attention_bwd(q, q, q, q, lse.half(), lse)
+    b16 = torch.zeros((2, 16, 3 * 96), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head_dim"):
+        attention.flash_attention_fused(b16, 2)  # d = 48
+    with pytest.raises(ValueError, match="aligned"):
+        attention.flash_attention_fused(b16.flatten()[4:4 + 16 * 192]
+                                        .view(1, 16, 192), 1)
+    qb = torch.zeros((2, 16, 64), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="match"):
+        attention.flash_attention_bwd(qb, qb, qb, qb.float(), lse, lse)
+    with pytest.raises(ValueError, match="delta"):
+        attention.flash_attention_bwd(qb, qb, qb, qb, lse, lse[:, :8])
     x, gamma, beta, _, _ = _gn_inputs(0, 2, 4, 64, False, cuda)
     with pytest.raises(ValueError, match="fp32"):
         groupnorm.fused_groupnorm_silu(x, gamma.half(), beta, num_groups=8)

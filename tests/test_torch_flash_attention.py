@@ -63,8 +63,15 @@ def test_forward_matches_jax_kernel(interpret, b, h, t, d, bq):
     assert torch.equal(got, o.reshape(b, h, t, d))
 
 
+# the last four: the shapes at which the card holds the one-pass kernel
+# against `flash_attention_bwd_ref` (T=16, an uneven T at d=64 over two key
+# blocks of 128, d=128, one 64-row tile at d=64)
 @pytest.mark.parametrize("b,h,t,d,bq", [(1, 2, 64, 32, 32),
-                                        (1, 2, 96, 32, 64)])
+                                        (1, 2, 96, 32, 64),
+                                        (1, 2, 16, 32, 16),
+                                        (1, 2, 200, 64, 64),
+                                        (1, 1, 96, 128, 32),
+                                        (2, 1, 64, 64, 64)])
 def test_backward_matches_jax_grad(interpret, b, h, t, d, bq):
     """The recompute formulas of the plain backward, and the autograd
     Function built on them, against `jax.grad` through the Pallas custom

@@ -28,9 +28,12 @@ def interpret():
 
 
 # (T, C, heads, Pallas block_q) of tests/test_kernels.py, plus the UNet's
-# mid-block token count T=16
+# mid-block token count T=16, and the shapes at which the card holds the
+# tensor-core kernel against `dense_attention`: an uneven T at d=64, d=128,
+# and T > 256 (its refilled key ring)
 ATTN_CASES = [(128, 64, 2, 64), (96, 48, 3, 64), (256, 32, 2, 128),
-              (16, 64, 2, 256)]
+              (16, 64, 2, 256), (100, 128, 2, 64), (64, 256, 2, 64),
+              (320, 128, 2, 128)]
 
 
 @pytest.mark.parametrize("t,c,heads,bq", ATTN_CASES)

@@ -30,7 +30,7 @@ from tpu_diffusion_torch.kernels.build import load_library
 # Kernel launches made by each wrapper since its count was last set to 0
 # (callers reset them to check that a path went through the kernels):
 # `flash_attention_fused`, `flash_attention_fwd`, and `flash_attention_bwd`
-# (one count per call, which launches the dq and the dk/dv kernel).
+# (one count per call, whatever number of CUDA kernels stands behind it).
 launches = 0
 flash_fwd_launches = 0
 flash_bwd_launches = 0
@@ -143,7 +143,8 @@ def _flash_entries():
     p, i = ctypes.c_void_p, ctypes.c_int
     fwd, bwd = lib.flash_attention_fwd, lib.flash_attention_bwd
     fwd.argtypes = [p, p, p, p, p, i, i, i, ctypes.c_float, i, p]
-    bwd.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, ctypes.c_float, i, p]
+    bwd.argtypes = [p, p, p, p, p, p, p, p, p, p, i, i, i, ctypes.c_float, i,
+                    p]
     fwd.restype = bwd.restype = ctypes.c_int
     return fwd, bwd
 
@@ -212,12 +213,17 @@ def flash_attention_bwd(q, k, v, g, lse, delta):
             raise ValueError(f"flash_attention_bwd: {key} must be a "
                              f"contiguous fp32 [BH, T] tensor on {q.device}")
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    bf16 = q.dtype == torch.bfloat16
+    # the bf16 kernel sums dq over its key blocks into this fp32 scratch
+    # with atomics (the order, and so dq's last bits, vary from run to run)
+    dq_acc = (torch.zeros((bh, -(-t // 64) * 64, d), dtype=torch.float32,
+                          device=q.device) if bf16 else None)
     with torch.cuda.device(q.device):
         err = _flash_entries()[1](
             q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), bh, t, d, d ** -0.5,
-            int(q.dtype == torch.bfloat16),
+            lse.data_ptr(), delta.data_ptr(),
+            dq_acc.data_ptr() if bf16 else None, dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), bh, t, d, d ** -0.5, int(bf16),
             torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"flash_attention_bwd launch failed: cudaError "

@@ -1,40 +1,54 @@
 // Fused-QKV self-attention for Hopper (sm_90a).
 //
 // Replaces the TPU kernel of tpu_diffusion/kernels/attention.py:
-// `_fused_kernel_call` (body `_attn_fused_body`), the Pallas kernel behind
-// `flash_attention_fused`.
+// `_fused_kernel_call` (bodies `_attn_fused_kernel`, `_attn_fused_kernel_1ref`,
+// `_attn_fused_body`), the Pallas kernel behind `flash_attention_fused`.
 //
 // Function: for every batch b and head h, softmax(q k^T * d^-1/2) v, read
 // straight from the raw [B, T, 3C] qkv projection (channel (s*H + h)*d + i
 // for s in {q, k, v}) and written to channels [h*d, (h+1)*d) of [B, T, C].
 // No head is transposed to [B, H, T, d] in device memory: the strided head
-// slices are read where they lie.
+// slices are read where they lie. Logits are fp32; any T; d in {32, 64, 128}.
 //
-// Bound on the H100: at the UNet's shapes (T = 256, C = 256, d = 64) the
-// least time is set by bytes (read 3C, write C per token: 8 MB per batch
-// of 16 images in bf16) rather than the 4*T*T*d*H operations per image at
-// the tensor-core rate. This first version does its products with scalar
-// fp32 FMAs on the CUDA cores (67 TFLOP/s, not the tensor cores' 989), so
-// in practice it is bound by operations; `mma.sync` / `wgmma` tiles are
-// later work.
+// Bound on the H100: at the UNet's shape (qkv [64, 256, 768] bf16, 4 heads,
+// d = 64) the function moves 33.5 MB (10.0 us at 3.35 TB/s) and does 4.3
+// GFLOP (4.3 us at the bf16 tensor-core rate): it is bound by bytes, and a
+// call's whole qkv (25 MB) fits the 50 MB L2.
 //
-// Design: one block per (64-row query tile, head, batch), 4 threads per
-// query row. Each thread keeps its row's scaled q in registers. Key and
-// value tiles of 32 rows are staged in shared memory as fp32, filled with
-// 16-byte vector loads of the head's K and V slices. An online softmax
-// (running max and running sum, fp32) walks the key tiles, so any T works
-// and the T x T logits never reach device memory. Keys past T are masked
-// and their V rows zeroed; query rows past T compute and store nothing.
+// Design, bf16 (`attention_fused_mma_kernel`, the body is
+// `tdt::attention_fwd_block` of attention_mma.cuh): one block per (128 query
+// rows, head, batch), 8 warps of 16 rows. Both products run on the tensor
+// cores (`mma.sync` m16n8k16, fragments by `ldmatrix`); p is handed from the
+// s accumulators to the p.v product in registers. K and V stay bf16 in
+// shared memory, row-major (V's fragments come through `ldmatrix.trans`),
+// staged by `cp.async` in tiles of 64 keys, one commit group per tile, into
+// a ring of four slots: at T <= 256 a head's whole K and V are requested at
+// once and the first s product starts while later keys are in flight; a
+// longer T refills the slots as they are consumed (online softmax, any T).
+// Two blocks (92 KB of shared memory each) are resident per SM, 512 blocks
+// at the UNet's shape. The softmax runs in base 2 with log2(e) * d^-1/2
+// folded into one multiply-add per logit; only the last key tile is masked;
+// rows past T compute and store nothing; the output leaves as 16-byte
+// stores into the head's channel slice.
+//
+// fp32 inputs (not on the UNet's path) take the scalar kernel
+// (`attention_fused_kernel`): one block per (64-row query tile, head,
+// batch), 4 threads per query row holding its scaled q in registers, K and
+// V tiles of 32 rows staged as fp32, products as fp32 FMAs on the CUDA
+// cores, the same online softmax.
 //
 // Rounding: the TPU kernel normalises p over the whole row, rounds it to
-// v's type and then multiplies by v. Here p stays fp32, p.v accumulates in
-// fp32 and the row sum divides once at the end, so the outputs differ at
-// the rounding level of the output type (exact in fp32 up to summation
-// order).
+// v's type and then multiplies by v. The bf16 kernel rounds the
+// unnormalised p (<= 1) to bf16 for the p.v product, accumulates in fp32
+// and divides by the fp32 row sum at the end, so its output differs from
+// the TPU kernel's by the rounding of p (2^-9 relative per term) and the
+// output's own rounding; its logits are exact bf16 products summed in fp32,
+// scaled after the product. The fp32 kernel keeps p in fp32: exact up to
+// summation order.
 
 #include <math.h>
 
-#include "common.cuh"
+#include "attention_mma.cuh"
 
 namespace {
 
@@ -170,27 +184,44 @@ attention_fused_kernel(const T* __restrict__ qkv, T* __restrict__ out,
   }
 }
 
-template <typename T>
+// bf16 on the tensor cores: one block per (WARPS * 16 query rows, head,
+// batch) around `tdt::attention_fwd_block`.
+template <int D, int WARPS, int STAGES>
+__global__ void __launch_bounds__(WARPS * 32, D <= 64 ? 2 : 1)
+attention_fused_mma_kernel(const tdt::bf16* __restrict__ qkv,
+                           tdt::bf16* __restrict__ out, int seq, int heads,
+                           float scale) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const long long C = static_cast<long long>(heads) * D;
+  const long long tok0 = static_cast<long long>(blockIdx.z) * seq;
+  const tdt::bf16* q = qkv + tok0 * 3 * C + blockIdx.y * D;  // the head's row 0
+  tdt::attention_fwd_block<D, WARPS, STAGES>(
+      q, q + C, q + 2 * C, 3 * C, out + tok0 * C + blockIdx.y * D, C, nullptr,
+      blockIdx.x * WARPS * 16, seq, scale,
+      reinterpret_cast<tdt::bf16*>(smem_raw));
+}
+
+// bf16 inputs take the tensor-core kernel, fp32 inputs the scalar kernel.
+template <int D>
 cudaError_t launch(const void* qkv, void* out, int batch, int seq, int heads,
-                   int head_dim, float scale, cudaStream_t stream) {
-  const dim3 grid((seq + kRows - 1) / kRows, heads, batch);
-  const T* in = static_cast<const T*>(qkv);
-  T* o = static_cast<T*>(out);
-  switch (head_dim) {
-    case 32:
-      attention_fused_kernel<T, 32><<<grid, kThreads, 0, stream>>>(
-          in, o, seq, heads, scale);
-      break;
-    case 64:
-      attention_fused_kernel<T, 64><<<grid, kThreads, 0, stream>>>(
-          in, o, seq, heads, scale);
-      break;
-    case 128:
-      attention_fused_kernel<T, 128><<<grid, kThreads, 0, stream>>>(
-          in, o, seq, heads, scale);
-      break;
-    default:
-      return cudaErrorInvalidValue;
+                   float scale, bool bf16, cudaStream_t stream) {
+  if (bf16) {
+    constexpr int WARPS = 8;
+    // D = 128: two slots of 64 keys (174 KB with the query rows)
+    constexpr int STAGES = D == 128 ? 2 : 4;
+    constexpr auto kern = attention_fused_mma_kernel<D, WARPS, STAGES>;
+    constexpr size_t bytes = tdt::fwd_smem_bytes<D, WARPS, STAGES>();
+    const cudaError_t err = tdt::allow_smem<kern>(bytes);
+    if (err != cudaSuccess) return err;
+    const dim3 grid((seq + WARPS * 16 - 1) / (WARPS * 16), heads, batch);
+    kern<<<grid, WARPS * 32, bytes, stream>>>(
+        static_cast<const tdt::bf16*>(qkv), static_cast<tdt::bf16*>(out), seq,
+        heads, scale);
+  } else {
+    const dim3 grid((seq + kRows - 1) / kRows, heads, batch);
+    attention_fused_kernel<float, D><<<grid, kThreads, 0, stream>>>(
+        static_cast<const float*>(qkv), static_cast<float*>(out), seq, heads,
+        scale);
   }
   return cudaGetLastError();
 }
@@ -204,9 +235,11 @@ extern "C" int attention_fused(const void* qkv, void* out, int batch, int seq,
                                int heads, int head_dim, float scale,
                                int is_bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16) {
-    return launch<__nv_bfloat16>(qkv, out, batch, seq, heads, head_dim, scale,
-                                 s);
+  const bool bf16 = is_bf16 != 0;
+  switch (head_dim) {
+    case 32: return launch<32>(qkv, out, batch, seq, heads, scale, bf16, s);
+    case 64: return launch<64>(qkv, out, batch, seq, heads, scale, bf16, s);
+    case 128: return launch<128>(qkv, out, batch, seq, heads, scale, bf16, s);
+    default: return cudaErrorInvalidValue;
   }
-  return launch<float>(qkv, out, batch, seq, heads, head_dim, scale, s);
 }
