@@ -207,7 +207,8 @@ cudaError_t launch(const void* qkv, void* out, int batch, int seq, int heads,
                    float scale, bool bf16, cudaStream_t stream) {
   if (bf16) {
     constexpr int WARPS = 8;
-    // D = 128: two slots of 64 keys (174 KB with the query rows)
+    // D = 128: two slots of 64 keys (104 KB with the query rows; four
+    // would take 174 KB)
     constexpr int STAGES = D == 128 ? 2 : 4;
     constexpr auto kern = attention_fused_mma_kernel<D, WARPS, STAGES>;
     constexpr size_t bytes = tdt::fwd_smem_bytes<D, WARPS, STAGES>();
