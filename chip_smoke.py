@@ -11,10 +11,13 @@ The DDIM path of the CIFAR-10 bench UNet:
            their plain PyTorch versions at every shape the bench UNet gives
            them (batch 64, bf16), plus fp32 cases and, for the attention
            kernel in bf16, T=16, an uneven T, T=1024 (its key ring refilled),
-           d=32 and d=128; time of the kernel, the plain version and one
-           PyTorch library call (device time from CUDA-graph replay, and
-           eager time from Python; for attention also SDPA with the layout
-           copies a library route would pay), beside the kernel's bound;
+           d=32 and d=128, and for the GN kernel an image too large for its
+           one-launch cluster route (the two-pass route); each GN line names
+           its route and whether two calls agree bitwise; time of the
+           kernel, the plain version and one PyTorch library call (device
+           time from CUDA-graph replay, and eager time from Python; for
+           attention also SDPA with the layout copies a library route would
+           pay), beside the kernel's bound;
   forward  the full-width bench UNet (CIFAR-10, 128 channels, batch 64,
            bf16, random weights from seed 0): eps with the kernels against
            eps with the plain versions, for both norm configurations;
@@ -48,10 +51,11 @@ batch 32, random weights from seed 0):
   flash_kernel  the flash forward (o, lse) and backward (dq, dk, dv)
            kernels against their plain versions at the path's shape
            [128, 1024, 64] bf16, fp32 cases, and in bf16 an uneven T, one
-           tile (T=64), d=32 and d=128; whether two backward calls on the
-           same inputs agree bitwise (dq is summed with atomics); times as
-           in `kernel`, SDPA forward and its autograd backward as the
-           library yardstick;
+           tile (T=64), d=32, d=128, and the forward's TMA / `wgmma` route at
+           T=128 and T=2048; the forward's route; whether two calls on the
+           same inputs agree bitwise (the forward always; the backward sums
+           dq with atomics); times as in `kernel`, SDPA forward and its
+           autograd backward as the library yardstick;
   guidance_grad  the reconstruction-guidance gradient w.r.t. x_i through
            the whole UNet with the kernels against the plain versions;
   sample   amortized inpainting over 1000 steps with encoder reuse K=3 and
@@ -77,9 +81,11 @@ Needs one CUDA card; imports nothing of JAX.
 
     python3 chip_smoke.py --kernels
 
-builds the kernels and runs only the attention kernels' cases of the
-`kernel` and `flash_kernel` phases, at the shapes the two paths give them
-(a quick check while working on a kernel; it does not print the ok line).
+builds the kernels and runs only the attention and GroupNorm kernels' cases
+of the `kernel` and `flash_kernel` phases, at the shapes the two paths give
+them (`ATTN_PATH_SHAPES`, `GN_PATH_SHAPES`, `FLASH_PATH_SHAPES`, checked
+against the models' own calls in the full run; a quick check while working
+on a kernel; it does not print the ok line).
 """
 
 import copy
@@ -105,6 +111,19 @@ BENCH_MODEL = dict(image_size=32, num_channels=128, num_res_blocks=2,
 # the models' own calls in the full run): {call shape: calls}
 ATTN_PATH_SHAPES = {((BATCH, 256, 768), 4): 5, ((BATCH, 16, 768), 4): 1}
 FLASH_PATH_SHAPES = {(128, 1024, 64): 5}
+# the GroupNorm calls of one CIFAR forward with norm_impl="fused":
+# {(x shape, groups, FiLM, act): calls}
+GN_PATH_SHAPES = {
+    ((BATCH, h, h, c), 32, film, act): n for h, c, film, act, n in [
+        (4, 256, False, "none", 1), (4, 256, False, "silu", 4),
+        (4, 256, True, "silu", 7), (4, 512, False, "silu", 3),
+        (8, 256, False, "silu", 2), (8, 256, True, "silu", 5),
+        (8, 512, False, "silu", 3), (16, 128, False, "silu", 1),
+        (16, 256, False, "none", 5), (16, 256, False, "silu", 1),
+        (16, 256, True, "silu", 5), (16, 384, False, "silu", 1),
+        (16, 512, False, "silu", 2), (32, 128, False, "silu", 3),
+        (32, 128, True, "silu", 5), (32, 256, False, "silu", 2),
+        (32, 384, False, "silu", 1)]}
 
 
 def card():
@@ -424,7 +443,11 @@ def kernel_phase(torch, F, card_info, attn_shapes, norm_shapes):
              for (shape, groups, film, act), count
              in sorted(norm_shapes.items())]
     cases += [((4, 32, 32, 128), 32, True, "silu", torch.float32, 0),
-              ((4, 4, 4, 512), 32, False, "none", torch.float32, 0)]
+              ((4, 4, 4, 512), 32, False, "none", torch.float32, 0),
+              ((4, 32, 32, 384), 32, True, "silu", torch.float32, 0),
+              # off the path: an image too large for a cluster's shared
+              # memory, on the two-pass route
+              ((2, 64, 64, 512), 32, True, "silu", torch.float32, 0)]
     for (b, h, w, c), groups, film, act, dtype, count in cases:
         x = (torch.randn((b, h, w, c), generator=gen, device=dev) * 2
              + 0.5).to(dtype)
@@ -436,13 +459,20 @@ def kernel_phase(torch, F, card_info, attn_shapes, norm_shapes):
                    ).to(dtype)
             scale, shift = emb[:, :c], emb[:, c:]
         args = (x, gamma, beta, scale, shift, groups, 1e-5, act)
+        route, geometry = groupnorm.gn_route(
+            b, h * w, c, x.element_size(), groups,
+            torch.cuda.get_device_properties(dev).multi_processor_count)
         got = groupnorm.fused_groupnorm_silu(*args)
+        again = groupnorm.fused_groupnorm_silu(*args)
         want = groupnorm.reference_groupnorm_silu(*args)
         torch.cuda.synchronize()
         err = (got.float() - want.float()).abs().max().item()
         check(math.isfinite(err) and err <= gn_tol[dtype],
               f"groupnorm {b, h, w, c} {dtype} film={film}: max abs err "
               f"{err}")
+        # the partials are summed in a fixed order on both routes
+        same = torch.equal(got, again)
+        check(same, f"groupnorm {b, h, w, c} {dtype}: two calls differ")
         xn = x.permute(0, 3, 1, 2).contiguous()
         g16, b16 = gamma.to(dtype), beta.to(dtype)
 
@@ -462,8 +492,10 @@ def kernel_phase(torch, F, card_info, attn_shapes, norm_shapes):
         bnd, by = bound_ms(nbytes, 8 * n, FP32_FLOPS)
         emit(card_info, phase="kernel", kernel="fused_groupnorm_silu",
              shape=[b, h, w, c], groups=groups, film=film, act=act,
-             dtype=str(dtype), count_per_forward=count, max_abs_err=err,
-             tol=gn_tol[dtype], **times, bound_ms=bnd, bound_by=by)
+             dtype=str(dtype), route=route, geometry=list(geometry),
+             count_per_forward=count, max_abs_err=err, tol=gn_tol[dtype],
+             two_calls_bitwise_equal=same, **times, bound_ms=bnd,
+             bound_by=by)
         if count:
             add("fused_groupnorm_silu", count, err, times, bnd, by)
     return totals
@@ -553,14 +585,19 @@ def flash_kernel_phase(torch, F, card_info, path_shapes, dev):
               # bf16, off the path: one tile, d = 32, d = 128 (uneven T)
               ((16, 64, 64), torch.bfloat16, 0),
               ((16, 1000, 32), torch.bfloat16, 0),
-              ((8, 520, 128), torch.bfloat16, 0)]
+              ((8, 520, 128), torch.bfloat16, 0),
+              # the TMA / `wgmma` forward at one tile and at T = 2048
+              ((4, 128, 64), torch.bfloat16, 0),
+              ((8, 2048, 64), torch.bfloat16, 0)]
     for (bh, t, d), dtype, count in cases:
         q, k, v, g = (torch.randn((bh, t, d), generator=gen, device=dev)
                       .to(dtype) for _ in range(4))
         name = str(dtype).split(".")[-1]
         # forward: o in the inputs' type (tolerance: `flash_o_tol`), lse
         # fp32 on both sides (1e-4 for values ~10: the order of the sums)
+        route = attention.flash_fwd_route(bh, t, d, dtype)
         o, lse = attention.flash_attention_fwd(q, k, v)
+        o2, lse2 = attention.flash_attention_fwd(q, k, v)
         want_o, want_lse = attention.flash_attention_fwd_ref(q, k, v)
         torch.cuda.synchronize()
         tol = flash_o_tol(name, want_o)
@@ -569,6 +606,9 @@ def flash_kernel_phase(torch, F, card_info, path_shapes, dev):
         check(math.isfinite(err_o) and err_o <= tol and err_lse <= 1e-4,
               f"flash forward {bh, t, d} {name}: o err {err_o}, lse err "
               f"{err_lse}")
+        # no forward route sums with atomics: two calls agree bitwise
+        fwd_same = torch.equal(o, o2) and torch.equal(lse, lse2)
+        check(fwd_same, f"flash forward {bh, t, d} {name}: two calls differ")
         # backward from the plain forward's o and lse; tolerance relative
         # to each gradient's largest entry
         delta = (g.float() * want_o.float()).sum(-1)
@@ -634,7 +674,8 @@ def flash_kernel_phase(torch, F, card_info, path_shapes, dev):
         for kname, times, (bnd, by), errors, extra in (
                 ("flash_attention_fwd", fwd_times, fwd_bound,
                  {"max_abs_err": err_o},
-                 {"max_abs_err_lse": err_lse, "tol": tol}),
+                 {"max_abs_err_lse": err_lse, "tol": tol, "route": route,
+                  "two_calls_bitwise_equal": fwd_same}),
                 ("flash_attention_bwd", bwd_times, bwd_bound,
                  {"max_abs_err": max(abs_errs), "max_rel_err": max(errs)},
                  {"abs_err_dq_dk_dv": abs_errs, "rel_err_dq_dk_dv": errs,
@@ -1163,10 +1204,10 @@ def main():
 
     dev = torch.device("cuda")
     if sys.argv[1:] == ["--kernels"]:
-        kernel_phase(torch, F, card_info, ATTN_PATH_SHAPES, {})
+        kernel_phase(torch, F, card_info, ATTN_PATH_SHAPES, GN_PATH_SHAPES)
         flash_kernel_phase(torch, F, card_info, FLASH_PATH_SHAPES, dev)
-        print(json.dumps({"partial": "--kernels: the attention kernels' "
-                                     "cases only"}), flush=True)
+        print(json.dumps({"partial": "--kernels: the attention and GN "
+                                     "kernels' cases only"}), flush=True)
         return 0
     gen = torch.Generator().manual_seed(SEED + 1)
     x = torch.randn((BATCH, 32, 32, 3), generator=gen).to(dev)
@@ -1178,6 +1219,8 @@ def main():
         torch, models["norm_fused"][0], x, t, nn_mod, unet)
     check(attn_shapes == ATTN_PATH_SHAPES,
           f"the CIFAR UNet's attention calls {attn_shapes}")
+    check(norm_shapes == GN_PATH_SHAPES,
+          f"the CIFAR UNet's GroupNorm calls {norm_shapes}")
     totals = kernel_phase(torch, F, card_info, attn_shapes, norm_shapes)
     totals.update(resblock_phase(torch, card_info, res_shapes, unet, dev))
 

@@ -80,6 +80,50 @@ def test_cuda_groupnorm_matches_plain(cuda, dtype, c, hw, film, act):
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
 
 
+# every (H = W, C) of the GroupNorm calls in one CIFAR UNet forward
+GN_PATH_IMAGES = [(4, 256), (4, 512), (8, 256), (8, 512), (16, 128),
+                  (16, 256), (16, 384), (16, 512), (32, 128), (32, 256),
+                  (32, 384)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("hw,c", GN_PATH_IMAGES)
+def test_cuda_groupnorm_cluster_route_matches_plain(cuda, dtype, hw, c):
+    assert groupnorm.gn_route(3, hw * hw, c, dtype.itemsize)[0] == "cluster"
+    x, gamma, beta, scale, shift = _gn_inputs(hw * c, 3, hw, c, True, cuda)
+    x, scale, shift = (a.to(dtype) for a in (x, scale, shift))
+    before = groupnorm.launches
+    got = groupnorm.fused_groupnorm_silu(x, gamma, beta, scale, shift, 32)
+    want = groupnorm.reference_groupnorm_silu(x, gamma, beta, scale, shift,
+                                              32)
+    torch.cuda.synchronize()
+    assert groupnorm.launches == before + 1
+    # fp32 statistics on both sides; bf16: one output rounding
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dtype,route", [
+    ((4, 32, 32, 384), torch.bfloat16, "cluster"),
+    ((2, 64, 64, 512), torch.float32, "two_pass")])
+def test_cuda_groupnorm_twice_bitwise(cuda, shape, dtype, route):
+    """Both routes sum their partials in a fixed order: two calls on the same
+    input give the same bits."""
+    b, hw, _, c = shape
+    assert groupnorm.gn_route(b, hw * hw, c, dtype.itemsize)[0] == route
+    x, gamma, beta, scale, shift = _gn_inputs(1, b, hw, c, True, cuda)
+    args = (x.to(dtype), gamma, beta, scale.to(dtype), shift.to(dtype), 32)
+    one = groupnorm.fused_groupnorm_silu(*args)
+    two = groupnorm.fused_groupnorm_silu(*args)
+    want = groupnorm.reference_groupnorm_silu(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(one, two)
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(one.float(), want.float(), atol=tol, rtol=tol)
+
+
 def _flash_inputs(seed, bh, t, d, dtype, dev):
     g = torch.Generator().manual_seed(seed)
     return tuple(torch.randn((bh, t, d), generator=g).to(dev, dtype)
@@ -110,6 +154,23 @@ def test_cuda_flash_forward_matches_plain(cuda, dtype, bh, t, d):
         torch.testing.assert_close(o.float(), want_o.float(), atol=tol,
                                    rtol=0)
     # lse is fp32 on both sides: summation order only
+    torch.testing.assert_close(lse, want_lse, atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bh,t", [(8, 1024), (4, 128), (2, 384)])
+def test_cuda_flash_forward_wgmma_route(cuda, bh, t):
+    """The TMA / `wgmma` forward: against the plain version as above, and
+    two calls bitwise equal (no atomics)."""
+    assert attention.flash_fwd_route(bh, t, 64, torch.bfloat16) == "wgmma"
+    q, k, v, _ = _flash_inputs(t, bh, t, 64, torch.bfloat16, cuda)
+    o, lse = attention.flash_attention_fwd(q, k, v)
+    o2, lse2 = attention.flash_attention_fwd(q, k, v)
+    want_o, want_lse = attention.flash_attention_fwd_ref(q, k, v)
+    torch.cuda.synchronize()
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    tol = 1e-2 * want_o.float().abs().max().item()
+    torch.testing.assert_close(o.float(), want_o.float(), atol=tol, rtol=0)
     torch.testing.assert_close(lse, want_lse, atol=2e-5, rtol=2e-5)
 
 

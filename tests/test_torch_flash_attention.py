@@ -37,8 +37,10 @@ def _t(*arrays):
 
 
 # (B, H, T, d, Pallas block_q): tests/test_kernels.py's shapes (t=128 and the
-# uneven t=96, d=32), and the 64px UNet's token count T=1024
-FWD_CASES = [(2, 4, 128, 32, 64), (1, 2, 96, 32, 64), (1, 2, 1024, 32, 256)]
+# uneven t=96, d=32), the 64px UNet's token count T=1024, and the edges of
+# the card's "wgmma" route at d=64: one 128-row tile, an odd tile count
+FWD_CASES = [(2, 4, 128, 32, 64), (1, 2, 96, 32, 64), (1, 2, 1024, 32, 256),
+             (1, 2, 128, 64, 128), (1, 2, 384, 64, 128)]
 
 
 @pytest.mark.parametrize("b,h,t,d,bq", FWD_CASES)
@@ -113,6 +115,23 @@ def test_function_matches_autograd_of_dense_reference(shape):
     want = torch.autograd.grad((ref.reshape(shape) * g).sum(), ref_leaves)
     for a, w in zip(got, want):
         torch.testing.assert_close(a, w, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("bh,t,d,dtype,route", [
+    (128, 1024, 64, torch.bfloat16, "wgmma"),   # the 64px UNet's calls
+    (4, 128, 64, torch.bfloat16, "wgmma"),      # one tile
+    (8, 2048, 64, torch.bfloat16, "wgmma"),
+    (2, 384, 64, torch.bfloat16, "wgmma"),      # an odd tile count
+    (32, 1000, 64, torch.bfloat16, "mma"),      # T not a multiple of 128
+    (16, 64, 64, torch.bfloat16, "mma"),
+    (16, 1024, 32, torch.bfloat16, "mma"),      # d = 32, d = 128
+    (8, 1024, 128, torch.bfloat16, "mma"),
+    (16, 1024, 64, torch.float32, "scalar"),
+    (2 ** 21, 1024, 64, torch.bfloat16, "mma"),  # rows past a 32-bit map
+])
+def test_flash_fwd_route(bh, t, d, dtype, route):
+    assert attention.flash_fwd_route(bh, t, d, dtype) == route
+    assert route in attention.FWD_ROUTES
 
 
 def test_plain_versions_keep_bf16_types():

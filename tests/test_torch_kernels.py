@@ -86,6 +86,52 @@ def test_groupnorm_matches_jax_kernel(interpret, film, act, groups):
     assert groupnorm.launches == before
 
 
+# the largest image on the CIFAR UNet's path (eight blocks of the cluster
+# route) and the smallest (one block), without FiLM
+@pytest.mark.parametrize("hw,c", [(32, 384), (4, 512)])
+def test_groupnorm_matches_jax_kernel_at_path_images(interpret, hw, c):
+    args = _gn_inputs(hw + c, hw=hw, c=c, film=False)
+    want = np.asarray(jax_groupnorm(*map(_j, args), num_groups=32,
+                                    act="none"))
+    got = groupnorm.fused_groupnorm_silu(*map(_t, args), num_groups=32,
+                                         act="none")
+    # fp32 statistics on both sides, over 1024 x 12 and 16 x 16 entries
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=1e-5)
+
+
+# every (H = W, C) of the GroupNorm calls in one CIFAR UNet forward
+# (`chip_smoke.py`'s GN_PATH_SHAPES), at batch 64
+GN_PATH_IMAGES = [(4, 256), (4, 512), (8, 256), (8, 512), (16, 128),
+                  (16, 256), (16, 384), (16, 512), (32, 128), (32, 256),
+                  (32, 384)]
+
+
+@pytest.mark.parametrize("itemsize", [2, 4])
+@pytest.mark.parametrize("hw,c", GN_PATH_IMAGES)
+def test_gn_route(hw, c, itemsize):
+    route, (cluster, rows) = groupnorm.gn_route(64, hw * hw, c, itemsize)
+    assert route == "cluster"
+    # the cluster's blocks cover the image exactly once, in whole pixels
+    assert cluster in groupnorm.CLUSTER_SIZES
+    assert (hw * hw) % cluster == 0
+    threads = c // (16 // itemsize) * rows
+    assert threads % 32 == 0 and 32 <= threads <= 1024
+    assert rows * (c // (16 // itemsize)) >= 32  # one warp per group
+    assert hw * hw // cluster * c * itemsize <= groupnorm.CHUNK_MAX
+    assert (groupnorm.cluster_smem(c, hw * hw, itemsize, cluster, rows)
+            <= groupnorm.SMEM_MAX)
+
+
+@pytest.mark.parametrize("b,hw,c,itemsize", [(1, 128, 512, 4),
+                                             (2, 64, 512, 4),
+                                             (1, 64, 1024, 2)])
+def test_gn_route_takes_two_passes_when_the_image_does_not_fit(b, hw, c,
+                                                               itemsize):
+    route, geometry = groupnorm.gn_route(b, hw * hw, c, itemsize)
+    assert route == "two_pass"
+    assert geometry == groupnorm.launch_geometry(c, hw * hw, itemsize)
+
+
 def test_groupnorm_rejects_indivisible_groups():
     x, gamma, beta, _, _ = _gn_inputs(0, c=24, film=False)
     with pytest.raises(ValueError, match="not divisible"):

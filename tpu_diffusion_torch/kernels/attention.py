@@ -12,7 +12,7 @@ Counterparts of `tpu_diffusion/kernels/attention.py`:
   logsumexp) and whose backward is `flash_attention_bwd`
   (`_flash_attention_bwd_3d`: dq, dk, dv recomputed from the lse). Plain
   versions `flash_attention_fwd_ref` / `flash_attention_bwd_ref`, kernels
-  `csrc/flash_attention.cu`.
+  `csrc/flash_attention.cu`; `flash_fwd_route` picks the forward's kernel.
 
 A CPU tensor goes to the plain version; a CUDA tensor goes to the kernel or
 raises.
@@ -175,6 +175,23 @@ def _check_flash(name: str, ref: torch.Tensor, **tensors) -> None:
                              f"aligned")
 
 
+# The CUDA forward's routes, in the order of the C entry point's `route`.
+FWD_ROUTES = ("scalar", "mma", "wgmma")
+WGMMA_ROWS = 128  # query rows per block, and keys per tile, of the wgmma route
+
+
+def flash_fwd_route(bh: int, t: int, d: int, dtype: torch.dtype) -> str:
+    """The forward kernel that runs a [bh, t, d] call on the card: "wgmma"
+    (bf16, d = 64, T a multiple of 128: warp-specialised, TMA and `wgmma`),
+    "mma" (other bf16 shapes: `mma.sync`) or "scalar" (fp32). The C entry
+    point refuses a "wgmma" launch for any other shape."""
+    if dtype != torch.bfloat16:
+        return "scalar"
+    if d == 64 and t % WGMMA_ROWS == 0 and bh * t < 2 ** 31:
+        return "wgmma"
+    return "mma"
+
+
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
     """(o, lse) of softmax(q d^-1/2 k^T) v on [BH, T, d]; lse is fp32
     [BH, T]."""
@@ -183,13 +200,13 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
     global flash_fwd_launches
     _check_flash("flash_attention_fwd", q, q=q, k=k, v=v)
     bh, t, d = q.shape
+    route = FWD_ROUTES.index(flash_fwd_route(bh, t, d, q.dtype))
     o = torch.empty_like(q)
     lse = torch.empty((bh, t), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         err = _flash_entries()[0](
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            lse.data_ptr(), bh, t, d, d ** -0.5,
-            int(q.dtype == torch.bfloat16),
+            lse.data_ptr(), bh, t, d, d ** -0.5, route,
             torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"flash_attention_fwd launch failed: cudaError "

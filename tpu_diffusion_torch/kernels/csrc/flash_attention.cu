@@ -23,17 +23,31 @@
 //
 // bf16 inputs run on the tensor cores with fp32 accumulators (`mma.sync`
 // m16n8k16, whose fragment, staging and softmax code is shared with the
-// fused-QKV kernel through attention_mma.cuh; `wgmma` in the backward at
-// the UNet's shape). Every tile is staged row-major once, asynchronously
-// (`cp.async` into padded rows, or TMA into swizzled rows); `ldmatrix` and
-// `ldmatrix.trans` or the `wgmma` descriptors deliver the operands (nothing
-// is stored transposed by scalar stores, no fragment is gathered word by
-// word); a product's accumulators, rounded to bf16, are the next product's
-// A fragments in registers. The T x T logits never reach device memory.
-//   Forward (`flash_fwd_mma_kernel`): `tdt::attention_fwd_block`, 128 query
-//   rows per block (8 warps), keys in a ring of four 64-row slots of which
-//   the first four are requested at once, online softmax in base 2, masked
-//   on the last tile only (any T).
+// fused-QKV kernel through attention_mma.cuh; `wgmma` in the forward and
+// the backward at the UNet's shape). Every tile is staged row-major once,
+// asynchronously (`cp.async` into padded rows, or TMA into swizzled rows);
+// `ldmatrix` and `ldmatrix.trans` or the `wgmma` descriptors deliver the
+// operands (nothing is stored transposed by scalar stores, no fragment is
+// gathered word by word); a product's accumulators, rounded to bf16, are
+// the next product's A fragments in registers. The T x T logits never
+// reach device memory.
+//   Forward, three routes that the caller picks (`flash_fwd_route` in
+//   kernels/attention.py) and the entry point refuses where they do not fit:
+//   "wgmma" (`flash_fwd_tma_kernel`, bf16, d = 64, T a multiple of 128,
+//   the 64px UNet's shape): FlashAttention-3's design, a persistent block
+//   per SM of one producer and two consumer warpgroups, TMA, mbarriers and
+//   `wgmma` (see the kernel); at [128, 1024, 64] its 128-key tile costs a
+//   block ~2450 clocks, of which the tensor cores need ~1050; each
+//   warpgroup's softmax takes 1050-1450 of them and overlaps the other's
+//   products only in part, even with the warpgroups taking turns. Not the
+//   `ex2` units (16384 exponentials a tile, ~1024 clocks at 16 a clock per
+//   SM) but the consumer warps' issue holds it at ~2.4x its bound: moving a
+//   quarter of the exponentials to the FMA units made it 8% slower.
+//   "mma" (`flash_fwd_mma_kernel`, other bf16 shapes):
+//   `tdt::attention_fwd_block`, 128 query rows per block (8 warps), keys in
+//   a ring of four 64-row slots of which the first four are requested at
+//   once, online softmax in base 2, masked on the last tile only (any T).
+//   "scalar" (`flash_fwd_kernel`): fp32, below.
 //   Backward: one pass, 10 T^2 d per slice and no product twice. A block
 //   owns 128 key rows (8 warps of 16) and walks the query tiles; s^T and
 //   dp^T are computed once, dk and dv accumulate in registers, and the
@@ -994,6 +1008,349 @@ flash_bwd_dq_gather_kernel(const float* __restrict__ dq_acc,
       make_uint4(out[0], out[1], out[2], out[3]);
 }
 
+// ---------------------------------------------------------------------------
+// Forward for D = 64 and T a multiple of 128 on `wgmma`, TMA and mbarriers
+// (`flash_fwd_tma_kernel`; replaces `_flash_attention_3d` /
+// `_attn_fwd_kernel` of tpu_diffusion/kernels/attention.py at the UNet's
+// shape), after FlashAttention-3. One persistent block per SM walks the
+// (128 query rows, bh) items with three warpgroups. The third is the
+// producer: it gives its registers to the others (`setmaxnreg`) and one of
+// its threads asks TMA for each item's q tile (two buffers, so the next
+// item's q lands while this one runs) and for each 128-key tile's K and V,
+// into a ring of STAGES slots that runs on across items; an mbarrier per
+// slot and operand says when a tile has landed, another when both
+// consumers are done with it. The two consumer warpgroups own 64 query
+// rows each and meet nothing but those mbarriers and two named barriers:
+// there is no block barrier after the set-up. Per key tile j a consumer
+// issues s_j = q . k_j^T (4 `wgmma` m64n128k16, q and K from the swizzled
+// tiles, K-major both) and o += p_{j-1} . v_{j-1} (8 `wgmma` m64n64k16, p in
+// registers, V MN-major from its tile), then runs tile j's online softmax
+// (base 2, scale and log2(e) folded into one multiply-add per logit,
+// `ex2.approx`) while p_{j-1} . v_{j-1} is still in the tensor cores; only
+// the rescaling of o waits for it. The two warpgroups take turns at issuing
+// (ping-pong), so that one's exponentials run under the other's products.
+// o leaves through the warpgroup's own q rows (swizzled, no bank conflicts)
+// as 16-byte stores. Measured alternatives (PERF.md): no turns, q as a
+// register operand, one block per item: each slower.
+// Traps: an item's o staging writes the q buffer with `st.shared` that the
+// next TMA load overwrites: `fence.proxy.async` before the buffer is given
+// back; `setmaxnreg` needs the producer and consumer paths to part once
+// and never meet again (no `__syncthreads` after the split); the named
+// barriers' ids must differ from those of `bar.sync` elsewhere in the
+// block (0 is `__syncthreads`); a warpgroup's last turn is not passed, or
+// a barrier would be left with an arrival that no one waits for.
+// ---------------------------------------------------------------------------
+
+struct FwdT {
+  static constexpr int BM = 128, BN = 128, STAGES = 3;  // d = 64
+  static constexpr int THREADS = 384;  // two consumer warpgroups, a producer
+  static constexpr int TILE = BN * kW;  // elements of a 128-row tile
+  // two q buffers, the K and V slots, 16 barriers; 1024 bytes of slack to
+  // align the tiles
+  static constexpr size_t smem_bytes =
+      (2 * BM * kW + 2 * STAGES * TILE) * sizeof(bf16) +
+      16 * sizeof(uint64_t) + 1024;
+};
+
+// d (64 x 128 over the warpgroup; this warp's 16 rows as 16 accumulator
+// tiles) = A . B^T (+ d if accumulate), both from shared memory and K-major:
+// A as [m][k], B as [n][k].
+__device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[16][4],
+                                                    uint64_t desc_a,
+                                                    uint64_t desc_b,
+                                                    int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63},"
+      " %64,"
+      " %65,"
+      " p,   1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
+        "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
+        "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
+        "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
+        "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
+        "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+// Give registers back (producer) or take them (consumers), per warpgroup.
+template <int N>
+__device__ __forceinline__ void regs_dealloc() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void regs_alloc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+// Named barriers 1 and 2 make the two consumer warpgroups take turns at
+// issuing their products: warpgroup w waits on barrier 1 + w, issues, and
+// lets the other one go, so that one's exponentials run while the other's
+// products occupy the tensor cores. Barriers 3 and 4 are each warpgroup's
+// own.
+__device__ __forceinline__ void turn_wait(int wg) {
+  asm volatile("bar.sync %0, 256;\n" ::"r"(1 + wg) : "memory");
+}
+__device__ __forceinline__ void turn_pass(int wg) {
+  asm volatile("bar.arrive %0, 256;\n" ::"r"(2 - wg) : "memory");
+}
+
+__global__ void __launch_bounds__(FwdT::THREADS, 1)
+flash_fwd_tma_kernel(const __grid_constant__ CUtensorMap q_map,
+                     const __grid_constant__ CUtensorMap k_map,
+                     const __grid_constant__ CUtensorMap v_map,
+                     bf16* __restrict__ o, float* __restrict__ lse, int seq,
+                     int items, float scale) {
+  using F = FwdT;
+  constexpr int BM = F::BM, BN = F::BN, STAGES = F::STAGES, TILE = F::TILE;
+  extern __shared__ unsigned char smem_raw[];
+  bf16* qs = reinterpret_cast<bf16*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  bf16* ks = qs + 2 * BM * kW;      // [STAGES][BN][64]
+  bf16* vs = ks + STAGES * TILE;    // [STAGES][BN][64]
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(vs + STAGES * TILE);  // [2]
+  uint64_t* q_empty = q_full + 2;      // [2]
+  uint64_t* k_full = q_empty + 2;      // [STAGES]
+  uint64_t* v_full = k_full + STAGES;  // [STAGES]
+  uint64_t* empty = v_full + STAGES;   // [STAGES]
+
+  const int wg = threadIdx.x / 128;
+  const int nq = seq / BM, nk = seq / BN;
+  if (threadIdx.x == 0) {
+    for (int b = 0; b < 2; ++b) {
+      mbar_init(q_full + b, 1);
+      mbar_init(q_empty + b, 2);
+    }
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(k_full + s, 1);
+      mbar_init(v_full + s, 1);
+      mbar_init(empty + s, 2);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 2) {  // the producer: one thread issues every copy
+    regs_dealloc<24>();
+    if (threadIdx.x == 256) {
+      // q of item number `it` (this block's it-th) into buffer it % 2, once
+      // both warpgroups are done with the buffer's item it - 2
+      auto load_q = [&](int it) {
+        const int item = blockIdx.x + it * gridDim.x, qb = it % 2;
+        const int r = item / nq * seq + item % nq * BM;
+        if (it >= 2) mbar_wait(q_empty + qb, (it / 2 - 1) & 1);
+        mbar_expect_tx(q_full + qb, BM * kW * 2);
+        tma_load_tile(qs + qb * BM * kW, &q_map, r, q_full + qb);
+        tma_load_tile(qs + qb * BM * kW + 64 * kW, &q_map, r + 64,
+                      q_full + qb);
+      };
+      load_q(0);
+      int jj = 0;  // key tiles requested so far, over all items
+      for (int it = 0, item = blockIdx.x; item < items;
+           ++it, item += gridDim.x) {
+        const int row0 = item / nq * seq;
+        for (int j = 0; j < nk; ++j, ++jj) {
+          const int slot = jj % STAGES, r = row0 + j * BN;
+          // the slot's last tile, jj - STAGES, is done in both warpgroups
+          if (jj >= STAGES) mbar_wait(empty + slot, (jj / STAGES - 1) & 1);
+          mbar_expect_tx(k_full + slot, TILE * 2);
+          tma_load_tile(ks + slot * TILE, &k_map, r, k_full + slot);
+          tma_load_tile(ks + slot * TILE + 64 * kW, &k_map, r + 64,
+                        k_full + slot);
+          mbar_expect_tx(v_full + slot, TILE * 2);
+          tma_load_tile(vs + slot * TILE, &v_map, r, v_full + slot);
+          tma_load_tile(vs + slot * TILE + 64 * kW, &v_map, r + 64,
+                        v_full + slot);
+          // the next item's q, once this item's first tiles are on their
+          // way: it waits for the buffer's last item to be stored, and then
+          // lands during this item
+          if (j == (nk < STAGES ? nk : STAGES) - 1 && item + gridDim.x < items)
+            load_q(it + 1);
+        }
+      }
+    }
+    return;
+  }
+
+  regs_alloc<240>();
+  const int lane = threadIdx.x % 32, wt = threadIdx.x % 128;
+  const int w16 = (wt / 32) * 16;  // this warp's first row in its 64
+  const int g = lane / 4, c = lane % 4;
+  const float scale_log2 = scale * tdt::kLog2e;
+  float s[BN / 8][4], acc[8][4];
+  uint32_t pa[BN / 16][4];
+  float m[2], l[2];  // running max of the scaled logits; this thread's
+                     // share of the two row sums
+  int jj = 0;        // key tiles consumed so far, over all items
+
+  auto issue_qk = [&](uint64_t q_desc, int jt) {  // s = q . k^T, tile jt
+    const int slot = jt % STAGES;
+    const uint64_t k_desc = wgmma_desc(ks + slot * TILE);
+    mbar_wait(k_full + slot, jt / STAGES & 1);
+    fence_regs(s);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_m64n128k16_ss(s, q_desc + 2 * kk, k_desc + 2 * kk, kk > 0);
+    wgmma_commit();
+  };
+  auto issue_pv = [&](int jt) {  // acc += p . v, tile jt
+    const int slot = jt % STAGES;
+    const uint64_t v_desc = wgmma_desc(vs + slot * TILE);
+    mbar_wait(v_full + slot, jt / STAGES & 1);
+    fence_regs(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk)
+      wgmma_m64n64k16<1>(acc, pa[kk], v_desc + 128 * kk, 1);
+    wgmma_commit();
+  };
+  // s -> the unnormalised p of this tile in place; returns the factor by
+  // which the earlier tiles' o and l shrink (rows g and g + 8). The maxima
+  // and sums run as four independent chains per row.
+  auto softmax = [&](float (&alpha)[2]) {
+    float mx[2][4];
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        mx[h][u] = fmaxf(s[u][2 * h], s[u][2 * h + 1]);
+#pragma unroll
+    for (int t = 4; t < BN / 8; ++t)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        mx[h][t % 4] =
+            fmaxf(mx[h][t % 4], fmaxf(s[t][2 * h], s[t][2 * h + 1]));
+    float mnew[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float tmax = fmaxf(fmaxf(mx[h][0], mx[h][1]), fmaxf(mx[h][2], mx[h][3]));
+      tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 1));
+      tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 2));
+      mnew[h] = fmaxf(m[h], tmax * scale_log2);
+      alpha[h] = tdt::fast_exp2(m[h] - mnew[h]);  // 0 on the first tile
+      m[h] = mnew[h];
+    }
+    float ps[2][4] = {};
+#pragma unroll
+    for (int t = 0; t < BN / 8; ++t)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float& x = s[t][e];
+        x = tdt::fast_exp2(fmaf(x, scale_log2, -mnew[e / 2]));
+        ps[e / 2][t % 4] += x;
+      }
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      l[h] = l[h] * alpha[h] + ((ps[h][0] + ps[h][1]) + (ps[h][2] + ps[h][3]));
+  };
+
+  if (wg == 1) turn_pass(wg);  // warpgroup 0 goes first
+  for (int it = 0, item = blockIdx.x; item < items;
+       ++it, item += gridDim.x) {
+    const int row0 = item / nq * seq, q0 = item % nq * BM;
+    const int qb = it % 2;
+    bf16* qw = qs + qb * BM * kW + wg * 64 * kW;  // this warpgroup's rows
+    const uint64_t q_desc = wgmma_desc(qw);
+    m[0] = m[1] = -INFINITY;
+    l[0] = l[1] = 0.f;
+    tdt::zero(acc);
+    float alpha[2];
+    mbar_wait(q_full + qb, it / 2 & 1);
+    turn_wait(wg);
+    issue_qk(q_desc, jj);
+    turn_pass(wg);
+    wgmma_wait<0>();
+    fence_regs(s);
+    softmax(alpha);
+    tdt::pack_a<BN / 16>(s, pa);
+    for (int j = 1; j < nk; ++j) {
+      turn_wait(wg);
+      issue_qk(q_desc, jj + j);
+      issue_pv(jj + j - 1);
+      turn_pass(wg);
+      wgmma_wait<1>();  // s_j; p_{j-1} . v_{j-1} may still run
+      fence_regs(s);
+      softmax(alpha);
+      wgmma_wait<0>();
+      fence_regs(acc);
+      if (wt == 0) mbar_arrive(empty + (jj + j - 1) % STAGES);
+#pragma unroll
+      for (int t = 0; t < 8; ++t) {
+        acc[t][0] *= alpha[0];
+        acc[t][1] *= alpha[0];
+        acc[t][2] *= alpha[1];
+        acc[t][3] *= alpha[1];
+      }
+      tdt::pack_a<BN / 16>(s, pa);
+    }
+    turn_wait(wg);
+    issue_pv(jj + nk - 1);
+    // warpgroup 1's very last pass would have no wait to meet
+    if (wg == 0 || item + gridDim.x < items) turn_pass(wg);
+    wgmma_wait<0>();
+    fence_regs(acc);
+    if (wt == 0) mbar_arrive(empty + (jj + nk - 1) % STAGES);
+    jj += nk;
+
+    float inv[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float total = l[h];
+      total += __shfl_xor_sync(0xffffffffu, total, 1);
+      total += __shfl_xor_sync(0xffffffffu, total, 2);
+      inv[h] = 1.f / total;
+      if (c == 0)
+        lse[row0 + q0 + wg * 64 + w16 + g + 8 * h] =
+            m[h] * tdt::kLn2 + logf(total);
+    }
+    // o as bf16 into the warp's own 16 rows of its q tile (every `wgmma`
+    // that read them has completed), then 16-byte stores of whole rows
+#pragma unroll
+    for (int t = 0; t < 8; ++t) {
+      *reinterpret_cast<uint32_t*>(qw + swz(w16 + g, t * 8 + 2 * c)) =
+          tdt::pack_bf16(acc[t][0] * inv[0], acc[t][1] * inv[0]);
+      *reinterpret_cast<uint32_t*>(qw + swz(w16 + g + 8, t * 8 + 2 * c)) =
+          tdt::pack_bf16(acc[t][2] * inv[1], acc[t][3] * inv[1]);
+    }
+    __syncwarp();
+    bf16* out = o + static_cast<long long>(row0 + q0 + wg * 64 + w16) * 64;
+#pragma unroll
+    for (int idx = lane; idx < 16 * 8; idx += 32) {
+      const int r = idx / 8, ch = idx % 8;
+      *reinterpret_cast<uint4*>(out + r * 64 + ch * 8) =
+          *reinterpret_cast<const uint4*>(qw + swz(w16 + r, ch * 8));
+    }
+    // the q buffer is free (for the next TMA write) once the warpgroup's
+    // four warps have read their rows of it
+    fence_async_smem();
+    asm volatile("bar.sync %0, 128;\n" ::"r"(3 + wg) : "memory");
+    if (wt == 0) mbar_arrive(q_empty + qb);
+  }
+}
+
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                  void*, const cuuint64_t*, const cuuint64_t*,
                                  const cuuint32_t*, const cuuint32_t*,
@@ -1173,13 +1530,49 @@ constexpr size_t tile_floats(int d) {
 
 using tdt::allow_smem;
 
-// bf16 inputs take the tensor-core kernel, fp32 inputs the scalar kernel.
+// The forward's routes, chosen by the caller (`flash_fwd_route` in
+// kernels/attention.py): the scalar kernel for fp32, the `mma.sync` kernel
+// for bf16, the TMA / `wgmma` kernel for bf16 at D = 64 and T a multiple of
+// 128. A route that does not fit the call is refused, not replaced.
+enum FwdRoute { kScalar = 0, kMma = 1, kWgmma = 2 };
+
 template <int D>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o,
-                       float* lse, int bh, int seq, float scale, bool is_bf16,
+                       float* lse, int bh, int seq, float scale, int route,
                        cudaStream_t stream) {
-  const dim3 grid((seq + kTile - 1) / kTile, bh);
-  if (is_bf16) {
+  if (route == kWgmma) {
+    if constexpr (D == 64) {
+      const long long rows = static_cast<long long>(bh) * seq;
+      if (seq % FwdT::BM != 0 || rows >= (1LL << 31) ||
+          encode_tiled() == nullptr)
+        return cudaErrorInvalidValue;
+      CUtensorMap maps[3];
+      const void* ptrs[3] = {q, k, v};
+      for (int m = 0; m < 3; ++m) {
+        const cudaError_t err = tile_map(ptrs[m], rows, &maps[m]);
+        if (err != cudaSuccess) return err;
+      }
+      // one persistent block per SM walks the (query tile, bh) items
+      const int items = (seq / FwdT::BM) * bh;
+      int device = 0, sms = 0;
+      cudaError_t err = cudaGetDevice(&device);
+      if (err == cudaSuccess)
+        err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                     device);
+      if (err != cudaSuccess) return err;
+      err = allow_smem<flash_fwd_tma_kernel>(FwdT::smem_bytes);
+      if (err != cudaSuccess) return err;
+      const int grid = items < sms ? items : sms;
+      flash_fwd_tma_kernel<<<grid, FwdT::THREADS, FwdT::smem_bytes, stream>>>(
+          maps[0], maps[1], maps[2], static_cast<bf16*>(o), lse, seq, items,
+          scale);
+      return cudaGetLastError();
+
+    } else {
+      return cudaErrorInvalidValue;
+    }
+  }
+  if (route == kMma) {
     constexpr int ROWS = kFwdWarps * 16;
     constexpr size_t bytes =
         tdt::fwd_smem_bytes<D, kFwdWarps, kFwdStages<D>>();
@@ -1190,14 +1583,17 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o,
             static_cast<const bf16*>(q), static_cast<const bf16*>(k),
             static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, seq,
             scale);
-  } else {
+  } else if (route == kScalar) {
     const size_t bytes = (3 * tile_floats(D) + kTile * kPS) * sizeof(float);
     cudaError_t err = allow_smem<flash_fwd_kernel<D>>(bytes);
     if (err != cudaSuccess) return err;
-    flash_fwd_kernel<D><<<grid, kThreads, bytes, stream>>>(
+    flash_fwd_kernel<D><<<dim3((seq + kTile - 1) / kTile, bh), kThreads,
+                          bytes, stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<float*>(o), lse, seq,
         scale);
+  } else {
+    return cudaErrorInvalidValue;
   }
   return cudaGetLastError();
 }
@@ -1278,18 +1674,19 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v,
 }  // namespace
 
 // q, k, v, o: [bh, seq, head_dim], contiguous and 16-byte aligned, of fp32
-// (is_bf16 = 0) or bf16; lse: [bh, seq] fp32. Returns the cudaError_t of the
-// launch (0 on success).
+// (route 0, scalar) or bf16 (route 1, `mma.sync`; route 2, TMA and `wgmma`,
+// head_dim 64 and seq a multiple of 128 only); lse: [bh, seq] fp32. Returns
+// the cudaError_t of the launch (0 on success).
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
                                    void* o, float* lse, int bh, int seq,
-                                   int head_dim, float scale, int is_bf16,
+                                   int head_dim, float scale, int route,
                                    void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool bf = is_bf16 != 0;
   switch (head_dim) {
-    case 32: return launch_fwd<32>(q, k, v, o, lse, bh, seq, scale, bf, s);
-    case 64: return launch_fwd<64>(q, k, v, o, lse, bh, seq, scale, bf, s);
-    case 128: return launch_fwd<128>(q, k, v, o, lse, bh, seq, scale, bf, s);
+    case 32: return launch_fwd<32>(q, k, v, o, lse, bh, seq, scale, route, s);
+    case 64: return launch_fwd<64>(q, k, v, o, lse, bh, seq, scale, route, s);
+    case 128:
+      return launch_fwd<128>(q, k, v, o, lse, bh, seq, scale, route, s);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -1,9 +1,12 @@
-"""GroupNorm(+FiLM)+SiLU: the hand-written CUDA kernel and its plain version.
+"""GroupNorm(+FiLM)+SiLU: the hand-written CUDA kernels and their plain version.
 
 Counterpart of `tpu_diffusion/kernels/groupnorm.py:fused_groupnorm_silu`:
 `act(GN(x) * gamma * (1 + scale) + beta * (1 + scale) + shift)` with fp32
 group statistics, on NHWC x. A CPU tensor goes to `reference_groupnorm_silu`;
-a CUDA tensor goes to `csrc/groupnorm_silu.cu` or raises.
+a CUDA tensor goes to `csrc/groupnorm_silu.cu` or raises. `gn_route` picks
+the kernel: "cluster" (one launch; a cluster of blocks holds each image in
+shared memory) where the image fits, else "two_pass" (statistics, then
+apply).
 """
 
 from __future__ import annotations
@@ -17,7 +20,8 @@ import torch.nn.functional as F
 from tpu_diffusion_torch.kernels.build import load_library
 
 # Kernel launches made by `fused_groupnorm_silu` since the count was last
-# set to 0. One launch is the stats pass and the apply pass together.
+# set to 0: one per call, whichever route (the two-pass route's stats and
+# apply passes count once together).
 launches = 0
 
 ACTS = ("silu", "none")
@@ -41,13 +45,15 @@ def reference_groupnorm_silu(x, gamma, beta, scale=None, shift=None,
 
 
 @functools.lru_cache(maxsize=None)
-def _entry():
-    fn = load_library("groupnorm_silu").groupnorm_silu
-    p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p, p, p, p, p, p, i, p, i, i, i, i, i, i, i,
-                   ctypes.c_float, i, i, p]
-    fn.restype = ctypes.c_int
-    return fn
+def _entries():
+    lib = load_library("groupnorm_silu")
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    two_pass, cluster = lib.groupnorm_silu, lib.groupnorm_silu_cluster
+    two_pass.argtypes = [p, p, p, p, p, p, i, p, i, i, i, i, i, i, i, f, i,
+                         i, p]
+    cluster.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, f, i, i, p]
+    two_pass.restype = cluster.restype = ctypes.c_int
+    return two_pass, cluster
 
 
 def fused_groupnorm_silu(x: torch.Tensor, gamma: torch.Tensor,
@@ -71,13 +77,90 @@ def fused_groupnorm_silu(x: torch.Tensor, gamma: torch.Tensor,
 
 
 def launch_geometry(c: int, hw: int, itemsize: int):
-    """(rows, pixels per chunk, chunks) of the kernel's blocks: each block
-    has (C / vec) * rows threads (vec elements per 16-byte load) and covers
-    `pixels per chunk` pixels of one image, 4 per thread."""
+    """(rows, pixels per chunk, chunks) of the two-pass route's blocks: each
+    block has (C / vec) * rows threads (vec elements per 16-byte load) and
+    covers `pixels per chunk` pixels of one image, 4 per thread."""
     cv = c // (16 // itemsize)
     rows = max(1, 256 // cv)
     pix = rows * 4
     return rows, pix, -(-hw // pix)
+
+
+CLUSTER_SIZES = (1, 2, 4, 8)  # portable cluster sizes
+CHUNK_MAX = 192 * 1024     # bytes of x a cluster-route block holds at most
+SMEM_MAX = 232448          # a block's shared memory on the H100
+SMS = 132                  # the H100 SXM's SMs
+
+
+def cluster_smem(c: int, hw: int, itemsize: int, cluster: int, rows: int,
+                 num_groups: int = 32) -> int:
+    """Shared-memory bytes of a cluster-route block: its pixels of x, a
+    float4 of sums per thread, 2 x G float2 statistics, 4 mbarriers."""
+    threads = c // (16 // itemsize) * rows
+    return hw // cluster * c * itemsize + 16 * threads + 16 * num_groups + 32
+
+
+def _cluster_rows(cv: int, threads: int) -> int:
+    """Rows of a cluster-route block: (C / vec) * rows threads, the largest
+    multiple of 32 up to `threads`; 0 if there is none."""
+    rows = max(1, threads // cv)
+    while rows and cv * rows % 32:
+        rows -= 1
+    return rows
+
+
+def gn_route(b: int, hw: int, c: int, itemsize: int, num_groups: int = 32,
+             sms: int = SMS):
+    """("cluster", (cluster size, rows)) or ("two_pass", launch_geometry).
+
+    The cluster route runs each image on `cluster` blocks of (C / vec) *
+    rows threads, each holding hw / cluster pixels (at most CHUNK_MAX
+    bytes) in shared memory. Of the cluster sizes that fit, it takes the
+    one with the fewest waves of blocks over the card's `sms` SMs; within
+    one wave the smallest whose blocks fill the card (else the largest),
+    within several waves the one with the most blocks per SM. Blocks have
+    about 512 threads in a single wave, and 256 for chunks under 32 KB and
+    in several waves where 256 is a multiple of C / vec (measured on the
+    H100: PERF.md). An image too large for eight blocks, or channels the
+    kernel cannot fold, take the two-pass route."""
+    vec = 16 // itemsize
+    cv, cg = c // vec, c // num_groups
+    # the kernel folds a thread's vec channels into at most two groups
+    two_groups = all((v * vec + vec - 1) // cg - v * vec // cg <= 1
+                     for v in range(cv))
+    best = None
+    for n in CLUSTER_SIZES:
+        chunk = hw // n * c * itemsize
+        if (hw % n or chunk > CHUNK_MAX or not two_groups
+                or not 0 < b <= 65535):
+            continue
+        for threads in ((512, 256) if chunk >= 32 * 1024 else (256,)):
+            rows = _cluster_rows(cv, threads)
+            smem = cluster_smem(c, hw, itemsize, n, rows, num_groups)
+            if not rows or num_groups > cv * rows or smem > SMEM_MAX:
+                continue
+            per_sm = min(SMEM_MAX // smem, 2048 // (cv * rows))
+            waves = -(-b * n // (sms * per_sm))
+            # 256 threads only where they split the channels evenly
+            if waves == 1 or threads == 256 or 256 % cv:
+                break
+        else:
+            continue
+        if waves == 1:
+            fills = b * n >= 0.9 * sms
+            key = (1, 0 if fills else 1, n if fills else -n)
+        else:
+            key = (waves, 0, -per_sm)
+        if best is None or key < best[0]:
+            best = (key, n, rows)
+    if best is not None:
+        return "cluster", (best[1], best[2])
+    return "two_pass", launch_geometry(c, hw, itemsize)
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _launch(x, gamma, beta, scale, shift, num_groups, eps, act):
@@ -110,19 +193,26 @@ def _launch(x, gamma, beta, scale, shift, num_groups, eps, act):
                 raise ValueError(f"{name} must be a [B, C] {x.dtype} tensor "
                                  f"on {x.device} with unit channel stride")
         film_stride = scale.stride(0)
-    rows, pix, nchunk = launch_geometry(c, h * w, x.element_size())
+    route, geometry = gn_route(b, h * w, c, x.element_size(), num_groups,
+                               _sms(x.device))
     out = torch.empty_like(x)
-    partials = torch.empty((b, nchunk, num_groups, 2), dtype=torch.float32,
-                           device=x.device)
+    common = (x.data_ptr(), out.data_ptr(), gamma.data_ptr(),
+              beta.data_ptr(), None if scale is None else scale.data_ptr(),
+              None if shift is None else shift.data_ptr(), film_stride)
+    flags = (eps, int(act == "silu"), int(x.dtype == torch.bfloat16),
+             torch.cuda.current_stream(x.device).cuda_stream)
     with torch.cuda.device(x.device):
-        err = _entry()(
-            x.data_ptr(), out.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
-            None if scale is None else scale.data_ptr(),
-            None if shift is None else shift.data_ptr(), film_stride,
-            partials.data_ptr(), b, h * w, c, num_groups, rows, pix, nchunk,
-            eps, int(act == "silu"), int(x.dtype == torch.bfloat16),
-            torch.cuda.current_stream().cuda_stream)
+        if route == "cluster":
+            err = _entries()[1](*common, b, h * w, c, num_groups, *geometry,
+                                *flags)
+        else:
+            rows, pix, nchunk = geometry
+            partials = torch.empty((b, nchunk, num_groups, 2),
+                                   dtype=torch.float32, device=x.device)
+            err = _entries()[0](*common, partials.data_ptr(), b, h * w, c,
+                                num_groups, rows, pix, nchunk, *flags)
     if err:
-        raise RuntimeError(f"groupnorm_silu launch failed: cudaError {err}")
+        raise RuntimeError(f"groupnorm_silu ({route}) launch failed: "
+                           f"cudaError {err}")
     launches += 1
     return out
