@@ -29,9 +29,13 @@ The DDIM path of the CIFAR-10 bench UNet:
 The fused-inference engine (`models/unet_infer.py`) on the same UNet:
   resblock_kernel  the whole-ResBlock kernel against its plain version at
            the five shapes the engine gives it (batch 64, bf16), plus an
-           fp32, an additive-mode and an identity-skip case; times as in
-           `kernel`, with the port's own `ResBlock` module (cuDNN convs; the
-           eager norm chain, and the GN kernel) as the library yardstick;
+           fp32, an additive-mode and an identity-skip case, and the 64px
+           UNet's first ResBlock ([32,64,64,128] -> 128, timed only); each
+           line names its route ("wgmma" at every path shape,
+           `kernels/resblock.py:resblock_route`) and whether two calls agree
+           bitwise; times as in `kernel`, with the port's own `ResBlock`
+           module (cuDNN convs; the eager norm chain, and the GN kernel) as
+           the library yardstick;
   engine_forward  eps through the engine (its five 32x32 ResBlocks on the
            kernel) against eps of the plain model, both norm
            configurations, with the engine's decision log; one forward's
@@ -81,11 +85,11 @@ Needs one CUDA card; imports nothing of JAX.
 
     python3 chip_smoke.py --kernels
 
-builds the kernels and runs only the attention and GroupNorm kernels' cases
-of the `kernel` and `flash_kernel` phases, at the shapes the two paths give
-them (`ATTN_PATH_SHAPES`, `GN_PATH_SHAPES`, `FLASH_PATH_SHAPES`, checked
-against the models' own calls in the full run; a quick check while working
-on a kernel; it does not print the ok line).
+builds the kernels and runs only the kernels' cases of the `kernel`,
+`resblock_kernel` and `flash_kernel` phases, at the shapes the paths give
+them (`ATTN_PATH_SHAPES`, `GN_PATH_SHAPES`, `RES_PATH_SHAPES`,
+`FLASH_PATH_SHAPES`, checked against the models' own calls in the full run;
+a quick check while working on a kernel; it does not print the ok line).
 """
 
 import copy
@@ -124,6 +128,20 @@ GN_PATH_SHAPES = {
         (16, 512, False, "silu", 2), (32, 128, False, "silu", 3),
         (32, 128, True, "silu", 5), (32, 256, False, "silu", 2),
         (32, 384, False, "silu", 1)]}
+# the ResBlocks of one CIFAR forward: {(x shape, Cout, 1x1 skip): calls}; the
+# engine puts those of at least 1024 pixels (the five 32x32 ones) on the
+# ResBlock kernel
+RES_PATH_SHAPES = {
+    ((BATCH, h, h, cin), cout, skip): n for h, cin, cout, skip, n in [
+        (4, 256, 256, False, 4), (4, 512, 256, True, 3),
+        (8, 256, 256, False, 2), (8, 512, 256, True, 3),
+        (16, 128, 256, True, 1), (16, 256, 256, False, 1),
+        (16, 384, 256, True, 1), (16, 512, 256, True, 2),
+        (32, 128, 128, False, 2), (32, 256, 128, True, 2),
+        (32, 384, 128, True, 1)]}
+# the 64px UNet's first 64x64 ResBlock (FiLM, identity skip), batch 32: timed
+# beside the path shapes, not part of any path
+RES_64PX_SHAPE = (32, 64, 128, 128)
 
 
 def card():
@@ -298,8 +316,10 @@ def resblock_inputs(torch, gen, dev, b, hw, cin, cout, film, skip, dtype):
 
 def resblock_phase(torch, card_info, res_shapes, unet, dev, min_tokens=1024):
     """`fused_resblock` against `resblock_reference` at the shapes the engine
-    gives it, plus an fp32, an additive-mode and an identity-skip case;
-    returns {kernel: per-forward sums}."""
+    gives it, plus an fp32, an additive-mode and an identity-skip case, and
+    the 64px UNet's first ResBlock (timed only: no path runs it); each line
+    names the route and whether two calls agree bitwise. Returns {kernel:
+    per-forward sums}."""
     from tpu_diffusion_torch.kernels import resblock
     gen = torch.Generator(device=dev).manual_seed(SEED + 4)
     bf16, fp32 = torch.bfloat16, torch.float32
@@ -308,14 +328,18 @@ def resblock_phase(torch, card_info, res_shapes, unet, dev, min_tokens=1024):
              if shape[1] * shape[2] >= min_tokens]
     cases += [(8, 32, 128, 128, True, False, fp32, 0),
               (8, 32, 256, 128, False, True, bf16, 0),   # additive mode
-              (8, 16, 256, 256, True, False, bf16, 0)]   # identity skip
+              (8, 16, 256, 256, True, False, bf16, 0),   # identity skip
+              (*RES_64PX_SHAPE, True, False, bf16, 0)]
     tot = dict(max_abs_err=0.0, bound_ms=0.0, by={})
     for b, hw, cin, cout, film, skip, dtype, count in cases:
         args = resblock_inputs(torch, gen, dev, b, hw, cin, cout, film, skip,
                                dtype)
+        route = resblock.resblock_route(b, hw, hw, cin, cout, dtype)[0]
         got = resblock.fused_resblock(*args)
+        again = resblock.fused_resblock(*args)
         want = resblock.resblock_reference(*args)
         torch.cuda.synchronize()
+        bitwise = torch.equal(got, again)
         ref_max = want.float().abs().max().item()
         err = (got.float() - want.float()).abs().max().item()
         # fp32: the order of the sums through two convs and two norms. bf16:
@@ -327,6 +351,12 @@ def resblock_phase(torch, card_info, res_shapes, unet, dev, min_tokens=1024):
         check(math.isfinite(err) and err <= tol,
               f"resblock {b, hw, cin, cout} {dtype} film={film} skip={skip}: "
               f"max abs err {err}, tol {tol}")
+        # no atomics on any route: two calls are bitwise equal
+        check(bitwise, f"resblock {b, hw, cin, cout} {dtype}: two calls "
+                       f"differ")
+        check(not count or route == "wgmma",
+              f"resblock {b, hw, cin, cout}: a path shape on the {route!r} "
+              f"route")
         # the library yardstick: the port's own ResBlock module on the same
         # input (cuDNN convs; it also runs the small emb projection)
         emb = torch.randn((b, 512), generator=gen, device=dev).to(dtype)
@@ -351,7 +381,8 @@ def resblock_phase(torch, card_info, res_shapes, unet, dev, min_tokens=1024):
                                  BF16_FLOPS if dtype == bf16 else FP32_FLOPS)
         emit(card_info, phase="resblock_kernel", kernel="fused_resblock",
              shape=[b, hw, hw, cin], cout=cout, film=film, skip_conv=skip,
-             dtype=str(dtype), count_per_forward=count, max_abs_err=err,
+             dtype=str(dtype), route=route, bitwise_twice=bitwise,
+             count_per_forward=count, max_abs_err=err,
              max_abs_ref=ref_max, tol=tol, **times,
              library_gn_kernel_ms=gn_ms, library_gn_kernel_eager_ms=gn_eager,
              bound_ms=bnd, bound_by=by,
@@ -1205,9 +1236,10 @@ def main():
     dev = torch.device("cuda")
     if sys.argv[1:] == ["--kernels"]:
         kernel_phase(torch, F, card_info, ATTN_PATH_SHAPES, GN_PATH_SHAPES)
+        resblock_phase(torch, card_info, RES_PATH_SHAPES, unet, dev)
         flash_kernel_phase(torch, F, card_info, FLASH_PATH_SHAPES, dev)
-        print(json.dumps({"partial": "--kernels: the attention and GN "
-                                     "kernels' cases only"}), flush=True)
+        print(json.dumps({"partial": "--kernels: the kernels' cases only"}),
+              flush=True)
         return 0
     gen = torch.Generator().manual_seed(SEED + 1)
     x = torch.randn((BATCH, 32, 32, 3), generator=gen).to(dev)
@@ -1221,6 +1253,8 @@ def main():
           f"the CIFAR UNet's attention calls {attn_shapes}")
     check(norm_shapes == GN_PATH_SHAPES,
           f"the CIFAR UNet's GroupNorm calls {norm_shapes}")
+    check(res_shapes == RES_PATH_SHAPES,
+          f"the CIFAR UNet's ResBlocks {res_shapes}")
     totals = kernel_phase(torch, F, card_info, attn_shapes, norm_shapes)
     totals.update(resblock_phase(torch, card_info, res_shapes, unet, dev))
 

@@ -258,17 +258,21 @@ def _resblock_inputs(seed, b, hw, cin, cout, film, skip, dtype, dev):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,b,hw,cin,cout,film,skip", [
-    (torch.bfloat16, 3, 32, 128, 128, True, False),   # the CIFAR shapes
-    (torch.bfloat16, 2, 32, 256, 128, True, True),
-    (torch.bfloat16, 2, 32, 384, 128, True, True),
-    (torch.float32, 2, 32, 128, 128, True, False),
-    (torch.float32, 2, 16, 96, 64, False, True),      # additive, 32-chunks
-    (torch.bfloat16, 2, 16, 96, 192, False, True),    # 64-channel tiles
-    (torch.bfloat16, 1, 64, 64, 256, True, True),     # two rows per block
-    (torch.float32, 3, 16, 64, 64, True, False)])     # 8 rows per block
+@pytest.mark.parametrize("dtype,b,hw,cin,cout,film,skip,route", [
+    (torch.bfloat16, 3, 32, 128, 128, True, False, "wgmma"),  # CIFAR shapes
+    (torch.bfloat16, 2, 32, 256, 128, True, True, "wgmma"),
+    (torch.bfloat16, 2, 32, 384, 128, True, True, "wgmma"),
+    (torch.bfloat16, 2, 32, 256, 128, False, True, "wgmma"),  # additive
+    (torch.bfloat16, 3, 16, 256, 256, True, False, "wgmma"),  # one tile
+    (torch.float32, 2, 32, 128, 128, True, False, "scalar"),
+    (torch.float32, 2, 16, 96, 64, False, True, "scalar"),    # 32-chunks
+    (torch.bfloat16, 2, 16, 96, 192, False, True, "mma"),     # 64-ch tiles
+    (torch.bfloat16, 1, 64, 64, 256, True, True, "wgmma"),    # W = 64
+    (torch.bfloat16, 1, 128, 64, 128, True, True, "mma"),     # W = 128
+    (torch.float32, 3, 16, 64, 64, True, False, "scalar")])   # 8 rows
 def test_cuda_resblock_matches_plain(cuda, dtype, b, hw, cin, cout, film,
-                                     skip):
+                                     skip, route):
+    assert resblock.resblock_route(b, hw, hw, cin, cout, dtype)[0] == route
     args = _resblock_inputs(cin + cout, b, hw, cin, cout, film, skip, dtype,
                             cuda)
     before = resblock.launches
@@ -286,6 +290,22 @@ def test_cuda_resblock_matches_plain(cuda, dtype, b, hw, cin, cout, film,
     # ulp, at most 2^-8 of the largest entry)
     tol = (2e-5 if dtype == torch.float32 else 1e-2) * scale
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=0)
+
+
+@pytest.mark.cuda
+def test_cuda_resblock_wgmma_twice_bitwise(cuda):
+    """The "wgmma" route sums GN2's partials in a fixed order, without
+    atomics: two calls on the same inputs agree bitwise (CUDA-graph replay
+    of the CIFAR path relies on it)."""
+    b, hw, cin, cout = 3, 32, 128, 128
+    assert resblock.resblock_route(b, hw, hw, cin, cout,
+                                   torch.bfloat16)[0] == "wgmma"
+    args = _resblock_inputs(7, b, hw, cin, cout, True, False, torch.bfloat16,
+                            cuda)
+    first = resblock.fused_resblock(*args)
+    second = resblock.fused_resblock(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 @pytest.mark.cuda

@@ -58,10 +58,6 @@ __device__ __forceinline__ float fast_exp2(float x) {
   return y;
 }
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
 // Four 8 x 8 bf16 matrices; lane l gives the address of row l % 8 of matrix
 // l / 8; register i holds matrix i's (row g, columns 2c, 2c + 1).
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {

@@ -1,5 +1,5 @@
 // Helpers shared by the kernels in this directory: fp32 widening of bf16 and
-// fp32 values, and 16-byte vector loads and stores.
+// fp32 values, 16-byte vector loads and stores, shared-memory addresses.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -43,6 +43,11 @@ __device__ __forceinline__ void store16(T* p, const float* src) {
 #pragma unroll
   for (int i = 0; i < vec16<T>(); ++i) v[i] = from_f<T>(src[i]);
   *reinterpret_cast<uint4*>(p) = raw;
+}
+
+// The shared-state-space address of a pointer into shared memory.
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
 }  // namespace tdt

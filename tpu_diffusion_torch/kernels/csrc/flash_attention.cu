@@ -100,6 +100,7 @@
 #include <stdint.h>
 
 #include "attention_mma.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -540,73 +541,28 @@ flash_bwd_dq_convert_kernel(const float* __restrict__ dq_acc,
 // without bank conflicts alike.
 // ---------------------------------------------------------------------------
 
-constexpr int kW = 64;  // elements per swizzled row (128 bytes)
-
-// Element offset of (row, col) in a swizzled [rows][64] tile.
-__device__ __forceinline__ int swz(int row, int col) {
-  return row * kW + (((col >> 3) ^ (row & 7)) << 3) + (col & 7);
-}
-
-// Shared-memory matrix descriptor of a swizzled tile (or of a k-step inside
-// it): 128-byte swizzle, 1024 bytes between groups of 8 rows.
-__device__ __forceinline__ uint64_t wgmma_desc(const void* p) {
-  return static_cast<uint64_t>((tdt::smem_addr(p) & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(64) << 16) | (static_cast<uint64_t>(64) << 32) |
-         (static_cast<uint64_t>(1) << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-// Keep the compiler from moving accesses to `acc` across this point.
-template <int NT>
-__device__ __forceinline__ void fence_regs(float (&acc)[NT][4]) {
-#pragma unroll
-  for (int t = 0; t < NT; ++t)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(acc[t][e])::"memory");
-}
-
-// d (64 x 64 over the warpgroup; this warp's 16 rows as 8 accumulator
-// tiles) = a . B (+ d if accumulate): a the warp's 16 x 16 A fragment, B 16
-// x 64 in shared memory: TRANS_B = 0 reads it as [n][k] (k contiguous),
-// TRANS_B = 1 as [k][n] (n contiguous).
-template <int TRANS_B>
-__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[8][4],
-                                                const uint32_t (&a)[4],
-                                                uint64_t desc_b,
-                                                int accumulate) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0,  %1,  %2,  %3,  %4,  %5,  %6,  %7,  "
-      " %8,  %9,  %10, %11, %12, %13, %14, %15, "
-      " %16, %17, %18, %19, %20, %21, %22, %23, "
-      " %24, %25, %26, %27, %28, %29, %30, %31},"
-      "{%32, %33, %34, %35},"
-      " %36,"
-      " p,   1, 1, %38;\n"
-      "}\n"
-      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
-        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
-        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
-        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
-        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
-        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
-        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
-        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
-        "r"(accumulate), "n"(TRANS_B));
-}
+// The Hopper helpers of hopper.cuh.
+using tdt::bulk_load;
+using tdt::EncodeTiled;
+using tdt::encode_tiled;
+using tdt::fence_async_smem;
+using tdt::fence_regs;
+using tdt::kW;
+using tdt::mbar_arrive;
+using tdt::mbar_expect_tx;
+using tdt::mbar_init;
+using tdt::mbar_wait;
+using tdt::regs_alloc;
+using tdt::regs_dealloc;
+using tdt::swz;
+using tdt::tma_load_tile;
+using tdt::warpgroup_sync;
+using tdt::wgmma_commit;
+using tdt::wgmma_desc;
+using tdt::wgmma_fence;
+using tdt::wgmma_m64n128k16_ss;
+using tdt::wgmma_m64n64k16;
+using tdt::wgmma_wait;
 
 // d (64 x 32 over the warpgroup; this warp's 16 rows as 4 accumulator
 // tiles) = A . B (+ d if accumulate), both from shared memory: A as [k][m]
@@ -631,79 +587,6 @@ __device__ __forceinline__ void wgmma_m64n32k16_at_b(float (&d)[4][4],
         "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
         "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3])
       : "l"(desc_a), "l"(desc_b), "r"(accumulate));
-}
-
-// Make this thread's writes to shared memory visible to the async proxy
-// (`wgmma` operands, bulk copies).
-__device__ __forceinline__ void fence_async_smem() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-// Barrier over the 128 threads of warpgroup `wg` (barrier 0 is the block's).
-__device__ __forceinline__ void warpgroup_sync(int wg) {
-  asm volatile("bar.sync %0, 128;\n" ::"r"(wg + 1) : "memory");
-}
-
-// ---------------------------------------------------------------------------
-// mbarriers, TMA
-// ---------------------------------------------------------------------------
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                   tdt::smem_addr(bar)),
-               "r"(count)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
-                   tdt::smem_addr(bar))
-               : "memory");
-}
-// Arrive and announce `bytes` of asynchronous copies that will complete on
-// the barrier.
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          tdt::smem_addr(bar)),
-      "r"(bytes)
-      : "memory");
-}
-// Wait until the barrier's phase of the given parity has completed. A wait
-// that does not end (a fault in the protocol) traps instead of hanging.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-  const uint32_t addr = tdt::smem_addr(bar);
-  for (int spins = 0;; ++spins) {
-    uint32_t done;
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (spins > (1 << 22)) __trap();
-  }
-}
-// One 64 x 64 bf16 box at (row, column 0) of a [rows][64] tensor map into a
-// swizzled tile; completes `bar` by 8192 bytes.
-__device__ __forceinline__ void tma_load_tile(bf16* dst, const CUtensorMap* map,
-                                              int row, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::"
-      "bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(tdt::smem_addr(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(tdt::smem_addr(bar)), "r"(0),
-      "r"(row)
-      : "memory");
-}
-// `bytes` contiguous bytes (a multiple of 16, 16-byte aligned both sides).
-__device__ __forceinline__ void bulk_load(void* dst, const void* src, int bytes,
-                                          uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n" ::"r"(tdt::smem_addr(dst)),
-      "l"(src), "r"(bytes), "r"(tdt::smem_addr(bar))
-      : "memory");
 }
 
 struct BwdT {
@@ -1052,59 +935,6 @@ struct FwdT {
       16 * sizeof(uint64_t) + 1024;
 };
 
-// d (64 x 128 over the warpgroup; this warp's 16 rows as 16 accumulator
-// tiles) = A . B^T (+ d if accumulate), both from shared memory and K-major:
-// A as [m][k], B as [n][k].
-__device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[16][4],
-                                                    uint64_t desc_a,
-                                                    uint64_t desc_b,
-                                                    int accumulate) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63},"
-      " %64,"
-      " %65,"
-      " p,   1, 1, 0, 0;\n"
-      "}\n"
-      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
-        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
-        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
-        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
-        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
-        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
-        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
-        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
-        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
-        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
-        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
-        "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
-        "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
-        "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
-        "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
-        "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
-      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
-}
-
-// Give registers back (producer) or take them (consumers), per warpgroup.
-template <int N>
-__device__ __forceinline__ void regs_dealloc() {
-  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
-}
-template <int N>
-__device__ __forceinline__ void regs_alloc() {
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
-}
-
 // Named barriers 1 and 2 make the two consumer warpgroups take turns at
 // issuing their products: warpgroup w waits on barrier 1 + w, issues, and
 // lets the other one go, so that one's exponentials run while the other's
@@ -1349,28 +1179,6 @@ flash_fwd_tma_kernel(const __grid_constant__ CUtensorMap q_map,
     asm volatile("bar.sync %0, 128;\n" ::"r"(3 + wg) : "memory");
     if (wt == 0) mbar_arrive(q_empty + qb);
   }
-}
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                 void*, const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// libcuda's cuTensorMapEncodeTiled, looked up at run time (nothing links
-// against libcuda).
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
-                                &found) != cudaSuccess ||
-        found != cudaDriverEntryPointSuccess)
-      p = nullptr;
-    return reinterpret_cast<EncodeTiled>(p);
-  }();
-  return fn;
 }
 
 // A map of a [rows][64] bf16 matrix in boxes of 64 x 64 with the 128-byte

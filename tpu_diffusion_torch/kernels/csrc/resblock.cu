@@ -17,51 +17,75 @@
 // 34 to 68 MB of x, output and weights, so it is bound by operations: 39 to
 // 85 us at the bf16 tensor-core rate against 10 to 20 us for the bytes.
 //
-// Design. The TPU kernel holds whole images in VMEM, because GN2 needs the
-// statistics of all of conv1's output before conv2 can start. One
+// The chain. The TPU kernel holds whole images in VMEM, because GN2 needs
+// the statistics of all of conv1's output before conv2 can start. One
 // [32, 32, 128] bf16 image is 256 KB and does not fit a block's 227 KB of
-// shared memory, so here the function is a chain of three kernels on one
-// stream:
+// shared memory, so here the function is three kernels on one stream:
 //   1. `gn_partial_kernel`: per (image, 128-pixel chunk) partial sums of x
 //      and x^2 for each GN1 group;
-//   2. `conv3x3_kernel` (first use): finishes the GN1 statistics from the
-//      partial sums, applies normalise + SiLU while it stages its input
-//      tile, computes conv1 as an implicit GEMM, writes the mid tensor in
-//      x's type and, from the fp32 accumulators (not from their roundings),
-//      per (image, tile) partial sums for each GN2 group;
-//   3. `conv3x3_kernel` (second use): the same with GN2 (and FiLM) on load,
-//      the 1x1 skip product as one more pass of the same GEMM over raw x,
-//      and the bias, skip and residual in the epilogue.
+//   2. the conv kernel (first use): finishes the GN1 statistics from the
+//      partial sums, applies normalise + SiLU while it stages its input,
+//      computes conv1 as an implicit GEMM, writes the mid tensor in x's type
+//      and, from the fp32 accumulators (not from their roundings), per
+//      (image, tile, channel tile) partial sums for each GN2 group, in a
+//      fixed order and without atomics (two calls are bitwise equal);
+//   3. the conv kernel (second use): the same with GN2 (and FiLM) on load,
+//      the 1x1 skip product as more k-steps over raw x on the same
+//      accumulators, and the bias, skip and residual in the epilogue.
 // The mid tensor ([64, 32, 32, 128] bf16: 16.8 MB) is written once and read
-// once and stays in the 50 MB L2. x is read three times (statistics, conv1,
-// skip), the second and third time mostly from L2.
+// once and stays in the 50 MB L2. The padding applies after normalise +
+// SiLU: a halo pixel adds 0, not silu(GN(0)).
 //
-// A block computes 128 pixels (whole image rows) by TN = 64 or 128 output
-// channels. It walks the input channels in chunks of KC: the chunk of the
-// haloed input slab ((rows + 2) x (W + 2) pixels) is staged into shared
-// memory once, normalised and activated, with zeros for pixels outside the
-// image (the padding applies after normalise + SiLU: a halo pixel adds 0,
-// not silu(GN(0))), and serves all nine taps; the weights are staged one
-// kernel row (three taps) at a time. bf16 runs on the tensor cores
-// (`mma.sync` m16n8k16, fp32 accumulators, 8 warps of 32 pixels x TN / 2
-// channels, fragments by `ldmatrix`; the weights stay HWIO, [k][n], and
-// their fragments come transposed by `ldmatrix.trans`); fp32 runs scalar
-// FMAs (8 pixels x TN / 16 channels per thread). No `cp.async` or TMA
-// pipeline and no `wgmma` yet.
+// Routes, picked by the caller (`resblock_route` in kernels/resblock.py,
+// which also sets the tile geometry and so the scratch shapes) and refused
+// by the entry point where they do not fit:
+//   "wgmma" (bf16, W in {8, 16, 32, 64}, 256 / W dividing H, Cin % 32 = 0,
+//   Cout % 128 = 0: every CIFAR engine shape): `conv3x3_wgmma_kernel`. A
+//   block computes 256 pixels (whole rows) x 128 output channels with two
+//   consumer warpgroups (128 pixels each, two m64n128 fp32 accumulators,
+//   128 registers a thread) and a producer warp. What it does about the
+//   four things that held the `mma.sync` design at 5.6x its bound:
+//   - products: `wgmma` m64n128k16 with both operands in shared memory, A
+//     K-major in the 64-byte swizzle, B (the weights, [k][n] as HWIO holds
+//     them) MN-major in the 128-byte swizzle;
+//   - overlap: the weights of one tap (32 input x 128 output channels, 8
+//     KB) come by TMA into a ring of six slots on mbarriers, so loads run
+//     ahead of the products; the activations are staged by the consumers
+//     into the second of two slab buffers while the tensor cores work
+//     through the current one, one tap queued at all times;
+//   - weight traffic: 256-pixel tiles halve the L2 reads of the weights
+//     against 128-pixel ones (256 blocks per conv at [64, 32, 32, .]);
+//   - the A operand: a tap's 64 output pixels are not a uniform stride into
+//     a haloed slab whose rows are W + 2 wide, so the activation is stored
+//     three times, pre-shifted by kx = 0, 1, 2, in rows exactly W wide:
+//     every tap's A tile is then rows [ky, ky + rows) of copy kx, at a
+//     512-byte aligned offset that a descriptor addresses directly.
+//   x is still read three times (GN1 sums, conv1's slab, the skip), the
+//   second and third time from L2: 10 to 20 us of bytes at most.
+//   "mma" (other bf16 shapes) and "scalar" (fp32): `conv3x3_kernel`, 128
+//   pixels x 64 or 128 channels per block, 256 threads, `mma.sync` m16n8k16
+//   with `ldmatrix` fragments (bf16) or scalar FMAs (fp32); the slab of KC
+//   input channels is staged through registers once per chunk, the weights
+//   one kernel row (three taps) at a time; no asynchronous pipeline.
+// Every mbarrier wait traps after 2^22 polls: a fault in the protocol fails
+// the launch instead of hanging the card.
 //
 // Rounding. The TPU kernel folds each GroupNorm into one per-(image,
 // channel) affine map rounded to the compute type and evaluates it and the
 // SiLU in that type. Here the affine map and the SiLU are evaluated in
-// fp32 and the activation is rounded once, to x's type, as it is written to
-// the slab (so the products take bf16 operands, as on the TPU). Like the
-// TPU kernel, conv1's output is rounded to x's type (the mid tensor) before
-// GN2 is applied, while GN2's statistics come from the fp32 values. The
-// output is rounded once.
+// fp32 (`t / (1 + expf(-t))`, as PyTorch rounds it) and the activation is
+// rounded once, to x's type, as it is written to the slab (so the products
+// take bf16 operands, as on the TPU). Like the TPU kernel, conv1's output is
+// rounded to x's type (the mid tensor) before GN2 is applied, while GN2's
+// statistics come from the fp32 values. The output is rounded once.
 
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -374,6 +398,63 @@ constexpr size_t header_floats(int k) {
   return 2 * static_cast<size_t>(k) + TN + 2 * kMaxGroups;
 }
 
+
+// The output's constant per channel of block columns [n0, n0 + TN) of
+// image b: the bias, the additive embedding, the skip's bias.
+template <int TN>
+__device__ __forceinline__ void channel_bias(const ConvArgs& a, int b, int n0,
+                                             int tid, int threads,
+                                             float* bias_s) {
+  for (int j = tid; j < TN; j += threads) {
+    float v = a.bias[n0 + j];
+    if (a.add_shift != nullptr)
+      v += a.add_shift[static_cast<long long>(b) * a.n + n0 + j];
+    if (a.wskip != nullptr) v += a.bskip[n0 + j];
+    bias_s[j] = v;
+  }
+}
+
+// The input's group statistics from the partial sums, folded with gamma,
+// beta and FiLM into one affine map per channel of image b (aff_scale,
+// aff_shift [K]). Threads [0, threads) take part; `sync` is their barrier,
+// and the maps are ready after their next one.
+template <typename Sync>
+__device__ __forceinline__ void affine_maps(const ConvArgs& a, int b, int tid,
+                                            int threads, float* stat,
+                                            float* aff_scale,
+                                            float* aff_shift, Sync sync) {
+  const int ktot = a.k;
+  const int cpg = ktot / a.in_groups;
+  if (tid < a.in_groups) {
+    float s = 0.f, q = 0.f;
+    for (int p = 0; p < a.in_parts; ++p) {
+      const float* e = a.in_partials +
+          ((static_cast<long long>(b) * a.in_parts + p) * a.in_groups + tid) *
+              2;
+      s += e[0];
+      q += e[1];
+    }
+    const float cnt = static_cast<float>(a.h) * a.width * cpg;
+    const float mean = s / cnt;
+    const float var = fmaxf(q / cnt - mean * mean, 0.f);
+    stat[tid] = mean;
+    stat[kMaxGroups + tid] = 1.f / sqrtf(var + a.eps);
+  }
+  sync();
+  for (int k = tid; k < ktot; k += threads) {
+    const int g = k / cpg;
+    float sc = a.gamma[k] * stat[kMaxGroups + g];
+    float sh = a.beta[k] - sc * stat[g];
+    if (a.film_scale != nullptr) {
+      const float ea = a.film_scale[static_cast<long long>(b) * ktot + k];
+      sh = fmaf(sh, ea, a.film_shift[static_cast<long long>(b) * ktot + k]);
+      sc *= ea;
+    }
+    aff_scale[k] = sc;
+    aff_shift[k] = sh;
+  }
+}
+
 template <typename T, int KC, int TN>
 __global__ void __launch_bounds__(kThreads, 2)
 conv3x3_kernel(const ConvArgs a) {
@@ -398,44 +479,9 @@ conv3x3_kernel(const ConvArgs a) {
   const int n0 = blockIdx.y * TN;
   const int tid = threadIdx.x;
 
-  // The input's group statistics from the partial sums, folded with gamma,
-  // beta and FiLM into one affine map per channel of this image.
-  const int cpg = ktot / a.in_groups;
-  if (tid < a.in_groups) {
-    float s = 0.f, q = 0.f;
-    for (int p = 0; p < a.in_parts; ++p) {
-      const float* e = a.in_partials +
-          ((static_cast<long long>(b) * a.in_parts + p) * a.in_groups + tid) *
-              2;
-      s += e[0];
-      q += e[1];
-    }
-    const float cnt = static_cast<float>(h) * width * cpg;
-    const float mean = s / cnt;
-    const float var = fmaxf(q / cnt - mean * mean, 0.f);
-    stat[tid] = mean;
-    stat[kMaxGroups + tid] = 1.f / sqrtf(var + a.eps);
-  }
-  __syncthreads();
-  for (int k = tid; k < ktot; k += kThreads) {
-    const int g = k / cpg;
-    float sc = a.gamma[k] * stat[kMaxGroups + g];
-    float sh = a.beta[k] - sc * stat[g];
-    if (a.film_scale != nullptr) {
-      const float ea = a.film_scale[static_cast<long long>(b) * ktot + k];
-      sh = fmaf(sh, ea, a.film_shift[static_cast<long long>(b) * ktot + k]);
-      sc *= ea;
-    }
-    aff_scale[k] = sc;
-    aff_shift[k] = sh;
-  }
-  for (int j = tid; j < TN; j += kThreads) {
-    float v = a.bias[n0 + j];
-    if (a.add_shift != nullptr)
-      v += a.add_shift[static_cast<long long>(b) * n + n0 + j];
-    if (a.wskip != nullptr) v += a.bskip[n0 + j];
-    bias_s[j] = v;
-  }
+  affine_maps(a, b, tid, kThreads, stat, aff_scale, aff_shift,
+              [] { __syncthreads(); });
+  channel_bias<TN>(a, b, n0, tid, kThreads, bias_s);
 
   TileT tile;
   tile.init(width);
@@ -583,6 +629,494 @@ cudaError_t launch_conv_any(const ConvArgs& a, int batch, bool wide,
   return launch_conv_tn<T, 32>(a, batch, stream);
 }
 
+
+// ---------------------------------------------------------------------------
+// The "wgmma" route (bf16): GN + SiLU once per element by `gn_act_kernel`,
+// then each conv as a warp-specialised implicit GEMM: its input tiles and
+// weights by TMA, its products by `wgmma`.
+// ---------------------------------------------------------------------------
+
+namespace wg {
+
+constexpr int kPixels = 256;   // pixels per block: whole image rows
+constexpr int kN = 128;        // output channels per block
+constexpr int kKC = 32;        // input channels per tap: 64-byte rows
+constexpr int kStages = 8;     // weight tiles in their ring
+constexpr int kStage = kKC * kN * 2;  // bytes of one [32][128] weight tile
+constexpr int kThreads = 384;  // two consumer warpgroups, one producer
+constexpr int kConsumers = 256;
+constexpr int kInFlight = 2;   // taps whose products may run at once
+constexpr int kLDO = kN + 8;   // fp32 row stride of the output tile
+constexpr int kBars = 2 * kStages + 4;
+constexpr int kActPixels = 128;  // pixels per block of `gn_act_kernel`
+
+__host__ __device__ constexpr bool width_ok(int width) {
+  return width == 8 || width == 16 || width == 32 || width == 64;
+}
+// One copy of the input slab: (rows + 2) x W pixels of 32 channels (64
+// bytes each, in the 64-byte swizzle), shifted by kx; a chunk's input
+// (one A stage) holds three.
+__host__ __device__ constexpr int copy_bytes(int width) {
+  return (kPixels / width + 2) * width * kKC * 2;
+}
+// Two A stages and the weight ring; reused by the epilogue for the fp32
+// output tile and the per-warp channel sums.
+__host__ __device__ constexpr int region_bytes(int width) {
+  return 2 * 3 * copy_bytes(width) + kStages * kStage;
+}
+constexpr int kOtileBytes = kPixels * kLDO * 4;
+constexpr int kPartBytes = 2 * 8 * kN * 4;
+__host__ __device__ constexpr size_t smem_bytes(int width) {
+  return 1024 + static_cast<size_t>(region_bytes(width)) +
+         (kN + 2 * kMaxGroups) * 4 + kBars * 8;
+}
+static_assert(kOtileBytes + kPartBytes <= region_bytes(8), "epilogue room");
+static_assert(smem_bytes(64) <= kMaxSmem, "shared memory");
+
+// Barrier over the two consumer warpgroups (barrier 0 is the block's).
+__device__ __forceinline__ void consumer_sync(int id) {
+  asm volatile("bar.sync %0, 256;\n" ::"r"(id) : "memory");
+}
+
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// silu(raw * scale + shift) of 8 bf16 channels, rounded to bf16.
+__device__ __forceinline__ uint4 activate(uint4 raw, const float* scale,
+                                          const float* shift) {
+  const __nv_bfloat16* v = reinterpret_cast<const __nv_bfloat16*>(&raw);
+  uint4 out;
+  uint32_t* o = reinterpret_cast<uint32_t*>(&out);
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    o[i] = pack2(
+        silu(fmaf(__bfloat162float(v[2 * i]), scale[2 * i], shift[2 * i])),
+        silu(fmaf(__bfloat162float(v[2 * i + 1]), scale[2 * i + 1],
+                  shift[2 * i + 1])));
+  return out;
+}
+
+}  // namespace wg
+
+// act = silu(GN(src) (* FiLM scale + shift)) in bf16 for pixels [p0, p0 +
+// 128) of one image (block (p0 / 128, image)): the statistics from the
+// partial sums, the affine map per channel in fp32, one rounding.
+__global__ void __launch_bounds__(kThreads)
+gn_act_kernel(const ConvArgs a, __nv_bfloat16* __restrict__ act) {
+  extern __shared__ float act_maps[];  // scale [K], shift [K], stat [64]
+  const int k = a.k, b = blockIdx.y;
+  float* aff_scale = act_maps;
+  float* aff_shift = aff_scale + k;
+  float* stat = aff_shift + k;
+  affine_maps(a, b, threadIdx.x, kThreads, stat, aff_scale, aff_shift,
+              [] { __syncthreads(); });
+  __syncthreads();
+  const int hw = a.h * a.width, kv = k / 8;
+  const int p0 = blockIdx.x * wg::kActPixels;
+  const int nvec = min(wg::kActPixels, hw - p0) * kv;
+  const long long base = (static_cast<long long>(b) * hw + p0) * k;
+  const uint4* src =
+      reinterpret_cast<const uint4*>(static_cast<const __nv_bfloat16*>(a.src) + base);
+  uint4* dst = reinterpret_cast<uint4*>(act + base);
+#pragma unroll 4
+  for (int i = threadIdx.x; i < nvec; i += kThreads) {
+    const int c = i % kv * 8;
+    dst[i] = wg::activate(src[i], aff_scale + c, aff_shift + c);
+  }
+}
+
+// 3x3 convolution of act (and the 1x1 skip over raw x) for 256 pixels
+// (whole rows of one image) x 128 output channels per block. Warpgroups 0
+// and 1 (the consumers) own pixels [128 wg, 128 wg + 128) as two m64n128
+// fp32 accumulators. One thread of warpgroup 2 (the producer) streams by
+// TMA, each on its own mbarriers: the weight tiles ([32 input][128 output
+// channels] of one tap, two boxes of 64 columns in the 128-byte swizzle)
+// into a ring of six slots, and each chunk's input into one of two A
+// stages. A main chunk is 32 input channels of act: three boxes of (rows +
+// 2) x W pixels at columns shifted by kx - 1, the parts outside the image
+// filled with zeros (the padding after the activation), in the 64-byte
+// swizzle, so that every tap's A operand (slab rows [ky, ky + rows) of copy
+// kx) sits at a 512-byte aligned offset; nine taps. A skip chunk is up to
+// three groups of 32 channels of raw x (rows x W pixels each, in the place
+// of copy s's rows 1..rows); one tap each. For each tap the consumers wait
+// for its weight tile, issue four `wgmma` (two k-steps of 16 for each
+// accumulator; B MN-major from the ring), let at most two taps' products
+// run and free the slots (and A stages) of the others.
+__global__ void __launch_bounds__(wg::kThreads, 1)
+conv3x3_wgmma_kernel(const __grid_constant__ CUtensorMap w_map,
+                     const __grid_constant__ CUtensorMap skip_map,
+                     const __grid_constant__ CUtensorMap act_map,
+                     const __grid_constant__ CUtensorMap x_map,
+                     const ConvArgs a) {
+  using namespace wg;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* region = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const int h = a.h, width = a.width, ktot = a.k;
+  const int rows = kPixels / width;
+  const int copy = copy_bytes(width);
+  unsigned char* ring = region + 6 * copy;           // [kStages][kStage]
+  float* bias_s = reinterpret_cast<float*>(ring + kStages * kStage);  // [kN]
+  uint64_t* full = reinterpret_cast<uint64_t*>(bias_s + kN + 2 * kMaxGroups);
+  uint64_t* empty = full + kStages;
+  uint64_t* a_full = empty + kStages;                // [2]
+  uint64_t* a_empty = a_full + 2;                    // [2]
+
+  const int b = blockIdx.z, tile = blockIdx.x;
+  const int y0 = tile * rows, n0 = blockIdx.y * kN;
+  const int nmain = ktot / kKC;
+  const int nsub = a.wskip != nullptr ? a.skip_k / kKC : 0;
+  const int nchunks = nmain + (nsub + 2) / 3;
+  const int warpgroup = threadIdx.x / 128;
+  auto stage = [&](int c) { return region + (c & 1) * 3 * copy; };
+  auto taps = [&](int c) {
+    return c < nmain ? 9 : min(3, nsub - (c - nmain) * 3);
+  };
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      tdt::mbar_init(full + s, 1);
+      tdt::mbar_init(empty + s, 2);
+    }
+    for (int i = 0; i < 2; ++i) {
+      tdt::mbar_init(a_full + i, 1);
+      tdt::mbar_init(a_empty + i, 2);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warpgroup == 2) {  // the producer: one thread issues every copy
+    tdt::regs_dealloc<24>();
+    if (threadIdx.x == 256) {
+      // chunk c's input into A stage c % 2, once chunk c - 2's products are
+      // done
+      auto load_a = [&](int c) {
+        uint64_t* bar = a_full + (c & 1);
+        if (c >= 2) tdt::mbar_wait(a_empty + (c & 1), ((c >> 1) - 1) & 1);
+        if (c < nmain) {
+          tdt::mbar_expect_tx(bar, 3 * copy);
+          for (int kx = 0; kx < 3; ++kx)
+            tdt::tma_load_4d(stage(c) + kx * copy, &act_map, c * kKC, kx - 1,
+                             y0 - 1, b, bar);
+        } else {
+          tdt::mbar_expect_tx(bar, taps(c) * kPixels * kKC * 2);
+          for (int s = 0; s < taps(c); ++s)
+            tdt::tma_load_4d(stage(c) + s * copy + width * kKC * 2, &x_map,
+                             ((c - nmain) * 3 + s) * kKC, 0, y0, b, bar);
+        }
+      };
+      int q = 0;
+      auto load_w = [&](const CUtensorMap* map, int row) {
+        const int slot = q % kStages;
+        if (q >= kStages) tdt::mbar_wait(empty + slot, (q / kStages - 1) & 1);
+        tdt::mbar_expect_tx(full + slot, kStage);
+        unsigned char* dst = ring + slot * kStage;
+        tdt::tma_load_2d(dst, map, n0, row, full + slot);
+        tdt::tma_load_2d(dst + kStage / 2, map, n0 + 64, row, full + slot);
+        ++q;
+      };
+      load_a(0);
+      for (int c = 0; c < nchunks; ++c) {
+        for (int t = 0; t < taps(c); ++t)
+          if (c < nmain)
+            load_w(&w_map, t * ktot + c * kKC);
+          else
+            load_w(&skip_map, ((c - nmain) * 3 + t) * kKC);
+        if (c + 1 < nchunks) load_a(c + 1);
+      }
+    }
+    return;
+  }
+
+  tdt::regs_alloc<240>();
+  const int tid = threadIdx.x;  // 0..255
+  const int wt = tid % 128;
+  channel_bias<kN>(a, b, n0, tid, kConsumers, bias_s);  // read after a sync
+
+  float acc[2][16][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int t = 0; t < 16; ++t)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][t][e] = 0.f;
+
+  int q = 0;          // weight tiles issued so far
+  int done = 0;       // weight tiles whose products are done, slots freed
+  int issued = 0;     // chunks whose taps are all issued
+  int released = 0;   // chunks whose A stage is freed
+  int ends[2] = {0, 0};  // q after the last tap of chunks issued - 2, - 1
+  // Issue the four products of one tap: A at `a0` (this warpgroup's 128
+  // pixels), B the next weight tile.
+  auto issue = [&](const unsigned char* a0) {
+    const int slot = q % kStages;
+    const uint64_t da0 = tdt::wgmma_desc_of(a0, 16, 512, 2);
+    const uint64_t da1 = tdt::wgmma_desc_of(a0 + 64 * 64, 16, 512, 2);
+    const uint64_t db =
+        tdt::wgmma_desc_of(ring + slot * kStage, kStage / 2, 1024, 1);
+    tdt::mbar_wait(full + slot, (q / kStages) & 1);
+    tdt::fence_regs(acc[0]);
+    tdt::fence_regs(acc[1]);
+    tdt::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kKC / 16; ++kk) {
+      tdt::wgmma_m64n128k16_ss<1>(acc[0], da0 + 2 * kk, db + 128 * kk, 1);
+      tdt::wgmma_m64n128k16_ss<1>(acc[1], da1 + 2 * kk, db + 128 * kk, 1);
+    }
+    tdt::wgmma_commit();
+    ++q;
+  };
+  // At most kInFlight taps' products still run: free the others' weight
+  // slots and the A stages of chunks whose products are all done.
+  auto retire = [&]() {
+    tdt::wgmma_wait<kInFlight>();
+    tdt::fence_regs(acc[0]);
+    tdt::fence_regs(acc[1]);
+    for (; done < q - kInFlight; ++done)
+      if (wt == 0) tdt::mbar_arrive(empty + done % kStages);
+    for (; released < issued && done >= ends[released & 1]; ++released)
+      if (wt == 0) tdt::mbar_arrive(a_empty + (released & 1));
+  };
+
+  const int arow = warpgroup * 128 * kKC * 2;  // this warpgroup's first pixel
+  for (int c = 0; c < nchunks; ++c) {
+    // Chunk c's input waits for chunk c - 2's A stage: after a chunk of
+    // fewer taps than kInFlight, let every product finish to free it.
+    if (released < c - 1) {
+      tdt::wgmma_wait<0>();
+      tdt::fence_regs(acc[0]);
+      tdt::fence_regs(acc[1]);
+      for (; done < q; ++done)
+        if (wt == 0) tdt::mbar_arrive(empty + done % kStages);
+      for (; released < issued; ++released)
+        if (wt == 0) tdt::mbar_arrive(a_empty + (released & 1));
+    }
+    tdt::mbar_wait(a_full + (c & 1), (c >> 1) & 1);
+    const unsigned char* in = stage(c) + arow;
+    if (c < nmain) {
+#pragma unroll
+      for (int t = 0; t < 9; ++t) {
+        issue(in + (t % 3) * copy + t / 3 * width * kKC * 2);
+        retire();
+      }
+    } else {
+      for (int s = 0; s < taps(c); ++s) {
+        issue(in + s * copy + width * kKC * 2);
+        retire();
+      }
+    }
+    ends[c & 1] = q;
+    issued = c + 1;
+  }
+  tdt::wgmma_wait<0>();
+  tdt::fence_regs(acc[0]);
+  tdt::fence_regs(acc[1]);
+  consumer_sync(1);  // every product is done: the region is free
+
+  // Bias (and additive embedding, the skip's bias).
+  const int lane = tid % 32, warp = tid / 32, g = lane / 4, cq = lane % 4;
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int t = 0; t < 16; ++t)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        acc[i][t][e] += bias_s[8 * t + 2 * cq + e % 2];
+
+  float* otile = reinterpret_cast<float*>(region);  // [kPixels][kLDO]
+  if (a.out_partials != nullptr) {
+    // Per-channel sums of the fp32 outputs: over this thread's four
+    // pixels, the warp's 32 (shuffles), then the eight warps in order.
+    float* part = reinterpret_cast<float*>(region + kOtileBytes);  // [2][8][kN]
+#pragma unroll
+    for (int t = 0; t < 16; ++t)
+#pragma unroll
+      for (int hc = 0; hc < 2; ++hc) {
+        float s = 0.f, sq = 0.f;
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int e = hc; e < 4; e += 2) {
+            s += acc[i][t][e];
+            sq = fmaf(acc[i][t][e], acc[i][t][e], sq);
+          }
+#pragma unroll
+        for (int m = 4; m < 32; m *= 2) {
+          s += __shfl_xor_sync(0xffffffffu, s, m);
+          sq += __shfl_xor_sync(0xffffffffu, sq, m);
+        }
+        if (g == 0) {
+          part[warp * kN + 8 * t + 2 * cq + hc] = s;
+          part[(8 + warp) * kN + 8 * t + 2 * cq + hc] = sq;
+        }
+      }
+    consumer_sync(1);
+    const int cpo = a.n / a.out_groups;
+    if (tid < a.out_groups) {
+      const int lo = max(tid * cpo, n0), hi = min((tid + 1) * cpo, n0 + kN);
+      float s = 0.f, sq = 0.f;
+      for (int ch = lo; ch < hi; ++ch)
+        for (int w = 0; w < 8; ++w) {
+          s += part[w * kN + ch - n0];
+          sq += part[(8 + w) * kN + ch - n0];
+        }
+      float* out = a.out_partials +
+          (((static_cast<long long>(b) * gridDim.x + tile) * gridDim.y +
+            blockIdx.y) * a.out_groups + tid) * 2;
+      out[0] = s;
+      out[1] = sq;
+    }
+  }
+
+  // Through shared memory to 16-byte stores; the identity skip is added
+  // here, in fp32, before the one rounding.
+  const int wrow = warpgroup * 128 + (wt / 32) * 16 + g;
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int t = 0; t < 16; ++t)
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr)
+        *reinterpret_cast<float2*>(
+            otile + (wrow + i * 64 + 8 * hr) * kLDO + 8 * t + 2 * cq) =
+            make_float2(acc[i][t][2 * hr], acc[i][t][2 * hr + 1]);
+  consumer_sync(1);
+  const int n = a.n;
+  const long long pix0 = (static_cast<long long>(b) * h + y0) * width;
+  __nv_bfloat16* dst = static_cast<__nv_bfloat16*>(a.dst) + pix0 * n + n0;
+  const __nv_bfloat16* xs =
+      static_cast<const __nv_bfloat16*>(a.skip_src) + pix0 * n + n0;
+  const bool identity = a.skip_src != nullptr && a.wskip == nullptr;
+  constexpr int kVecs = kPixels * kN / 8 / kConsumers;  // 16 per thread
+  constexpr int kBatch = 4;  // x loads in flight at once
+#pragma unroll
+  for (int j0 = 0; j0 < kVecs; j0 += kBatch) {
+    uint4 xv[kBatch];
+#pragma unroll
+    for (int j = 0; j < kBatch; ++j) {
+      const int idx = tid + (j0 + j) * kConsumers;
+      const int p = idx / (kN / 8), nv = idx % (kN / 8) * 8;
+      if (identity)
+        xv[j] = *reinterpret_cast<const uint4*>(xs + p * n + nv);
+    }
+#pragma unroll
+    for (int j = 0; j < kBatch; ++j) {
+      const int idx = tid + (j0 + j) * kConsumers;
+      const int p = idx / (kN / 8), nv = idx % (kN / 8) * 8;
+      const float4 lo =
+          *reinterpret_cast<const float4*>(otile + p * kLDO + nv);
+      const float4 hi =
+          *reinterpret_cast<const float4*>(otile + p * kLDO + nv + 4);
+      float v[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+      if (identity) {
+        const __nv_bfloat16* xe =
+            reinterpret_cast<const __nv_bfloat16*>(&xv[j]);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) v[e] += __bfloat162float(xe[e]);
+      }
+      tdt::store16(dst + p * n + nv, v);
+    }
+  }
+}
+
+// A 2-D map of a [rows][cols] bf16 matrix in boxes of 32 rows x 64 columns
+// with the 128-byte swizzle (the weight tiles).
+cudaError_t weight_map(const void* ptr, int rows, int cols, CUtensorMap* map) {
+  const tdt::EncodeTiled encode = tdt::encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
+                              static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * 2};
+  const cuuint32_t box[2] = {64, wg::kKC}, elem[2] = {1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims,
+      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// A 4-D map of an NHWC bf16 tensor [batch][h][width][c] in boxes of 32
+// channels x width x `box_rows` pixels x 1 image, in the 64-byte swizzle;
+// the parts of a box outside the tensor (the halo at the image's edges) are
+// filled with zeros.
+cudaError_t pixel_map(const void* ptr, int batch, int h, int width, int c,
+                      int box_rows, CUtensorMap* map) {
+  const tdt::EncodeTiled encode = tdt::encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {
+      static_cast<cuuint64_t>(c), static_cast<cuuint64_t>(width),
+      static_cast<cuuint64_t>(h), static_cast<cuuint64_t>(batch)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(c) * 2,
+                                 static_cast<cuuint64_t>(width) * c * 2,
+                                 static_cast<cuuint64_t>(h) * width * c * 2};
+  const cuuint32_t box[4] = {wg::kKC, static_cast<cuuint32_t>(width),
+                             static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_64B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// The "wgmma" route's conv of `a` over the activation `act` of a.src.
+cudaError_t launch_conv_wgmma(const ConvArgs& a, const void* act, int batch,
+                              cudaStream_t stream) {
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      conv3x3_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kMaxSmem);
+  if (attr != cudaSuccess) return attr;
+  const int rows = wg::kPixels / a.width;
+  CUtensorMap w_map, skip_map, act_map, x_map;
+  cudaError_t err = weight_map(a.w, 9 * a.k, a.n, &w_map);
+  if (err == cudaSuccess)
+    err = pixel_map(act, batch, a.h, a.width, a.k, rows + 2, &act_map);
+  skip_map = w_map;
+  x_map = act_map;
+  if (err == cudaSuccess && a.wskip != nullptr) {
+    err = weight_map(a.wskip, a.skip_k, a.n, &skip_map);
+    if (err == cudaSuccess)
+      err = pixel_map(a.skip_src, batch, a.h, a.width, a.skip_k, rows, &x_map);
+  }
+  if (err != cudaSuccess) return err;
+  const dim3 grid(a.h * a.width / wg::kPixels, a.n / wg::kN, batch);
+  conv3x3_wgmma_kernel<<<grid, wg::kThreads, wg::smem_bytes(a.width),
+                         stream>>>(w_map, skip_map, act_map, x_map, a);
+  return cudaGetLastError();
+}
+
+// act = silu(GN(a.src) ...) for the "wgmma" route's conv.
+cudaError_t launch_act(const ConvArgs& a, void* act, int batch,
+                       cudaStream_t stream) {
+  const int hw = a.h * a.width;
+  const dim3 grid((hw + wg::kActPixels - 1) / wg::kActPixels, batch);
+  gn_act_kernel<<<grid, kThreads, (2 * a.k + 2 * kMaxGroups) * sizeof(float),
+                  stream>>>(a, static_cast<__nv_bfloat16*>(act));
+  return cudaGetLastError();
+}
+
+// The routes, in the order of `ROUTES` in kernels/resblock.py.
+enum Route { kScalar = 0, kMma = 1, kWgmma = 2 };
+
+// Whether `route` with the tile geometry (pixels, channels per conv block)
+// fits the call: the entry point refuses what does not.
+bool route_fits(int route, int tile_pixels, int channel_tile, int h,
+                int width, int cin, int cout, bool bf16) {
+  if (route == kWgmma)
+    return bf16 && wg::width_ok(width) && h % (wg::kPixels / width) == 0 &&
+           cin % wg::kKC == 0 && cout % wg::kN == 0 &&
+           tile_pixels == wg::kPixels && channel_tile == wg::kN;
+  if (route != kMma && route != kScalar) return false;
+  return bf16 == (route == kMma) && kTilePixels % width == 0 &&
+         h % (kTilePixels / width) == 0 && tile_pixels == kTilePixels &&
+         channel_tile == (cout % 128 ? 64 : 128);
+}
+
 template <typename T>
 cudaError_t launch_resblock(const void* x, const float* gn1_g,
                             const float* gn1_b, const void* w1,
@@ -593,7 +1127,8 @@ cudaError_t launch_resblock(const void* x, const float* gn1_g,
                             const float* bskip, void* mid, void* out,
                             float* partials1, float* partials2, int batch,
                             int h, int width, int cin, int cout, int groups1,
-                            int groups2, float eps, cudaStream_t stream) {
+                            int groups2, float eps, int route, int tile_pixels,
+                            int channel_tile, void* act, cudaStream_t stream) {
   constexpr int VEC = tdt::vec16<T>();
   const int hw = h * width;
   const int chunks = (hw + kTilePixels - 1) / kTilePixels;
@@ -606,8 +1141,16 @@ cudaError_t launch_resblock(const void* x, const float* gn1_g,
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
-  // 64-channel chunks where every reduction length allows them
-  const bool wide = cin % 64 == 0 && cout % 64 == 0;
+  auto conv = [&](const ConvArgs& a) {
+    if (route == kWgmma) {  // GN + SiLU into act, then the conv over it
+      cudaError_t e = launch_act(a, act, batch, stream);
+      if (e == cudaSuccess) e = launch_conv_wgmma(a, act, batch, stream);
+      return e;
+    }
+    // 64-channel chunks where every reduction length allows them
+    const bool wide = cin % 64 == 0 && cout % 64 == 0;
+    return launch_conv_any<T>(a, batch, wide, stream);
+  };
   const bool film = emb_scale != nullptr;
   ConvArgs c1 = {};
   c1.src = x;
@@ -627,7 +1170,7 @@ cudaError_t launch_resblock(const void* x, const float* gn1_g,
   c1.k = cin;
   c1.n = cout;
   c1.eps = eps;
-  err = launch_conv_any<T>(c1, batch, wide, stream);
+  err = conv(c1);
   if (err != cudaSuccess) return err;
 
   ConvArgs c2 = {};
@@ -635,7 +1178,7 @@ cudaError_t launch_resblock(const void* x, const float* gn1_g,
   c2.w = w2;
   c2.bias = b2;
   c2.in_partials = partials2;
-  c2.in_parts = (h / (kTilePixels / width)) * (cout / (cout % 128 ? 64 : 128));
+  c2.in_parts = hw / tile_pixels * (cout / channel_tile);
   c2.in_groups = groups2;
   c2.gamma = gn2_g;
   c2.beta = gn2_b;
@@ -651,7 +1194,7 @@ cudaError_t launch_resblock(const void* x, const float* gn1_g,
   c2.k = cout;
   c2.n = cout;
   c2.eps = eps;
-  return launch_conv_any<T>(c2, batch, wide, stream);
+  return conv(c2);
 }
 
 }  // namespace
@@ -661,12 +1204,16 @@ cudaError_t launch_resblock(const void* x, const float* gn1_g,
 // width, cout], all contiguous, 16-byte aligned and of one type, fp32
 // (is_bf16 = 0) or bf16. The vectors are fp32: gn1_g, gn1_b [cin]; b1,
 // gn2_g, gn2_b, b2, bskip [cout]; emb_scale (null selects the additive
-// mode) and emb_shift [batch, cout]. Scratch: partials1 [batch,
-// ceil(h * width / 128), groups1, 2] and partials2 [batch, h * width / 128,
-// cout / (128 or 64), groups2, 2], fp32. Needs: width divides 128, h a
-// multiple of 128 / width, cin a multiple of 32, cout of 64, both at most
-// 1024, at most 32 groups. Returns the cudaError_t of the launches (0 on
-// success).
+// mode) and emb_shift [batch, cout]. route: 0 "scalar" (fp32), 1 "mma" or
+// 2 "wgmma" (bf16), with the conv blocks' tile_pixels (whole image rows)
+// and channel_tile, which must be the route's own. Scratch: partials1
+// [batch, ceil(h * width / 128), groups1, 2] and partials2 [batch, h * width
+// / tile_pixels, cout / channel_tile, groups2, 2], fp32; for "wgmma" also
+// act [batch, h, width, max(cin, cout)] bf16 (null otherwise). Needs: cin a
+// multiple of 32, cout of 64, both at most 1024, at most 32 groups, and
+// the route's own conditions (`route_fits`). Returns the cudaError_t of the
+// launches (0 on success); a route that does not fit is refused
+// (cudaErrorInvalidValue), never replaced by another.
 extern "C" int resblock_forward(
     const void* x, const float* gn1_g, const float* gn1_b, const void* w1,
     const float* b1, const float* gn2_g, const float* gn2_b,
@@ -674,21 +1221,25 @@ extern "C" int resblock_forward(
     const float* b2, const void* wskip, const float* bskip, void* mid,
     void* out, float* partials1, float* partials2, int batch, int h,
     int width, int cin, int cout, int groups1, int groups2, float eps,
-    int is_bf16, void* stream) {
+    int is_bf16, int route, int tile_pixels, int channel_tile, void* act,
+    void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (width <= 0 || kTilePixels % width || h % (kTilePixels / width) ||
-      cin % 32 || cout % 64 || cin > 1024 || cout > 1024 ||
-      groups1 > kMaxGroups || groups2 > kMaxGroups || cin % groups1 ||
-      cout % groups2 || batch <= 0 || batch > 65535 ||
-      (wskip == nullptr && cin != cout))
+  if (width <= 0 || h <= 0 || cin % 32 || cout % 64 || cin > 1024 ||
+      cout > 1024 || groups1 > kMaxGroups || groups2 > kMaxGroups ||
+      cin % groups1 || cout % groups2 || batch <= 0 || batch > 65535 ||
+      (wskip == nullptr && cin != cout) ||
+      !route_fits(route, tile_pixels, channel_tile, h, width, cin, cout,
+                  is_bf16 != 0) ||
+      (route == kWgmma && act == nullptr))
     return cudaErrorInvalidValue;
   if (is_bf16)
     return launch_resblock<__nv_bfloat16>(
         x, gn1_g, gn1_b, w1, b1, gn2_g, gn2_b, emb_scale, emb_shift, w2, b2,
         wskip, bskip, mid, out, partials1, partials2, batch, h, width, cin,
-        cout, groups1, groups2, eps, s);
+        cout, groups1, groups2, eps, route, tile_pixels, channel_tile, act,
+        s);
   return launch_resblock<float>(
       x, gn1_g, gn1_b, w1, b1, gn2_g, gn2_b, emb_scale, emb_shift, w2, b2,
       wskip, bskip, mid, out, partials1, partials2, batch, h, width, cin, cout,
-      groups1, groups2, eps, s);
+      groups1, groups2, eps, route, tile_pixels, channel_tile, act, s);
 }

@@ -13,13 +13,15 @@ Counterpart of `tpu_diffusion/kernels/resblock.py` (`fused_resblock`,
 on NHWC x with HWIO weights (the JAX package's layouts) and fp32 group
 statistics. The Dense(silu(emb)) projection stays with the caller, which
 passes `emb_scale = 1 + scale`. A CPU tensor goes to `resblock_reference`;
-a CUDA tensor goes to `csrc/resblock.cu` or raises.
+a CUDA tensor goes to `csrc/resblock.cu`, on the route that
+`resblock_route` names, or raises.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -27,13 +29,72 @@ import torch.nn.functional as F
 from tpu_diffusion_torch.kernels.build import load_library
 
 # Calls of `fused_resblock` that launched the kernels since the count was
-# last set to 0. One launch is the chain of three kernels (GN1 partial sums,
-# conv1, conv2) that computes one ResBlock.
+# last set to 0: one per call, whichever route. A call is a chain of three
+# kernels that computes one ResBlock: GN1's partial sums
+# (`gn_partial_kernel`), then conv1 and conv2, both `conv3x3_wgmma_kernel`
+# on the "wgmma" route and `conv3x3_kernel` on "mma" and "scalar".
 launches = 0
 
-TILE_PIXELS = 128  # pixels per block of the conv kernels: whole image rows
+# The routes, in the order of the C entry point's `route`.
+ROUTES = ("scalar", "mma", "wgmma")
+GN_CHUNK = 128  # pixels per partial sum of GN1 (`gn_partial_kernel`)
+TILE_PIXELS = 128  # pixels per block of the "mma" and "scalar" routes
 MAX_CHANNELS = 1024
 MAX_GROUPS = 32
+WGMMA_WIDTHS = (8, 16, 32, 64)  # image widths the "wgmma" route takes
+
+
+class Geometry(NamedTuple):
+    """A route's conv blocks: `tile_pixels` pixels (whole image rows) by
+    `channel_tile` output channels each."""
+    tile_pixels: int
+    channel_tile: int
+
+
+def resblock_route(b: int, h: int, w: int, cin: int, cout: int,
+                   dtype: torch.dtype) -> tuple[str, Geometry]:
+    """The conv kernel that runs a [b, h, w, cin] -> cout call on the card,
+    and its tile geometry: "wgmma" (bf16, w in WGMMA_WIDTHS, 256 / w
+    dividing h, Cin % 32 = 0, Cout % 128 = 0: warp-specialised, weights by
+    TMA, products by `wgmma`; 256 x 128 tiles), "mma" (the other bf16
+    shapes: `mma.sync`) or "scalar" (fp32); both 128 pixels by 128 channels,
+    or 64 where Cout is not a multiple of 128. The C entry point refuses a
+    route or a geometry that does not fit the call."""
+    if (dtype == torch.bfloat16 and w in WGMMA_WIDTHS and h % (256 // w) == 0
+            and cin % 32 == 0 and cout % 128 == 0
+            and max(cin, cout) <= MAX_CHANNELS):
+        return "wgmma", Geometry(256, 128)
+    route = "mma" if dtype == torch.bfloat16 else "scalar"
+    return route, Geometry(TILE_PIXELS, 64 if cout % 128 else 128)
+
+
+def scratch_shapes(b: int, h: int, w: int, cin: int, cout: int, g1: int,
+                   g2: int, route: str, geometry: Geometry):
+    """Shapes of the scratch tensors: GN1's fp32 partial sums per (image,
+    GN_CHUNK pixels, group) and GN2's per (image, conv tile, channel tile,
+    group), (sum, sum of squares) last; on the "wgmma" route also the bf16
+    activation that each conv reads (silu(GN(input)), [b, h, w, max(Cin,
+    Cout)]), else None."""
+    return ((b, -(-h * w // GN_CHUNK), g1, 2),
+            (b, h * w // geometry.tile_pixels, cout // geometry.channel_tile,
+             g2, 2),
+            (b, h, w, max(cin, cout)) if route == "wgmma" else None)
+
+
+def buffers(b: int, h: int, w: int, cin: int, cout: int, g1: int, g2: int,
+            dtype: torch.dtype, device: torch.device):
+    """The route and geometry of a call, and the tensors its launch writes:
+    (route, geometry, mid, out, partials1, partials2, act or None)."""
+    route, geometry = resblock_route(b, h, w, cin, cout, dtype)
+    shape1, shape2, shape_act = scratch_shapes(b, h, w, cin, cout, g1, g2,
+                                               route, geometry)
+    mid = torch.empty((b, h, w, cout), dtype=dtype, device=device)
+    out = torch.empty_like(mid)
+    partials1 = torch.empty(shape1, dtype=torch.float32, device=device)
+    partials2 = torch.empty(shape2, dtype=torch.float32, device=device)
+    act = (None if shape_act is None else
+           torch.empty(shape_act, dtype=dtype, device=device))
+    return route, geometry, mid, out, partials1, partials2, act
 
 
 def _num_groups(c: int, groups: int = 32) -> int:
@@ -88,7 +149,7 @@ def resblock_reference(x, gn1_scale, gn1_bias, w1, b1, gn2_scale, gn2_bias,
 def _entry():
     fn = load_library("resblock").resblock_forward
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p] * 17 + [i] * 7 + [ctypes.c_float, i, p]
+    fn.argtypes = [p] * 17 + [i] * 7 + [ctypes.c_float] + [i] * 4 + [p, p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -167,13 +228,8 @@ def _launch(x, gn1_scale, gn1_bias, w1, b1, gn2_scale, gn2_bias, emb_scale,
         emb_scale = vec("emb_scale", emb_scale, (b, cout))
     if bskip is not None:
         bskip = vec("bskip", bskip, (cout,))
-    tiles = h * w // TILE_PIXELS
-    mid = torch.empty((b, h, w, cout), dtype=x.dtype, device=x.device)
-    out = torch.empty_like(mid)
-    partials1 = torch.empty((b, tiles, g1, 2), dtype=torch.float32,
-                            device=x.device)
-    partials2 = torch.empty((b, tiles, cout // (64 if cout % 128 else 128),
-                             g2, 2), dtype=torch.float32, device=x.device)
+    route, geometry, mid, out, partials1, partials2, act = buffers(
+        b, h, w, cin, cout, g1, g2, x.dtype, x.device)
 
     def ptr(v):
         return None if v is None else v.data_ptr()
@@ -184,10 +240,11 @@ def _launch(x, gn1_scale, gn1_bias, w1, b1, gn2_scale, gn2_bias, emb_scale,
             ptr(gn2_scale), ptr(gn2_bias), ptr(emb_scale), ptr(emb_shift),
             ptr(w2), ptr(b2), ptr(wskip), ptr(bskip), ptr(mid), ptr(out),
             ptr(partials1), ptr(partials2), b, h, w, cin, cout, g1, g2, eps,
-            int(x.dtype == torch.bfloat16),
-            torch.cuda.current_stream().cuda_stream)
+            int(x.dtype == torch.bfloat16), ROUTES.index(route), *geometry,
+            ptr(act), torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"resblock launch failed: cudaError {err} for x "
-                           f"{tuple(x.shape)} -> {cout} channels")
+                           f"{tuple(x.shape)} -> {cout} channels on the "
+                           f"{route!r} route")
     launches += 1
     return out
