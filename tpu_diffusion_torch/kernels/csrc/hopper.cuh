@@ -238,6 +238,24 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       "r"(c1), "r"(c2), "r"(c3)
       : "memory");
 }
+// The tile at `src` into the box of a 2-D tensor map at (col, row), as one
+// bulk group of this thread; then `bulk_commit` and `bulk_wait_read`.
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map,
+                                             const void* src, int col,
+                                             int row) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], "
+      "[%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_addr(src)), "r"(col), "r"(row)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// Wait until this thread's bulk groups have read their shared memory.
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
 // `bytes` contiguous bytes (a multiple of 16, 16-byte aligned both sides).
 __device__ __forceinline__ void bulk_load(void* dst, const void* src, int bytes,
                                           uint64_t* bar) {

@@ -117,6 +117,7 @@ gn_partial_kernel(const T* __restrict__ x, float* __restrict__ partials,
     for (int i = 0; i < VEC; ++i) s[i] = q[i] = 0.f;
     const int p0 = chunk * kTilePixels;
     const int p1 = min(hw, p0 + kTilePixels);
+#pragma unroll 4
     for (int p = p0 + row; p < p1; p += rows) {
       float v[VEC];
       tdt::load16(x + (static_cast<long long>(b) * hw + p) * c + col, v);
@@ -427,6 +428,7 @@ __device__ __forceinline__ void affine_maps(const ConvArgs& a, int b, int tid,
   const int cpg = ktot / a.in_groups;
   if (tid < a.in_groups) {
     float s = 0.f, q = 0.f;
+#pragma unroll 8
     for (int p = 0; p < a.in_parts; ++p) {
       const float* e = a.in_partials +
           ((static_cast<long long>(b) * a.in_parts + p) * a.in_groups + tid) *
@@ -645,9 +647,9 @@ constexpr int kStages = 8;     // weight tiles in their ring
 constexpr int kStage = kKC * kN * 2;  // bytes of one [32][128] weight tile
 constexpr int kThreads = 384;  // two consumer warpgroups, one producer
 constexpr int kConsumers = 256;
-constexpr int kInFlight = 2;   // taps whose products may run at once
-constexpr int kLDO = kN + 8;   // fp32 row stride of the output tile
-constexpr int kBars = 2 * kStages + 4;
+constexpr int kInFlight = 1;   // taps whose products may run at once
+constexpr int kLDS = kN + 8;   // row stride of the epilogue's fp32 sums
+constexpr int kBars = 2 * kStages + 5;
 constexpr int kActPixels = 128;  // pixels per block of `gn_act_kernel`
 
 __host__ __device__ constexpr bool width_ok(int width) {
@@ -659,18 +661,20 @@ __host__ __device__ constexpr bool width_ok(int width) {
 __host__ __device__ constexpr int copy_bytes(int width) {
   return (kPixels / width + 2) * width * kKC * 2;
 }
-// Two A stages and the weight ring; reused by the epilogue for the fp32
-// output tile and the per-warp channel sums.
+// Two A stages and the weight ring; reused by the epilogue for the bf16
+// output tile and GN2's channel sums.
 __host__ __device__ constexpr int region_bytes(int width) {
   return 2 * 3 * copy_bytes(width) + kStages * kStage;
 }
-constexpr int kOtileBytes = kPixels * kLDO * 4;
-constexpr int kPartBytes = 2 * 8 * kN * 4;
+constexpr int kOutBytes = kPixels * kN * 2;           // the bf16 output tile
+constexpr int kSumBytes = (2 * 64 * kLDS + 2 * kN) * 4;  // GN2's sums
 __host__ __device__ constexpr size_t smem_bytes(int width) {
   return 1024 + static_cast<size_t>(region_bytes(width)) +
          (kN + 2 * kMaxGroups) * 4 + kBars * 8;
 }
-static_assert(kOtileBytes + kPartBytes <= region_bytes(8), "epilogue room");
+static_assert(kOutBytes + kSumBytes <= region_bytes(8) &&
+                  2 * kOutBytes <= region_bytes(8),
+              "epilogue room");
 static_assert(smem_bytes(64) <= kMaxSmem, "shared memory");
 
 // Barrier over the two consumer warpgroups (barrier 0 is the block's).
@@ -748,7 +752,9 @@ __global__ void __launch_bounds__(wg::kThreads, 1)
 conv3x3_wgmma_kernel(const __grid_constant__ CUtensorMap w_map,
                      const __grid_constant__ CUtensorMap skip_map,
                      const __grid_constant__ CUtensorMap act_map,
+                     const __grid_constant__ CUtensorMap xin_map,
                      const __grid_constant__ CUtensorMap x_map,
+                     const __grid_constant__ CUtensorMap dst_map,
                      const ConvArgs a) {
   using namespace wg;
   extern __shared__ unsigned char smem_raw[];
@@ -763,6 +769,7 @@ conv3x3_wgmma_kernel(const __grid_constant__ CUtensorMap w_map,
   uint64_t* empty = full + kStages;
   uint64_t* a_full = empty + kStages;                // [2]
   uint64_t* a_empty = a_full + 2;                    // [2]
+  uint64_t* x_full = a_empty + 2;
 
   const int b = blockIdx.z, tile = blockIdx.x;
   const int y0 = tile * rows, n0 = blockIdx.y * kN;
@@ -784,6 +791,7 @@ conv3x3_wgmma_kernel(const __grid_constant__ CUtensorMap w_map,
       tdt::mbar_init(a_full + i, 1);
       tdt::mbar_init(a_empty + i, 2);
     }
+    tdt::mbar_init(x_full, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
@@ -804,7 +812,7 @@ conv3x3_wgmma_kernel(const __grid_constant__ CUtensorMap w_map,
         } else {
           tdt::mbar_expect_tx(bar, taps(c) * kPixels * kKC * 2);
           for (int s = 0; s < taps(c); ++s)
-            tdt::tma_load_4d(stage(c) + s * copy + width * kKC * 2, &x_map,
+            tdt::tma_load_4d(stage(c) + s * copy + width * kKC * 2, &xin_map,
                              ((c - nmain) * 3 + s) * kKC, 0, y0, b, bar);
         }
       };
@@ -915,6 +923,14 @@ conv3x3_wgmma_kernel(const __grid_constant__ CUtensorMap w_map,
   tdt::fence_regs(acc[0]);
   tdt::fence_regs(acc[1]);
   consumer_sync(1);  // every product is done: the region is free
+  const bool identity = a.skip_src != nullptr && a.wskip == nullptr;
+  if (identity && tid == 0) {  // x's tile for the identity skip
+    const int row = (b * h + y0) * width;
+    unsigned char* xdst = region + kOutBytes;
+    tdt::mbar_expect_tx(x_full, kOutBytes);
+    tdt::tma_load_2d(xdst, &x_map, n0, row, x_full);
+    tdt::tma_load_2d(xdst + kOutBytes / 2, &x_map, n0 + 64, row, x_full);
+  }
 
   // Bias (and additive embedding, the skip's bias).
   const int lane = tid % 32, warp = tid / 32, g = lane / 4, cq = lane % 4;
@@ -926,43 +942,49 @@ conv3x3_wgmma_kernel(const __grid_constant__ CUtensorMap w_map,
       for (int e = 0; e < 4; ++e)
         acc[i][t][e] += bias_s[8 * t + 2 * cq + e % 2];
 
-  float* otile = reinterpret_cast<float*>(region);  // [kPixels][kLDO]
+  const int rowb = warpgroup * 128 + (wt / 32) * 16 + g;  // pixel of e < 2
   if (a.out_partials != nullptr) {
-    // Per-channel sums of the fp32 outputs: over this thread's four
-    // pixels, the warp's 32 (shuffles), then the eight warps in order.
-    float* part = reinterpret_cast<float*>(region + kOtileBytes);  // [2][8][kN]
+    // Per-channel sums of the fp32 outputs for GN2, in a fixed order: this
+    // thread's four pixels, then over the 64 (warp, row group) places
+    // through shared memory, then a group's channels.
+    float* sums = reinterpret_cast<float*>(region + kOutBytes);  // [2][64][kLDS]
+    float* red = sums + 2 * 64 * kLDS;                            // [2][kN]
+    const int place = warp * 8 + g;
 #pragma unroll
-    for (int t = 0; t < 16; ++t)
+    for (int t = 0; t < 16; ++t) {
+      float s[2], sq[2];
 #pragma unroll
       for (int hc = 0; hc < 2; ++hc) {
-        float s = 0.f, sq = 0.f;
+        s[hc] = sq[hc] = 0.f;
 #pragma unroll
         for (int i = 0; i < 2; ++i)
 #pragma unroll
           for (int e = hc; e < 4; e += 2) {
-            s += acc[i][t][e];
-            sq = fmaf(acc[i][t][e], acc[i][t][e], sq);
+            s[hc] += acc[i][t][e];
+            sq[hc] = fmaf(acc[i][t][e], acc[i][t][e], sq[hc]);
           }
-#pragma unroll
-        for (int m = 4; m < 32; m *= 2) {
-          s += __shfl_xor_sync(0xffffffffu, s, m);
-          sq += __shfl_xor_sync(0xffffffffu, sq, m);
-        }
-        if (g == 0) {
-          part[warp * kN + 8 * t + 2 * cq + hc] = s;
-          part[(8 + warp) * kN + 8 * t + 2 * cq + hc] = sq;
-        }
       }
+      *reinterpret_cast<float2*>(sums + place * kLDS + 8 * t + 2 * cq) =
+          make_float2(s[0], s[1]);
+      *reinterpret_cast<float2*>(sums + (64 + place) * kLDS + 8 * t +
+                                 2 * cq) = make_float2(sq[0], sq[1]);
+    }
+    consumer_sync(1);
+    {
+      const int which = tid / kN, ch = tid % kN;
+      float total = 0.f;
+      for (int r = 0; r < 64; ++r) total += sums[(which * 64 + r) * kLDS + ch];
+      red[which * kN + ch] = total;
+    }
     consumer_sync(1);
     const int cpo = a.n / a.out_groups;
     if (tid < a.out_groups) {
       const int lo = max(tid * cpo, n0), hi = min((tid + 1) * cpo, n0 + kN);
       float s = 0.f, sq = 0.f;
-      for (int ch = lo; ch < hi; ++ch)
-        for (int w = 0; w < 8; ++w) {
-          s += part[w * kN + ch - n0];
-          sq += part[(8 + w) * kN + ch - n0];
-        }
+      for (int ch = lo; ch < hi; ++ch) {
+        s += red[ch - n0];
+        sq += red[kN + ch - n0];
+      }
       float* out = a.out_partials +
           (((static_cast<long long>(b) * gridDim.x + tile) * gridDim.y +
             blockIdx.y) * a.out_groups + tid) * 2;
@@ -971,54 +993,39 @@ conv3x3_wgmma_kernel(const __grid_constant__ CUtensorMap w_map,
     }
   }
 
-  // Through shared memory to 16-byte stores; the identity skip is added
-  // here, in fp32, before the one rounding.
-  const int wrow = warpgroup * 128 + (wt / 32) * 16 + g;
+  // The identity skip (its tile of x, by TMA, in the output tile's layout)
+  // added in fp32, one rounding to bf16, into the output tile in shared
+  // memory ([2 halves of 64 channels][256 pixels], 128-byte rows in the
+  // 128-byte swizzle, as the TMA store reads them).
+  __nv_bfloat16* otile = reinterpret_cast<__nv_bfloat16*>(region);
+  const __nv_bfloat16* xtile = otile + kPixels * kN;
+  if (identity) tdt::mbar_wait(x_full, 0);
 #pragma unroll
   for (int i = 0; i < 2; ++i)
 #pragma unroll
-    for (int t = 0; t < 16; ++t)
+    for (int hr = 0; hr < 2; ++hr) {
+      const int p = rowb + i * 64 + 8 * hr;
 #pragma unroll
-      for (int hr = 0; hr < 2; ++hr)
-        *reinterpret_cast<float2*>(
-            otile + (wrow + i * 64 + 8 * hr) * kLDO + 8 * t + 2 * cq) =
-            make_float2(acc[i][t][2 * hr], acc[i][t][2 * hr + 1]);
-  consumer_sync(1);
-  const int n = a.n;
-  const long long pix0 = (static_cast<long long>(b) * h + y0) * width;
-  __nv_bfloat16* dst = static_cast<__nv_bfloat16*>(a.dst) + pix0 * n + n0;
-  const __nv_bfloat16* xs =
-      static_cast<const __nv_bfloat16*>(a.skip_src) + pix0 * n + n0;
-  const bool identity = a.skip_src != nullptr && a.wskip == nullptr;
-  constexpr int kVecs = kPixels * kN / 8 / kConsumers;  // 16 per thread
-  constexpr int kBatch = 4;  // x loads in flight at once
-#pragma unroll
-  for (int j0 = 0; j0 < kVecs; j0 += kBatch) {
-    uint4 xv[kBatch];
-#pragma unroll
-    for (int j = 0; j < kBatch; ++j) {
-      const int idx = tid + (j0 + j) * kConsumers;
-      const int p = idx / (kN / 8), nv = idx % (kN / 8) * 8;
-      if (identity)
-        xv[j] = *reinterpret_cast<const uint4*>(xs + p * n + nv);
-    }
-#pragma unroll
-    for (int j = 0; j < kBatch; ++j) {
-      const int idx = tid + (j0 + j) * kConsumers;
-      const int p = idx / (kN / 8), nv = idx % (kN / 8) * 8;
-      const float4 lo =
-          *reinterpret_cast<const float4*>(otile + p * kLDO + nv);
-      const float4 hi =
-          *reinterpret_cast<const float4*>(otile + p * kLDO + nv + 4);
-      float v[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
-      if (identity) {
-        const __nv_bfloat16* xe =
-            reinterpret_cast<const __nv_bfloat16*>(&xv[j]);
-#pragma unroll
-        for (int e = 0; e < 8; ++e) v[e] += __bfloat162float(xe[e]);
+      for (int t = 0; t < 16; ++t) {
+        const int at = (t / 8) * kPixels * 64 + tdt::swz(p, (t % 8) * 8 + 2 * cq);
+        float v0 = acc[i][t][2 * hr], v1 = acc[i][t][2 * hr + 1];
+        if (identity) {
+          const __nv_bfloat162 xv =
+              *reinterpret_cast<const __nv_bfloat162*>(xtile + at);
+          v0 += __bfloat162float(xv.x);
+          v1 += __bfloat162float(xv.y);
+        }
+        *reinterpret_cast<uint32_t*>(otile + at) = pack2(v0, v1);
       }
-      tdt::store16(dst + p * n + nv, v);
     }
+  tdt::fence_async_smem();  // the tile, visible to the TMA store
+  consumer_sync(1);
+  if (tid == 0) {
+    const int row = (b * h + y0) * width;
+    tdt::tma_store_2d(&dst_map, otile, n0, row);
+    tdt::tma_store_2d(&dst_map, otile + kPixels * 64, n0 + 64, row);
+    tdt::bulk_commit();
+    tdt::bulk_wait_read();  // the tile is read before the block ends
   }
 }
 
@@ -1064,6 +1071,23 @@ cudaError_t pixel_map(const void* ptr, int batch, int h, int width, int c,
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
+// A 2-D map of a [rows][cols] bf16 pixel matrix in boxes of 256 rows x 64
+// columns with the 128-byte swizzle (a conv block's output tile, or x's
+// tile for the identity skip, by halves).
+cudaError_t out_map(void* ptr, int rows, int cols, CUtensorMap* map) {
+  const tdt::EncodeTiled encode = tdt::encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
+                              static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * 2};
+  const cuuint32_t box[2] = {64, wg::kPixels}, elem[2] = {1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, ptr, dims, strides, box, elem,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_L2_PROMOTION_NONE, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
 // The "wgmma" route's conv of `a` over the activation `act` of a.src.
 cudaError_t launch_conv_wgmma(const ConvArgs& a, const void* act, int batch,
                               cudaStream_t stream) {
@@ -1072,21 +1096,28 @@ cudaError_t launch_conv_wgmma(const ConvArgs& a, const void* act, int batch,
       kMaxSmem);
   if (attr != cudaSuccess) return attr;
   const int rows = wg::kPixels / a.width;
-  CUtensorMap w_map, skip_map, act_map, x_map;
+  CUtensorMap w_map, skip_map, act_map, xin_map, x_map, dst_map;
+  const int pixels = batch * a.h * a.width;
   cudaError_t err = weight_map(a.w, 9 * a.k, a.n, &w_map);
+  if (err == cudaSuccess) err = out_map(a.dst, pixels, a.n, &dst_map);
+  x_map = dst_map;
+  if (err == cudaSuccess && a.skip_src != nullptr && a.wskip == nullptr)
+    err = out_map(const_cast<void*>(a.skip_src), pixels, a.n, &x_map);
   if (err == cudaSuccess)
     err = pixel_map(act, batch, a.h, a.width, a.k, rows + 2, &act_map);
   skip_map = w_map;
-  x_map = act_map;
+  xin_map = act_map;
   if (err == cudaSuccess && a.wskip != nullptr) {
     err = weight_map(a.wskip, a.skip_k, a.n, &skip_map);
     if (err == cudaSuccess)
-      err = pixel_map(a.skip_src, batch, a.h, a.width, a.skip_k, rows, &x_map);
+      err = pixel_map(a.skip_src, batch, a.h, a.width, a.skip_k, rows,
+                      &xin_map);
   }
   if (err != cudaSuccess) return err;
   const dim3 grid(a.h * a.width / wg::kPixels, a.n / wg::kN, batch);
   conv3x3_wgmma_kernel<<<grid, wg::kThreads, wg::smem_bytes(a.width),
-                         stream>>>(w_map, skip_map, act_map, x_map, a);
+                         stream>>>(w_map, skip_map, act_map, xin_map, x_map,
+                                   dst_map, a);
   return cudaGetLastError();
 }
 

@@ -26,11 +26,9 @@ import sys
 
 # name: [(text in the kernel, text that replaces it)], each site found once
 VARIANTS = {
-    # one or three taps' products in flight instead of two
-    "in_flight_1": [("constexpr int kInFlight = 2;",
-                     "constexpr int kInFlight = 1;")],
-    "in_flight_3": [("constexpr int kInFlight = 2;",
-                     "constexpr int kInFlight = 3;")],
+    # two taps' products in flight instead of one
+    "in_flight_2": [("constexpr int kInFlight = 1;",
+                     "constexpr int kInFlight = 2;")],
     # six weight slots instead of eight
     "stages_6": [("constexpr int kStages = 8;", "constexpr int kStages = 6;")],
     # SiLU by the fast intrinsics (differs from PyTorch's rounding)
@@ -81,14 +79,12 @@ CLOCKS = [
      "  STAMP(sb + 3);\n  if (stamp_on) { g_clk[sb + 4] = w_full; "
      "g_clk[sb + 5] = w_done; g_clk[sb + 6] = w_a; }\n"
      "  consumer_sync(1);  // every product is done"),
-    ("      tdt::store16(dst + p * n + nv, v);\n    }\n  }\n}\n",
-     "      tdt::store16(dst + p * n + nv, v);\n    }\n  }\n"
-     "  STAMP(sb + 8);\n}\n"),
-    ("  const int wrow = warpgroup * 128 + (wt / 32) * 16 + g;\n",
+    ("  // The identity skip (its tile of x, by TMA, in the output tile's layout)\n",
      "  STAMP(sb + 9);\n"
-     "  const int wrow = warpgroup * 128 + (wt / 32) * 16 + g;\n"),
-    ("  consumer_sync(1);\n  const int n = a.n;\n",
-     "  consumer_sync(1);\n  STAMP(sb + 10);\n  const int n = a.n;\n"),
+     "  // The identity skip (its tile of x, by TMA, in the output tile's layout)\n"),
+    ("  tdt::fence_async_smem();  // the tile, visible to the TMA store\n  consumer_sync(1);\n",
+     "  tdt::fence_async_smem();  // the tile, visible to the TMA store\n  consumer_sync(1);\n"
+     "  STAMP(sb + 8);\n"),
 ]
 SHAPES = [(64, 32, 128, 128, False), (64, 32, 256, 128, True),
           (64, 32, 384, 128, True)]
@@ -156,8 +152,7 @@ def clocks(torch, chip_smoke, resblock):
                     "drain": c[o + 3] - marks[-1],
                     "epilogue": c[o + 8] - c[o + 3],
                     "epilogue_sums": c[o + 9] - c[o + 3],
-                    "epilogue_to_smem": c[o + 10] - c[o + 9],
-                    "epilogue_stores": c[o + 8] - c[o + 10],
+                    "epilogue_tile": c[o + 8] - c[o + 9],
                     "total": c[o + 8] - c[o],
                     "wait_weights": c[o + 4], "wait_products": c[o + 5],
                     "wait_input": c[o + 6]}), flush=True)
