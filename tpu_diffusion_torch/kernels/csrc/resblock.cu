@@ -20,18 +20,17 @@
 // The chain. The TPU kernel holds whole images in VMEM, because GN2 needs
 // the statistics of all of conv1's output before conv2 can start. One
 // [32, 32, 128] bf16 image is 256 KB and does not fit a block's 227 KB of
-// shared memory, so here the function is three kernels on one stream:
+// shared memory, so here the function is a chain of kernels on one stream:
 //   1. `gn_partial_kernel`: per (image, 128-pixel chunk) partial sums of x
 //      and x^2 for each GN1 group;
-//   2. the conv kernel (first use): finishes the GN1 statistics from the
-//      partial sums, applies normalise + SiLU while it stages its input,
-//      computes conv1 as an implicit GEMM, writes the mid tensor in x's type
-//      and, from the fp32 accumulators (not from their roundings), per
-//      (image, tile, channel tile) partial sums for each GN2 group, in a
-//      fixed order and without atomics (two calls are bitwise equal);
-//   3. the conv kernel (second use): the same with GN2 (and FiLM) on load,
-//      the 1x1 skip product as more k-steps over raw x on the same
-//      accumulators, and the bias, skip and residual in the epilogue.
+//   2. conv1: the GN1 statistics from the partial sums, normalise + SiLU of
+//      x, conv1 as an implicit GEMM; writes the mid tensor in x's type and,
+//      from the fp32 accumulators (not from their roundings), per (image,
+//      tile, channel tile) partial sums for each GN2 group, in a fixed
+//      order and without atomics (two calls are bitwise equal);
+//   3. conv2: the same with GN2 (and FiLM) over mid, the 1x1 skip product
+//      as more k-steps over raw x on the same accumulators, and the bias,
+//      skip and residual in the epilogue.
 // The mid tensor ([64, 32, 32, 128] bf16: 16.8 MB) is written once and read
 // once and stays in the 50 MB L2. The padding applies after normalise +
 // SiLU: a halo pixel adds 0, not silu(GN(0)).
@@ -40,33 +39,41 @@
 // which also sets the tile geometry and so the scratch shapes) and refused
 // by the entry point where they do not fit:
 //   "wgmma" (bf16, W in {8, 16, 32, 64}, 256 / W dividing H, Cin % 32 = 0,
-//   Cout % 128 = 0: every CIFAR engine shape): `conv3x3_wgmma_kernel`. A
-//   block computes 256 pixels (whole rows) x 128 output channels with two
-//   consumer warpgroups (128 pixels each, two m64n128 fp32 accumulators,
-//   128 registers a thread) and a producer warp. What it does about the
+//   Cout % 128 = 0: every CIFAR engine shape). Each conv is two kernels:
+//   `gn_act_kernel` writes act = silu(GN(input)) in bf16 once per element
+//   (into a scratch tensor), then `conv3x3_wgmma_kernel` computes 256
+//   pixels (whole rows) x 128 output channels per block with two consumer
+//   warpgroups (128 pixels each: two m64n128 fp32 accumulators, 128
+//   registers a thread) and one producer thread. What it does about the
 //   four things that held the `mma.sync` design at 5.6x its bound:
 //   - products: `wgmma` m64n128k16 with both operands in shared memory, A
 //     K-major in the 64-byte swizzle, B (the weights, [k][n] as HWIO holds
 //     them) MN-major in the 128-byte swizzle;
-//   - overlap: the weights of one tap (32 input x 128 output channels, 8
-//     KB) come by TMA into a ring of six slots on mbarriers, so loads run
-//     ahead of the products; the activations are staged by the consumers
-//     into the second of two slab buffers while the tensor cores work
-//     through the current one, one tap queued at all times;
+//   - overlap: every operand comes by TMA on mbarriers, the weights of one
+//     tap (32 input x 128 output channels, 8 KB) into a ring of eight
+//     slots, each chunk's input into one of two stages, so loads run ahead
+//     of the products; the consumers only issue products and free slots;
 //   - weight traffic: 256-pixel tiles halve the L2 reads of the weights
 //     against 128-pixel ones (256 blocks per conv at [64, 32, 32, .]);
 //   - the A operand: a tap's 64 output pixels are not a uniform stride into
-//     a haloed slab whose rows are W + 2 wide, so the activation is stored
-//     three times, pre-shifted by kx = 0, 1, 2, in rows exactly W wide:
-//     every tap's A tile is then rows [ky, ky + rows) of copy kx, at a
-//     512-byte aligned offset that a descriptor addresses directly.
-//   x is still read three times (GN1 sums, conv1's slab, the skip), the
-//   second and third time from L2: 10 to 20 us of bytes at most.
+//     a haloed slab whose rows are W + 2 wide, so each chunk's input comes
+//     as three TMA boxes of act shifted by kx - 1 columns, rows exactly W
+//     wide, zero-filled outside the image (the padding after the
+//     activation): every tap's A tile is rows [ky, ky + rows) of copy kx,
+//     at a 512-byte aligned offset that a descriptor addresses directly.
+//   GN + SiLU sits in its own pass because applying it while staging the
+//   input cost more than the pass: by the consumers it left the tensor
+//   cores idle (1.9x slower), by three stager warps it had too few loads
+//   in flight (2.9x slower) (PERF.md). The epilogue stores the bf16 tile
+//   by TMA; the identity skip's x tile comes by TMA too. x is read three
+//   times (GN1 sums, the act pass, the skip) and act three times per conv
+//   (once per copy), mostly from L2: bytes stay far below the products.
 //   "mma" (other bf16 shapes) and "scalar" (fp32): `conv3x3_kernel`, 128
 //   pixels x 64 or 128 channels per block, 256 threads, `mma.sync` m16n8k16
-//   with `ldmatrix` fragments (bf16) or scalar FMAs (fp32); the slab of KC
-//   input channels is staged through registers once per chunk, the weights
-//   one kernel row (three taps) at a time; no asynchronous pipeline.
+//   with `ldmatrix` fragments (bf16) or scalar FMAs (fp32); GN + SiLU is
+//   applied while the slab of KC input channels is staged through
+//   registers, once per chunk, the weights one kernel row (three taps) at a
+//   time; no asynchronous pipeline.
 // Every mbarrier wait traps after 2^22 polls: a fault in the protocol fails
 // the launch instead of hanging the card.
 //
@@ -74,8 +81,8 @@
 // channel) affine map rounded to the compute type and evaluates it and the
 // SiLU in that type. Here the affine map and the SiLU are evaluated in
 // fp32 (`t / (1 + expf(-t))`, as PyTorch rounds it) and the activation is
-// rounded once, to x's type, as it is written to the slab (so the products
-// take bf16 operands, as on the TPU). Like the TPU kernel, conv1's output is
+// rounded once, to x's type, as it is written to the slab or to act (so the
+// products take bf16 operands, as on the TPU). Like the TPU kernel, conv1's output is
 // rounded to x's type (the mid tensor) before GN2 is applied, while GN2's
 // statistics come from the fp32 values. The output is rounded once.
 
