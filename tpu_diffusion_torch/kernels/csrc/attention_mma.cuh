@@ -46,11 +46,6 @@ __device__ __forceinline__ void mma_bf16(float (&acc)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
 // 2^x by the special-function unit (`ex2.approx`, 2 ulp; -inf gives 0).
 __device__ __forceinline__ float fast_exp2(float x) {
   float y;

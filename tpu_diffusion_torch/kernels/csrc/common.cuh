@@ -1,5 +1,6 @@
 // Helpers shared by the kernels in this directory: fp32 widening of bf16 and
-// fp32 values, 16-byte vector loads and stores, shared-memory addresses.
+// fp32 values, bf16 packing, 16-byte vector loads and stores, shared-memory
+// addresses.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -43,6 +44,12 @@ __device__ __forceinline__ void store16(T* p, const float* src) {
 #pragma unroll
   for (int i = 0; i < vec16<T>(); ++i) v[i] = from_f<T>(src[i]);
   *reinterpret_cast<uint4*>(p) = raw;
+}
+
+// Two fp32 values rounded to bf16, packed low-first.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
 }
 
 // The shared-state-space address of a pointer into shared memory.

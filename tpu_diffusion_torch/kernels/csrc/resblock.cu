@@ -689,11 +689,6 @@ __device__ __forceinline__ void consumer_sync(int id) {
   asm volatile("bar.sync %0, 256;\n" ::"r"(id) : "memory");
 }
 
-__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
 // silu(raw * scale + shift) of 8 bf16 channels, rounded to bf16.
 __device__ __forceinline__ uint4 activate(uint4 raw, const float* scale,
                                           const float* shift) {
@@ -702,7 +697,7 @@ __device__ __forceinline__ uint4 activate(uint4 raw, const float* scale,
   uint32_t* o = reinterpret_cast<uint32_t*>(&out);
 #pragma unroll
   for (int i = 0; i < 4; ++i)
-    o[i] = pack2(
+    o[i] = tdt::pack_bf16(
         silu(fmaf(__bfloat162float(v[2 * i]), scale[2 * i], shift[2 * i])),
         silu(fmaf(__bfloat162float(v[2 * i + 1]), scale[2 * i + 1],
                   shift[2 * i + 1])));
@@ -744,7 +739,7 @@ gn_act_kernel(const ConvArgs a, __nv_bfloat16* __restrict__ act) {
 // fp32 accumulators. One thread of warpgroup 2 (the producer) streams by
 // TMA, each on its own mbarriers: the weight tiles ([32 input][128 output
 // channels] of one tap, two boxes of 64 columns in the 128-byte swizzle)
-// into a ring of six slots, and each chunk's input into one of two A
+// into a ring of eight slots, and each chunk's input into one of two A
 // stages. A main chunk is 32 input channels of act: three boxes of (rows +
 // 2) x W pixels at columns shifted by kx - 1, the parts outside the image
 // filled with zeros (the padding after the activation), in the 64-byte
@@ -753,8 +748,10 @@ gn_act_kernel(const ConvArgs a, __nv_bfloat16* __restrict__ act) {
 // three groups of 32 channels of raw x (rows x W pixels each, in the place
 // of copy s's rows 1..rows); one tap each. For each tap the consumers wait
 // for its weight tile, issue four `wgmma` (two k-steps of 16 for each
-// accumulator; B MN-major from the ring), let at most two taps' products
-// run and free the slots (and A stages) of the others.
+// accumulator; B MN-major from the ring), let at most kInFlight taps'
+// products run and free the slots (and A stages) of the others. The
+// epilogue adds the bias, sums GN2's partials (conv1), adds the identity
+// skip (conv2) and stores the bf16 tile by TMA.
 __global__ void __launch_bounds__(wg::kThreads, 1)
 conv3x3_wgmma_kernel(const __grid_constant__ CUtensorMap w_map,
                      const __grid_constant__ CUtensorMap skip_map,
@@ -1022,7 +1019,7 @@ conv3x3_wgmma_kernel(const __grid_constant__ CUtensorMap w_map,
           v0 += __bfloat162float(xv.x);
           v1 += __bfloat162float(xv.y);
         }
-        *reinterpret_cast<uint32_t*>(otile + at) = pack2(v0, v1);
+        *reinterpret_cast<uint32_t*>(otile + at) = tdt::pack_bf16(v0, v1);
       }
     }
   tdt::fence_async_smem();  // the tile, visible to the TMA store

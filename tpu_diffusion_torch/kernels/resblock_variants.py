@@ -34,6 +34,13 @@ VARIANTS = {
     # SiLU by the fast intrinsics (differs from PyTorch's rounding)
     "fast_silu": [("  return v / (1.f + expf(-v));",
                    "  return __fdividef(v, 1.f + __expf(-v));")],
+    # the activation pass: 256 pixels a block, or eight vectors in flight
+    "act_256px": [("constexpr int kActPixels = 128;",
+                   "constexpr int kActPixels = 256;")],
+    "act_unroll_8": [("#pragma unroll 4\n  for (int i = threadIdx.x; i < nvec;",
+                      "#pragma unroll 8\n  for (int i = threadIdx.x; i < nvec;")],
+    # diagnostic: no SiLU in the activation pass (wrong result)
+    "act_no_silu": [("  return v / (1.f + expf(-v));", "  return v;")],
     # diagnostic: no products (wrong result)
     "no_products": [(
         "      tdt::wgmma_m64n128k16_ss<1>(acc[0], da0 + 2 * kk, db + 128 * kk, 1);\n"
@@ -43,7 +50,7 @@ VARIANTS = {
     "no_act": [("      cudaError_t e = launch_act(a, act, batch, stream);",
                 "      cudaError_t e = cudaSuccess;")],
 }
-DIAGNOSTIC = ("no_products", "no_act")
+DIAGNOSTIC = ("no_products", "no_act", "act_no_silu")
 # clock stamps in one conv1 block (tile 1, image 5) per consumer warpgroup:
 # 0 start, 16 + c end of chunk c's issue, 3 products done, 8 end; 4-6 the
 # clocks spent waiting for weight tiles, for products and for A stages
