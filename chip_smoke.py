@@ -30,7 +30,8 @@ The fused-inference engine (`models/unet_infer.py`) on the same UNet:
   resblock_kernel  the whole-ResBlock kernel against its plain version at
            the five shapes the engine gives it (batch 64, bf16), plus an
            fp32, an additive-mode and an identity-skip case, and the 64px
-           UNet's first ResBlock ([32,64,64,128] -> 128, timed only); each
+           UNet's first ResBlock ([32,64,64,128] -> 128; in no path's
+           sums); each
            line names its route ("wgmma" at every path shape,
            `kernels/resblock.py:resblock_route`) and whether two calls agree
            bitwise; times as in `kernel`, with the port's own `ResBlock`
@@ -317,7 +318,7 @@ def resblock_inputs(torch, gen, dev, b, hw, cin, cout, film, skip, dtype):
 def resblock_phase(torch, card_info, res_shapes, unet, dev, min_tokens=1024):
     """`fused_resblock` against `resblock_reference` at the shapes the engine
     gives it, plus an fp32, an additive-mode and an identity-skip case, and
-    the 64px UNet's first ResBlock (timed only: no path runs it); each line
+    the 64px UNet's first ResBlock (no path runs it); each line
     names the route and whether two calls agree bitwise. Returns {kernel:
     per-forward sums}."""
     from tpu_diffusion_torch.kernels import resblock

@@ -28,11 +28,12 @@ import torch.nn.functional as F
 
 from tpu_diffusion_torch.kernels.build import load_library
 
-# Calls of `fused_resblock` that launched the kernels since the count was
-# last set to 0: one per call, whichever route. A call is a chain of three
+# Calls of `fused_resblock` that launched its kernels since the count was
+# last set to 0: one per call, whichever route. A call is the chain of
 # kernels that computes one ResBlock: GN1's partial sums
-# (`gn_partial_kernel`), then conv1 and conv2, both `conv3x3_wgmma_kernel`
-# on the "wgmma" route and `conv3x3_kernel` on "mma" and "scalar".
+# (`gn_partial_kernel`), then on the "wgmma" route `gn_act_kernel` and
+# `conv3x3_wgmma_kernel` for each conv (five launches), on "mma" and
+# "scalar" `conv3x3_kernel` for each (three).
 launches = 0
 
 # The routes, in the order of the C entry point's `route`.
