@@ -236,13 +236,15 @@ def test_cuda_flash_autograd_uses_both_kernels(cuda):
         torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
 
 
-def _resblock_inputs(seed, b, hw, cin, cout, film, skip, dtype, dev):
+def _resblock_inputs(seed, b, hw, cin, cout, film, skip, dtype, dev,
+                     width=None):
+    """Arguments of `fused_resblock` for x [b, hw, width or hw, cin]."""
     g = torch.Generator().manual_seed(seed)
 
     def rand(*shape, scale=1.0):
         return torch.randn(shape, generator=g) * scale
 
-    x = (rand(b, hw, hw, cin) * 1.5 + 0.3).to(dtype)
+    x = (rand(b, hw, width or hw, cin) * 1.5 + 0.3).to(dtype)
     args = [x, 1 + rand(cin, scale=0.1), rand(cin, scale=0.1),
             rand(3, 3, cin, cout, scale=(9 * cin) ** -0.5).to(dtype),
             rand(cout, scale=0.1), 1 + rand(cout, scale=0.1),
@@ -289,6 +291,24 @@ def test_cuda_resblock_matches_plain(cuda, dtype, b, hw, cin, cout, film,
     # second convolution), and each side rounds its output once (one bf16
     # ulp, at most 2^-8 of the largest entry)
     tol = (2e-5 if dtype == torch.float32 else 1e-2) * scale
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,w,route", [(64, 8, "wgmma"), (16, 8, "mma")])
+def test_cuda_resblock_narrow_images(cuda, h, w, route):
+    """Images 8 pixels wide: 32 rows a tile on the "wgmma" route, which
+    needs H a multiple of 32; 16 rows take the "mma" route."""
+    b, cin, cout = 2, 128, 128
+    assert resblock.resblock_route(b, h, w, cin, cout,
+                                   torch.bfloat16)[0] == route
+    args = _resblock_inputs(11, b, h, cin, cout, True, True, torch.bfloat16,
+                            cuda, width=w)
+    got = resblock.fused_resblock(*args)
+    want = resblock.resblock_reference(*args)
+    torch.cuda.synchronize()
+    assert got.shape == (b, h, w, cout)
+    tol = 1e-2 * want.float().abs().max().item()  # as in the test above
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=0)
 
 
