@@ -80,6 +80,26 @@ forward, batch 32, synthetic images):
            parameters moved, 5 flash forward and 5 flash backward launches
            per step, a checkpoint written and read back equal, then
            `cli.main --mode eval` from that checkpoint on a 50-step chain.
+  eval_metrics  `cli.main --mode eval` on the same 64px model (random
+           weights from seed 0, one batch of 32, a 50-step chain) with
+           testing.lpips, testing.fid and random_conv features: LPIPS, FID
+           and the caveat fields of results.json, the flash forward's
+           launches equal to what the chain implies, LPIPS(x, x) = 0 and
+           FID(real, real) <= 1e-3, each feature network's device time per
+           batch beside the sampler's, and the RandomConv, VGG and
+           Inception features on the card against the CPU (fp32, relative
+           1e-4).
+CIFAR-10 conditional flow matching (`cli/train_cifar10.py`,
+`cli/compute_fid.py`; synthetic CIFAR-10):
+  cfm_train  20 OT-CFM steps (exact host OT pairs) at the config's full
+           width and batch 128 through `train_cifar10.main`: median ms per
+           step over steps 2-20, peak memory, losses finite, fp32
+           parameters, checkpoints at steps 10 and 20, the 64-image
+           Euler-100 grid finite in [-1, 1]; then 5 I-CFM steps (the
+           unpaired path);
+  cfm_fid  `compute_fid.main` on that checkpoint, random_conv features,
+           1024 images in batches of 512, by Euler-100 and by dopri5: FID,
+           NFE, dopri5_truncated and the seconds taken.
 Then the kernel table line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Any failure exits nonzero before that line.
 Needs one CUDA card; imports nothing of JAX.
@@ -1205,6 +1225,257 @@ def train_phase(torch, card_info, dev):
     return launches
 
 
+FEATURE_TOL = 1e-4  # relative, fp32 card against fp32 CPU
+
+
+def rel_err(got, want) -> float:
+    return ((got.float().cpu() - want.float().cpu()).abs().max()
+            / want.float().abs().max()).item()
+
+
+def eval_metrics_phase(torch, card_info, dev):
+    """`cli.main --mode eval` with LPIPS and FID on the 64px flowers config
+    (its full width, random weights from SEED, a 50-step chain), the metrics'
+    own checks, and the three feature networks on the card against the CPU.
+    Returns the flash forward's launches in the eval run."""
+    import shutil
+    import tempfile
+
+    from tpu_diffusion_torch.cli import main as cli
+    from tpu_diffusion_torch.data.registry import get_dataset
+    from tpu_diffusion_torch.eval import fid, lpips
+    from tpu_diffusion_torch.kernels import attention
+    from tpu_diffusion_torch.models import unet
+    from tpu_diffusion_torch.sampling import ancestral
+    from tpu_diffusion_torch.train.checkpoint import CheckpointManager
+    from tpu_diffusion_torch.utils import config as config_mod
+    spec = "flowers,inpainting,amortized"
+    overrides = ["testing.lpips=true", "testing.fid=true",
+                 "testing.fid_features=random_conv",
+                 f"testing.num_test={COND_BATCH}",
+                 f"testing.batch_size={COND_BATCH}",
+                 f"diffusion.num_steps={SHORT_STEPS}"]
+    config = config_mod.get_config(spec)
+    config_mod.apply_overrides(config, overrides)
+    parts = cli.build(config, dev)
+    model = unet.randomize_(parts["model"],
+                            torch.Generator().manual_seed(SEED)).eval()
+    imgs = torch.from_numpy(get_dataset("flowers")("data", train=False)
+                            .images[:COND_BATCH]).to(dev)
+
+    # one batch's sampler chain, as run_eval calls it (host clock)
+    cond_sample, _ = cli.make_samplers(config, parts)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    condition = parts["likelihood"].sample(gen, imgs)
+    xT = torch.randn(imgs.shape, generator=gen, device=dev)
+    torch.cuda.synchronize()
+    s0 = time.perf_counter()
+    cond_sample(model, xT, condition, gen)
+    torch.cuda.synchronize()
+    sampler_ms = (time.perf_counter() - s0) * 1e3
+
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_eval_")
+    try:
+        params = {k: v.detach() for k, v in model.named_parameters()}
+        CheckpointManager(f"{workdir}/ckpt").save(
+            1, {"params": params, "ema": params, "step": 1})
+        del parts, model, params, cond_sample
+        torch.cuda.empty_cache()
+        args = ["--config", spec, "--mode", "eval", "--workdir", workdir,
+                "--device", dev.type]
+        for o in overrides:
+            args += ["--override", o]
+        torch.cuda.synchronize()
+        attention.flash_fwd_launches = 0
+        s0 = time.perf_counter()
+        results = cli.main(args)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - s0
+        launches = attention.flash_fwd_launches
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    # the amortized K=3 chain: one encoder pass (2 flash blocks) per reuse
+    # group, a decoder pass (3) per step
+    want = (2 * len(ancestral.reuse_groups(range(SHORT_STEPS), COND_REUSE))
+            + 3 * SHORT_STEPS)
+
+    # the metrics' own checks: LPIPS of an image against itself, FID of the
+    # real set's statistics against themselves
+    lpips_fn = cli._get_lpips(dev)
+    self_lpips = lpips_fn(imgs, imgs).abs().max().item()
+    (feature_fn, (mu, sigma), _), = cli._FID_REAL_CACHE.values()
+    s0 = time.perf_counter()
+    self_fid = fid.frechet_distance(mu, sigma, mu, sigma)
+    frechet_seconds = time.perf_counter() - s0
+
+    # device time per eval batch of each feature network
+    other = torch.flip(imgs, dims=[0])
+    inception_fn = fid.make_feature_fn("inception_random", device=dev)
+    times = {}
+    for name, fn in (("random_conv", lambda: feature_fn(imgs)),
+                     ("lpips_vgg", lambda: lpips_fn(imgs, other)),
+                     ("inception", lambda: inception_fn(imgs))):
+        times[name + "_ms"], times[name + "_eager_ms"] = time_ms(fn, iters=3)
+
+    # each feature network on the card against the same module on the CPU
+    x, y = imgs[:4], other[:4]
+    errs = {
+        "random_conv": rel_err(
+            feature_fn(x),
+            fid.make_feature_fn("random_conv", device="cpu")(x.cpu())),
+        "lpips_vgg": rel_err(
+            lpips_fn(x, y),
+            lpips.PerceptualDistance(device="cpu")(x.cpu(), y.cpu())),
+        "inception": rel_err(
+            inception_fn(x),
+            fid.make_feature_fn("inception_random", device="cpu")(x.cpu()))}
+    del inception_fn
+    torch.cuda.empty_cache()
+    emit(card_info, phase="eval_metrics", config=spec, overrides=overrides,
+         seconds=seconds, lpips=results.get("lpips"),
+         fid=results.get("fid"),
+         fid_comparable_to_published=results.get(
+             "fid_comparable_to_published"),
+         fid_features=results.get("fid_features"),
+         num_images=results.get("num_images"),
+         mse_mean=results.get("mse_mean"),
+         flash_fwd_launches=launches, flash_fwd_expected=want,
+         sampler_ms_per_batch=sampler_ms, **times,
+         frechet_distance_seconds=frechet_seconds,
+         self_lpips_max=self_lpips, self_fid=self_fid,
+         card_vs_cpu_rel_err=errs, tol=FEATURE_TOL,
+         precision="feature networks in fp32 with TF32 off "
+                   "(eval/fid.py:full_fp32)",
+         note="random weights (UNet from the seed; LPIPS and FID features "
+              "from fixed torch seeds): no quality claim; sampler: one "
+              f"{SHORT_STEPS}-step K=3 chain of batch {COND_BATCH}, host "
+              "clock; feature networks: device time per batch of "
+              f"{COND_BATCH} (CUDA graph) and eager; frechet_distance: "
+              "host seconds of one 2048-wide FID; card_vs_cpu: max "
+              "|card - cpu| / max |cpu| over 4 images")
+    check(results["num_images"] == COND_BATCH
+          and all(math.isfinite(results[k]) for k in ("lpips", "fid"))
+          and results["fid_comparable_to_published"] is False,
+          f"eval_metrics: results {results}")
+    check(launches == want, f"eval_metrics: flash launches {launches}, "
+                            f"want {want}")
+    check(self_lpips == 0.0, f"eval_metrics: LPIPS(x, x) = {self_lpips}")
+    check(abs(self_fid) <= 1e-3, f"eval_metrics: FID(real, real) = "
+                                 f"{self_fid}")
+    check(all(e <= FEATURE_TOL for e in errs.values()),
+          f"eval_metrics: card against CPU {errs}")
+    return launches
+
+
+CFM_TRAIN_STEPS = 20
+
+
+def cfm_train_phase(torch, card_info, out):
+    """CIFAR-10 OT-CFM training through `cli.train_cifar10.main` at the
+    config's full width and batch (synthetic CIFAR-10), then 5 I-CFM
+    steps. Checkpoints under `out`."""
+    import os
+
+    from tpu_diffusion_torch.cli import train_cifar10 as tc
+    trace = []
+
+    class TimedTrainer(tc.Trainer):
+        def fit(self, num_steps, metrics_hook=None):
+            # reading the metrics synchronises the device once per step
+            return super().fit(num_steps, metrics_hook=lambda step, m: (
+                trace.append((time.perf_counter(), m["loss"]))))
+
+    common = ["--output_dir", out, "--warmup", "5"]
+    real_trainer = tc.Trainer
+    tc.Trainer = TimedTrainer
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        s0 = time.perf_counter()
+        last = tc.main(["--model", "otcfm", "--total_steps",
+                        str(CFM_TRAIN_STEPS), "--save_step", "10"] + common)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - s0
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        otcfm = list(trace)
+        trace.clear()
+        tc.main(["--model", "icfm", "--total_steps", "5", "--save_step",
+                 "1000"] + common)
+        icfm = list(trace)
+    finally:
+        tc.Trainer = real_trainer
+    step_ms = sorted((b - a) * 1e3 for (a, _), (b, _) in
+                     zip(otcfm, otcfm[1:]))
+    losses = [l for _, l in otcfm]
+    ckpt_dir = os.path.join(out, "otcfm", "ckpt")
+    ckpts = sorted(os.listdir(ckpt_dir))
+    saved = torch.load(os.path.join(ckpt_dir, ckpts[-1]), map_location="cpu",
+                       weights_only=True)
+    dtypes = sorted({str(v.dtype) for v in saved["params"].values()})
+    grid = last["grid"]
+    emit(card_info, phase="cfm_train", model="otcfm", batch=128,
+         steps=CFM_TRAIN_STEPS, seconds=seconds,
+         ms_per_step_median=step_ms[len(step_ms) // 2],
+         ms_per_step_min=step_ms[0], ms_per_step_max=step_ms[-1],
+         peak_memory_gb=peak, loss_first=losses[0], loss_last=losses[-1],
+         losses=losses, param_dtypes=dtypes,
+         n_params=sum(v.numel() for v in saved["params"].values()),
+         checkpoints=ckpts, grid_shape=list(grid.shape),
+         grid_nfe=last["nfe"], grid_min=grid.min().item(),
+         grid_max=grid.max().item(),
+         icfm_losses=[l for _, l in icfm],
+         note="128 channels, (1,2,2,2), attention at 16x16 with 4 heads, "
+              "dropout 0.1, bf16 forward, fp32 parameters; exact OT pairs "
+              "on the host (prefetch 2); synthetic CIFAR-10; ms per step: "
+              "host clock between the per-step metric reads over steps "
+              "2-20 (the interval after step 10 holds the checkpoint and "
+              "the 64-image Euler-100 grid); seconds: the whole main() "
+              "call, data and model set-up included")
+    check(len(otcfm) == CFM_TRAIN_STEPS and len(icfm) == 5
+          and all(math.isfinite(l) for _, l in otcfm + icfm),
+          f"cfm_train: losses {losses} {icfm}")
+    check(dtypes == ["torch.float32"], f"cfm_train: parameters {dtypes}")
+    check(ckpts == ["ckpt_00000010.pt", "ckpt_00000020.pt"]
+          and saved["step"] == CFM_TRAIN_STEPS,
+          f"cfm_train: checkpoints {ckpts}")
+    check(tuple(grid.shape) == (64, 32, 32, 3) and last["nfe"] == 100
+          and bool(torch.isfinite(grid).all()) and grid.abs().max() <= 1.0,
+          f"cfm_train: grid {tuple(grid.shape)} nfe {last['nfe']}")
+
+
+def cfm_fid_phase(torch, card_info, out):
+    """`cli.compute_fid.main` on the cfm_train checkpoint: random_conv
+    features, 1024 images in batches of 512, by Euler-100 and by dopri5."""
+    from tpu_diffusion_torch.cli import compute_fid
+    common = ["--model", "otcfm", "--input_dir", out, "--features",
+              "random_conv", "--num_gen", "1024", "--batch_size_fid", "512"]
+    for method in ("euler", "dopri5"):  # dopri5 at the default tol 1e-5
+        torch.cuda.synchronize()
+        s0 = time.perf_counter()
+        res = compute_fid.main(common + ["--integration_method", method])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - s0
+        emit(card_info, phase="cfm_fid", method=method, seconds=seconds,
+             fid=res["fid"], mean_nfe=res["mean_nfe"],
+             dopri5_truncated=res.get("dopri5_truncated"),
+             tol=res.get("tol"), step=res["step"], num_gen=res["num_gen"],
+             peak_memory_gb=res["peak_memory_gb"],
+             fid_comparable_to_published=res[
+                 "fid_comparable_to_published"],
+             fid_note=res.get("fid_note"),
+             note="20 training steps: no quality claim; seconds: the whole "
+                  "main() call (the first computes the real-set "
+                  "statistics, the second reads them from its cache)")
+        check(math.isfinite(res["fid"]) and res["step"] == CFM_TRAIN_STEPS
+              and res["num_gen"] == 1024,
+              f"cfm_fid {method}: {res}")
+        if method == "euler":
+            check(res["mean_nfe"] == 100, f"cfm_fid euler: NFE {res}")
+        else:
+            check(res["mean_nfe"] > 6 and not res["dopri5_truncated"],
+                  f"cfm_fid dopri5: {res}")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1334,6 +1605,21 @@ def main():
     # --- DDPM training of cli.main at 64px ---------------------------------
     for name, n in train_phase(torch, card_info, dev).items():
         counts[name] += n
+
+    # --- LPIPS and FID in cli.main --mode eval at 64px ---------------------
+    counts["flash_attention_fwd"] += eval_metrics_phase(torch, card_info,
+                                                        dev)
+    torch.cuda.empty_cache()
+
+    # --- CIFAR-10 conditional flow matching: train, then FID ---------------
+    import shutil
+    import tempfile
+    out = tempfile.mkdtemp(prefix="chip_smoke_cfm_")
+    try:
+        cfm_train_phase(torch, card_info, out)
+        cfm_fid_phase(torch, card_info, out)
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
     for name, n in counts.items():
         check(n > 0, f"{name} was not launched on the main path")
 
@@ -1363,7 +1649,8 @@ def main():
                                 "four DDIM-100 runs",
         "flash_attention_fwd": "one full 64px UNet forward at batch 32 (5 "
                                "calls); launches: the five conditional "
-                               "sampling runs and the 20 training steps",
+                               "sampling runs, the 20 training steps and "
+                               "the eval_metrics run",
         "flash_attention_bwd": "one guidance gradient through the 64px UNet "
                                "at batch 32 (5 calls); launches: the "
                                "guidance run and the 20 training steps; "

@@ -153,13 +153,20 @@ def test_prior_sample_rides_the_none_condition():
     assert torch.isfinite(prior).all() and prior.abs().max() <= 1.0
 
 
-def test_main_refuses_what_is_not_ported(tmp_path):
-    # testing.lpips defaults to true; training's periodic eval needs it too
-    for mode in ("train", "eval"):
-        with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-            cli.main(["--mode", mode, "--device", "cpu", "--workdir",
-                      str(tmp_path)])
-    assert not list(tmp_path.iterdir())  # refused before anything is written
+def test_main_eval_runs_with_lpips_on_by_default(tmp_path):
+    """`cli.main --mode eval --device cpu` on the tiny config, with the
+    config's own testing.lpips=True (LPIPS per eval batch)."""
+    assert config.get_config("mnist,inpainting,amortized").testing.lpips
+    args = ["--config", "mnist,inpainting,amortized", "--mode", "eval",
+            "--device", "cpu", "--workdir", str(tmp_path)]
+    for o in EVAL_OVERRIDES + ["network.num_channels=16",
+                               "network.num_head_channels=16"]:
+        if not o.startswith("testing.lpips"):
+            args += ["--override", o]
+    results = cli.main(args)
+    assert np.isfinite(results["lpips"]) and results["lpips"] > 0
+    assert "fid" not in results
+    assert json.loads((tmp_path / "results.json").read_text()) == results
 
 
 TRAIN_OVERRIDES = EVAL_OVERRIDES + [

@@ -36,7 +36,9 @@ def test_port_has_modules():
                    "data/registry.py", "cli/main.py", "kernels/resblock.py",
                    "models/unet_infer.py", "core/ema.py", "train/trainer.py",
                    "train/actions.py", "train/writers.py",
-                   "train/checkpoint.py"):
+                   "train/checkpoint.py", "eval/fid.py", "eval/lpips.py",
+                   "eval/inception.py", "losses/cfm.py", "sampling/ode.py",
+                   "cli/train_cifar10.py", "cli/compute_fid.py"):
         assert f"tpu_diffusion_torch/{module}" in names
 
 
@@ -51,7 +53,9 @@ def test_no_jax_imports(path):
 def test_import_leaves_jax_unloaded():
     code = ("import sys, tpu_diffusion_torch, tpu_diffusion_torch.kernels."
             "build, tpu_diffusion_torch.cli.main, tpu_diffusion_torch.models."
-            "unet_infer, tpu_diffusion_torch.train.trainer\n"
+            "unet_infer, tpu_diffusion_torch.train.trainer, "
+            "tpu_diffusion_torch.cli.compute_fid, "
+            "tpu_diffusion_torch.eval.inception\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{sorted(FORBIDDEN)!r})\n"
             "assert not bad, bad\n")

@@ -7,9 +7,12 @@ weight converter, the DDIM samplers, and the conditional-generation path of
 amortized (plain and encoder-reuse), reconstruction-guidance and replacement
 ancestral samplers, MSE/PSNR/SSIM, the experiment config and the dataset
 registry; the fused-inference engine (`models/unet_infer.py`) with the
-whole-ResBlock kernel; and DDPM training (`losses/ddpm.py`, `core/ema.py`,
-`train/`) through `cli/main.py --mode train|all`. Hand-written Hopper
-kernels are in `kernels/`.
+whole-ResBlock kernel; DDPM training (`losses/ddpm.py`, `core/ema.py`,
+`train/`) through `cli/main.py --mode train|all`; LPIPS and FID
+(`eval/lpips.py`, `eval/fid.py`, `eval/inception.py`) in `run_eval`; and
+CIFAR-10 conditional flow matching (`losses/cfm.py`, `sampling/ode.py`,
+`UNetModelWrapper`, `cli/train_cifar10.py`, `cli/compute_fid.py`).
+Hand-written Hopper kernels are in `kernels/`.
 """
 
 from tpu_diffusion_torch.conditioning import (Amortized, HyperResolution,

@@ -14,13 +14,16 @@ steps; checkpoint, sample grid and periodic eval every num_steps / 10) and
 a final checkpoint under `<workdir>/ckpt/`. `--mode eval` restores the EMA
 parameters from there and samples conditionally over `testing.num_test`
 test images (1000 ancestral steps by default; the encoder-reuse sampler for
-amortized conditioning), writing MSE/PSNR/SSIM statistics to `results.json`
-under the versioned experiment directory
-`logs/<ds>_<cond>_<lik>/version_XX`. `--mode all` does both. Runs on the
-CUDA card unless `--device cpu`. Not ported yet, and raising when asked
-for: LPIPS and FID (ROADMAP A6) and the mesh (ROADMAP A10). With no
-checkpoint, `--mode eval` evaluates the model's random initialisation, as
-the JAX package does, and says so.
+amortized conditioning), writing MSE/PSNR/SSIM statistics and, with
+`testing.lpips` (the default), LPIPS per eval batch to `results.json` under
+the versioned experiment directory `logs/<ds>_<cond>_<lik>/version_XX`;
+`testing.fid` adds the FID of the eval samples against the train set's
+features (`testing.fid_features`), with the caveat fields of
+`eval/fid.py:fid_caveat`. The default LPIPS and FID features are random
+(fixed torch seeds): self-consistent only. `--mode all` does both. Runs on
+the CUDA card unless `--device cpu`. Not ported yet, and raising when asked
+for: the mesh (ROADMAP A10). With no checkpoint, `--mode eval` evaluates the
+model's random initialisation, as the JAX package does, and says so.
 """
 
 from __future__ import annotations
@@ -38,7 +41,11 @@ from tpu_diffusion_torch.conditioning.guidance import (Amortized,
                                                        get_conditioning)
 from tpu_diffusion_torch.conditioning.likelihoods import get_likelihood
 from tpu_diffusion_torch.core.schedules import DDPM
-from tpu_diffusion_torch.data.registry import get_dataset, infinite_batches
+from tpu_diffusion_torch.data.registry import (epoch_batches, get_dataset,
+                                               infinite_batches)
+from tpu_diffusion_torch.eval.fid import (compute_statistics, fid_caveat,
+                                          frechet_distance, make_feature_fn)
+from tpu_diffusion_torch.eval.lpips import PerceptualDistance
 from tpu_diffusion_torch.eval.metrics import eval_statistics
 from tpu_diffusion_torch.losses.ddpm import get_loss_function
 from tpu_diffusion_torch.models.unet import create_model, resolve_device
@@ -193,20 +200,30 @@ def make_samplers(config, parts):
     return cond_sample, prior_sample
 
 
-def _check_metrics(config) -> None:
-    if config.testing.lpips or config.testing.fid:
-        raise NotImplementedError(
-            "testing.lpips / testing.fid: LPIPS and FID are not ported yet "
-            "(ROADMAP A6); pass --override testing.lpips=false")
+_LPIPS_CACHE: dict = {}
+# real-set FID feature statistics, computed once per (dataset, features,
+# size, device) and reused by every periodic eval in the run
+_FID_REAL_CACHE: dict = {}
+
+
+def _get_lpips(device) -> PerceptualDistance:
+    """Memoized PerceptualDistance per device (its VGG pyramid is built
+    once per run)."""
+    key = str(device)
+    if key not in _LPIPS_CACHE:
+        _LPIPS_CACHE[key] = PerceptualDistance(device=device)
+    return _LPIPS_CACHE[key]
 
 
 def run_eval(config, parts, model, logdir: str, writer=None, step: int = 0,
              tag: str = "eval", cond_sample=None) -> dict:
-    """Conditional sampling over the test set, MSE/PSNR/SSIM statistics per
-    batch averaged over the batches, and results.json (main.py:261-314);
-    with a `writer`, the first batch's samples and the scalars too. The
-    condition, xT and the chain's noise come from one generator on the
-    model's device, seeded with `testing.seed`."""
+    """Conditional sampling over the test set, MSE/PSNR/SSIM (and, with
+    `testing.lpips`, LPIPS) per batch averaged over the batches, with
+    `testing.fid` the FID of the samples against the train set, and
+    results.json (main.py:261-314); with a `writer`, the first batch's
+    samples and the scalars too. The condition, xT and the chain's noise
+    come from one generator on the model's device, seeded with
+    `testing.seed`."""
     dsc = config.dataset
     lik = parts["likelihood"]
     if lik is None:
@@ -215,16 +232,17 @@ def run_eval(config, parts, model, logdir: str, writer=None, step: int = 0,
         with open(os.path.join(logdir, "results.json"), "w") as f:
             json.dump(results, f, indent=2)
         return results
-    _check_metrics(config)
     if cond_sample is None:
         cond_sample, _ = make_samplers(config, parts)
     device = next(model.parameters()).device
+    lpips_fn = _get_lpips(device) if config.testing.lpips else None
     test = get_dataset(dsc.name)(dsc.root, train=False)
     bs = config.testing.batch_size
     num_batches = max(config.testing.num_test // bs, 1)
     gen = torch.Generator(device=device).manual_seed(config.testing.seed)
     stats = []
     samples, gts = [], []
+    gen_for_fid = []
     n_eval = 0
     for b in range(num_batches):
         imgs = test.images[b * bs:(b + 1) * bs]
@@ -234,14 +252,44 @@ def run_eval(config, parts, model, logdir: str, writer=None, step: int = 0,
         condition = lik.sample(gen, imgs)
         xT = torch.randn(imgs.shape, generator=gen, device=device)
         x0 = cond_sample(model, xT, condition, gen)
-        stats.append({k: float(v) for k, v in
-                      eval_statistics(x0, imgs).items()})
+        batch_stats = {k: float(v) for k, v in
+                       eval_statistics(x0, imgs).items()}
+        if lpips_fn is not None:
+            batch_stats["lpips"] = float(torch.mean(lpips_fn(x0, imgs)))
+        stats.append(batch_stats)
         n_eval += len(imgs)
+        if config.testing.fid:
+            gen_for_fid.append(x0)
         if b == 0:
             samples, gts = x0.cpu().numpy(), imgs.cpu().numpy()
     results = {k: float(np.mean([s[k] for s in stats]))
                for k in (stats[0] if stats else {})}
     results["num_images"] = n_eval
+    if config.testing.fid and gen_for_fid:
+        # the metric loop's own samples are the fake side; the real-set
+        # statistics are a function of (dataset, features, size, device)
+        # and are computed once per run
+        ck = (dsc.name, dsc.root, config.testing.fid_features,
+              dsc.image_size, dsc.num_channels, str(device))
+        if ck not in _FID_REAL_CACHE:
+            feature_fn = make_feature_fn(config.testing.fid_features,
+                                         channels=dsc.num_channels,
+                                         device=device)
+            train_set = get_dataset(dsc.name)(dsc.root, train=True)
+            feats = [feature_fn(rb).cpu().numpy()
+                     for rb in epoch_batches(train_set, bs)]
+            _FID_REAL_CACHE[ck] = (
+                feature_fn, compute_statistics(np.concatenate(feats)),
+                getattr(train_set, "synthetic", False))
+        feature_fn, (mu_r, s_r), real_synthetic = _FID_REAL_CACHE[ck]
+        fake = np.concatenate([feature_fn(g).cpu().numpy()
+                               for g in gen_for_fid])
+        mu_f, s_f = compute_statistics(fake)
+        results["fid"] = frechet_distance(mu_r, s_r, mu_f, s_f)
+        results["fid_features"] = config.testing.fid_features
+        results.update(fid_caveat(config.testing.fid_features,
+                                  synthetic_data=real_synthetic
+                                  or getattr(test, "synthetic", False)))
     with open(os.path.join(logdir, "results.json"), "w") as f:
         json.dump(results, f, indent=2)
     if writer is not None and len(samples):
@@ -269,7 +317,6 @@ def main(argv: Optional[list] = None):
 
     config = get_config(args.config)
     apply_overrides(config, args.override)
-    _check_metrics(config)
     device = resolve_device(args.device)
     logdir = args.workdir or experiment_dir(config.logdir, args.config)
     os.makedirs(logdir, exist_ok=True)

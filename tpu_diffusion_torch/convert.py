@@ -1,4 +1,11 @@
-"""Weights from the JAX package's UNet param tree into the port's state_dict.
+"""Weights from the JAX package's flax trees into the port's state_dicts.
+
+The UNet (`unet_state_dict_from_flax`) and its CFM wrapper
+(`wrapper_state_dict_from_flax`: the same tree under `net/`), and the
+evaluation feature networks (`feature_state_dict_from_flax`, `load_flax_npz`:
+`eval/fid.py:RandomConvFeatures`, `eval/lpips.py:VGGFeaturePyramid`,
+`eval/inception.py:InceptionV3Features`, whose port modules carry the flax
+names, so a path maps to a key one to one).
 
 The flax tree (`tpu_diffusion/models/unet.py`, as nested dicts of numpy
 arrays) names its blocks as the port does (`enc_{l}_{i}`, `mid_attn`,
@@ -15,7 +22,8 @@ arrays) names its blocks as the port does (`enc_{l}_{i}`, `mid_attn`,
 
 Layouts: conv kernels HWIO -> OIHW, Dense [in, out] -> [out, in], the 1-D
 attention kernels (1, C, K) -> [K, C] (qkv channel order kept), norm
-`scale` -> `weight`.
+`scale` -> `weight`; Inception's BatchNorm `batch_stats` (`mean`, `var`)
+keep their names.
 """
 
 from __future__ import annotations
@@ -94,6 +102,61 @@ def unet_state_dict_from_flax(params: Mapping) -> dict:
     return out
 
 
+def wrapper_state_dict_from_flax(params: Mapping) -> dict:
+    """The flax tree of `models/unet.py:UNetModelWrapper` (the UNet under
+    `net/`, with or without the top "params" level) -> the port wrapper's
+    state_dict."""
+    if set(params) == {"params"}:
+        params = params["params"]
+    return {f"net.{k}": v
+            for k, v in unet_state_dict_from_flax(params["net"]).items()}
+
+
+def feature_state_dict_from_flax(variables: Mapping) -> dict:
+    """A feature network's flax variables ({"params": ..., "batch_stats":
+    ...}, or the params alone) -> {port state_dict key: float32 tensor}."""
+    out = {}
+    for path, value in _flatten(variables).items():
+        if path[0] in ("params", "batch_stats"):
+            path = path[1:]
+        *names, leaf = path
+        name, arr = ((leaf, value) if leaf in ("mean", "var")
+                     else _leaf(leaf, value))
+        out[".".join(names + [name])] = torch.from_numpy(
+            np.array(arr, np.float32, order="C"))
+    return out
+
+
+@torch.no_grad()
+def load_flax_npz(module: torch.nn.Module, arrays: Mapping) -> None:
+    """Load the `params/...` and `batch_stats/...` entries of an .npz of a
+    flax variable tree (path parts joined by "/", as the JAX package's
+    loaders read it) into `module`, one of the feature networks; other
+    entries are ignored. A missing entry raises KeyError, a shape mismatch
+    ValueError, as in the JAX package."""
+    tree: dict = {}
+    for key, arr in arrays.items():
+        parts = key.split("/")
+        if parts[0] not in ("params", "batch_stats"):
+            continue
+        node = tree
+        for part in parts[:-1]:
+            node = node.setdefault(part, {})
+        node[parts[-1]] = arr
+    loaded = feature_state_dict_from_flax(tree)
+    own = module.state_dict()
+    missing = sorted(set(own) - set(loaded))
+    if missing:
+        raise KeyError(f"weights missing {len(missing)} entries, e.g. "
+                       f"{missing[:3]}")
+    for key, value in own.items():
+        if tuple(loaded[key].shape) != tuple(value.shape):
+            raise ValueError(f"shape mismatch for {key}: "
+                             f"{tuple(loaded[key].shape)} vs "
+                             f"{tuple(value.shape)}")
+        value.copy_(loaded[key])
+
+
 @torch.no_grad()
 def load_flax_train_state(state, params: Mapping,
                           ema_params: Mapping | None = None, step: int = 0,
@@ -102,13 +165,16 @@ def load_flax_train_state(state, params: Mapping,
     arrays), its `step` and its EMA counter into the port's train state
     (`train/trainer.py:TrainState`), in place, so that both packages take
     the same step from the same state. The optimizer's moments are not
-    carried: the state must be fresh on both sides."""
+    carried: the state must be fresh on both sides. A tree with a `net`
+    level is a `UNetModelWrapper`'s."""
     if state.optimizer.count:
         raise ValueError("the optimizer has taken steps: its moments cannot "
                          "be carried over")
-    state.model.load_state_dict(unet_state_dict_from_flax(params))
-    ema = unet_state_dict_from_flax(params if ema_params is None
-                                    else ema_params)
+    tree = params.get("params", params)
+    convert = (wrapper_state_dict_from_flax if "net" in tree
+               else unet_state_dict_from_flax)
+    state.model.load_state_dict(convert(params))
+    ema = convert(params if ema_params is None else ema_params)
     for name, value in state.ema.params.items():
         value.copy_(ema[name])
     state.step = step

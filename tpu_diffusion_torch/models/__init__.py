@@ -1,3 +1,4 @@
-from tpu_diffusion_torch.models.unet import UNetModel, create_model
+from tpu_diffusion_torch.models.unet import (UNetModel, UNetModelWrapper,
+                                             create_model)
 
-__all__ = ["UNetModel", "create_model"]
+__all__ = ["UNetModel", "UNetModelWrapper", "create_model"]

@@ -1,7 +1,8 @@
 """Guided-diffusion style UNet in PyTorch.
 
 Counterpart of `tpu_diffusion/models/unet.py` (`ResBlock`, `AttentionBlock`,
-`Downsample`, `Upsample`, `UNetModel`, `create_model`, `attention_ds`).
+`Downsample`, `Upsample`, `UNetModel`, `create_model`, `attention_ds`, and
+the conditional-flow-matching velocity field `UNetModelWrapper`).
 The public layout is the JAX package's: `model(x_nhwc, t)` returns NHWC
 eps, and the encode/decode cache holds NHWC tensors. Internally activations
 are NCHW in `channels_last` memory (see `models/nn.py`). Submodules carry
@@ -207,7 +208,9 @@ class UNetModel(nn.Module):
     """The denoiser backbone: model(x_nhwc, t) -> [B, H, W, out_channels].
 
     `attn_decisions` maps each attention block's name to the implementation
-    it ran, its token count and head count, as of its last call.
+    it ran, its token count and head count, as of its last call. The
+    timestep is embedded as `t * time_scale` (1000 for the CFM wrappers,
+    whose t is in [0, 1]).
     """
 
     def __init__(self, in_channels: int, model_channels: int,
@@ -220,7 +223,7 @@ class UNetModel(nn.Module):
                  resblock_updown: bool = False,
                  attention_impl: str = "fused", dtype=torch.bfloat16,
                  norm_dtype=None, norm_impl: str = "plain", device="cuda",
-                 dropout: float = 0.0):
+                 dropout: float = 0.0, time_scale: float = 1.0):
         super().__init__()
         if norm_impl not in NORM_IMPLS:
             raise ValueError(f"norm_impl must be one of {NORM_IMPLS}, got "
@@ -232,6 +235,7 @@ class UNetModel(nn.Module):
         self.channel_mult = tuple(channel_mult)
         self.resblock_updown = resblock_updown
         self.dtype = dtype
+        self.time_scale = time_scale
         self.attn_decisions: dict = {}
         ch0 = model_channels
         time_dim = 4 * ch0
@@ -316,7 +320,7 @@ class UNetModel(nn.Module):
         ch0 = self.model_channels
         t = torch.as_tensor(t, dtype=torch.float32, device=x.device)
         t = torch.broadcast_to(t, (x.shape[0],))
-        emb = timestep_embedding(t, ch0)
+        emb = timestep_embedding(t * self.time_scale, ch0)
         emb = self.time_dense_0(emb.to(self.dtype))
         emb = self.time_dense_1(F.silu(emb))
 
@@ -400,9 +404,9 @@ def create_model(image_size: int, num_channels: int, num_res_blocks: int,
                  resblock_updown: bool = False, learn_sigma: bool = False,
                  attention_impl: str = "fused", dtype=torch.bfloat16,
                  norm_dtype=None, norm_impl: str = "plain",
-                 device="cuda") -> UNetModel:
-    """The JAX `create_model` signature (less `use_checkpoint`, `sp_mesh`
-    and `time_scale`); what the port does not implement raises."""
+                 device="cuda", time_scale: float = 1.0) -> UNetModel:
+    """The JAX `create_model` signature (less `use_checkpoint` and
+    `sp_mesh`); what the port does not implement raises."""
     if class_cond:
         raise NotImplementedError(
             "class_cond=True: the class embedding is not ported yet "
@@ -425,7 +429,59 @@ def create_model(image_size: int, num_channels: int, num_res_blocks: int,
         use_scale_shift_norm=use_scale_shift_norm,
         resblock_updown=resblock_updown, attention_impl=attention_impl,
         dtype=dtype, norm_dtype=norm_dtype, norm_impl=norm_impl,
-        device=device, dropout=dropout)
+        device=device, dropout=dropout, time_scale=time_scale)
+
+
+# ---------------------------------------------------------------------------
+# torchcfm-style wrappers
+# ---------------------------------------------------------------------------
+
+
+def _cfm_backbone(dim: Tuple[int, int, int], num_channels: int,
+                  in_channels: int, num_res_blocks: int = 2,
+                  channel_mult=None, num_heads: int = 4,
+                  attention_resolutions: str = "16", dropout: float = 0.0,
+                  num_classes: int | None = None,
+                  attention_impl: str = "dense", dtype=torch.bfloat16,
+                  device="cuda") -> UNetModel:
+    h, w, c = dim
+    return create_model(
+        image_size=h, num_channels=num_channels,
+        num_res_blocks=num_res_blocks, in_channels=in_channels,
+        out_channels=c, channel_mult=channel_mult or "",
+        num_heads=num_heads, attention_resolutions=attention_resolutions,
+        dropout=dropout, class_cond=num_classes is not None,
+        num_classes=num_classes, use_scale_shift_norm=True,
+        attention_impl=attention_impl, dtype=dtype, device=device,
+        time_scale=1000.0)  # torchcfm embeds t * 1000
+
+
+class UNetModelWrapper(nn.Module):
+    """torchcfm `UNetModelWrapper`: the velocity field v(t, x) -> NHWC.
+
+    `dim` is (H, W, C), NHWC as in the JAX package. The backbone (`net`,
+    so the JAX tree's `net/` prefix maps by name) has FiLM, embeds
+    t * 1000, computes in `dtype` with fp32 parameters. `attention_impl`
+    takes the port's names ("dense" is the JAX default "xla"; "auto" is
+    dense below 1024 tokens). Class labels (`num_classes`) are not ported
+    yet (ROADMAP A8)."""
+
+    def __init__(self, dim: Tuple[int, int, int], num_channels: int = 128,
+                 num_res_blocks: int = 2, channel_mult=None,
+                 num_heads: int = 4, attention_resolutions: str = "16",
+                 dropout: float = 0.0, num_classes: int | None = None,
+                 attention_impl: str = "dense", dtype=torch.bfloat16,
+                 device="cuda"):
+        super().__init__()
+        self.net = _cfm_backbone(dim, num_channels, dim[2], num_res_blocks,
+                                 channel_mult, num_heads,
+                                 attention_resolutions, dropout, num_classes,
+                                 attention_impl, dtype, device)
+
+    def forward(self, t, x: torch.Tensor,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        """`generator` draws the dropout masks in `train()` mode."""
+        return self.net(x, t, generator=generator)
 
 
 @torch.no_grad()

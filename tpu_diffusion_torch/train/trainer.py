@@ -151,8 +151,9 @@ class Trainer:
     """fit() = feed batches to the step + fire periodic callbacks.
 
     Callbacks receive (step, state=..., metrics=...), as `PeriodicCallback`
-    expects. `batches` yields numpy arrays or tensors; they are moved to the
-    model's device.
+    expects. `batches` yields numpy arrays or tensors, or tuples of them
+    (the (x0, x1) pairs of `losses.cfm.host_ot_pairs`); they are moved to
+    the model's device.
     """
 
     def __init__(self, train_step: Callable, state: TrainState,
@@ -170,7 +171,12 @@ class Trainer:
         t0 = time.monotonic()
         step0 = self.state.step
         for local_step in range(num_steps):
-            batch = torch.as_tensor(next(self._batches)).to(self._device)
+            batch = next(self._batches)
+            if isinstance(batch, tuple):
+                batch = tuple(torch.as_tensor(b).to(self._device)
+                              for b in batch)
+            else:
+                batch = torch.as_tensor(batch).to(self._device)
             self.state, metrics = self._step_fn(self.state, batch)
             step = step0 + local_step + 1
             # The metrics come to the host (a device synchronisation) only
