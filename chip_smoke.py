@@ -54,8 +54,10 @@ batch 32, random weights from seed 0):
            with the attention decision log; one forward's device and eager
            time;
   flash_kernel  the flash forward (o, lse) and backward (dq, dk, dv)
-           kernels against their plain versions at the path's shape
-           [128, 1024, 64] bf16, fp32 cases, and in bf16 an uneven T, one
+           kernels against their plain versions at the paths' shapes
+           [128, 1024, 64] (this UNet) and [32, 1024, 64] (the SR256
+           wrapper below, batch 8, its calls captured from one forward of
+           it) bf16, fp32 cases, and in bf16 an uneven T, one
            tile (T=64), d=32, d=128, and the forward's TMA / `wgmma` route at
            T=128 and T=2048; the forward's route; whether two calls on the
            same inputs agree bitwise (the forward always; the backward sums
@@ -100,6 +102,29 @@ CIFAR-10 conditional flow matching (`cli/train_cifar10.py`,
   cfm_fid  `compute_fid.main` on that checkpoint, random_conv features,
            1024 images in batches of 512, by Euler-100 and by dopri5: FID,
            NFE, dopri5_truncated and the seconds taken.
+The CFM conditional CLIs (`cli/train_cfm_conditional.py`,
+`cli/train_conditional_mnist.py`; synthetic data) and the SDE samplers:
+  cfm_cond_sr256  4x super-resolution on synthetic256 at full width (128
+           channels, (1,1,2,2,4,4), attention at 32/16/8 with 4 heads; the
+           five 32x32 blocks run the flash kernels at T=1024, d=64), bf16
+           forward, fp32 parameters, batch 8, 20 steps (warmup cut to 5),
+           then one eval batch of 8 by Euler-20: median ms per step over
+           steps 2-20, peak memory, the parameter count held to the JAX
+           model's (SR256_PARAMS), losses and eval metrics finite, 5 flash
+           forward and 5 backward launches per step and 5 forward per eval
+           NFE, the checkpoint read back equal;
+  cfm_cond_64  weighted inpainting on flowers at its defaults (64px, 128
+           channels, attention at 16x16: dense, no kernel), batch 32, 10
+           steps, one eval batch of 8 by dopri5: ms per step, NFE, whether
+           dopri5 finished;
+  cond_mnist  `train_conditional_mnist.main` for cfm, otcfm and sf2m at 32
+           channels and batch 128, 20 steps each, then the 10x8 class grid
+           (Euler-100, the SDE for sf2m): ms per step, the class
+           consistency fields, the grid finite in [-1, 1];
+  sde      Euler-Maruyama, the probability flow and predictor-corrector on
+           the card over the exact score of a Gaussian
+           (`core/analytic.py`): the recovered mean and spread within the
+           JAX test's tolerances.
 Then the kernel table line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Any failure exits nonzero before that line.
 Needs one CUDA card; imports nothing of JAX.
@@ -135,7 +160,10 @@ BENCH_MODEL = dict(image_size=32, num_channels=128, num_res_blocks=2,
 # what the two paths give the attention kernels per forward (checked against
 # the models' own calls in the full run): {call shape: calls}
 ATTN_PATH_SHAPES = {((BATCH, 256, 768), 4): 5, ((BATCH, 16, 768), 4): 1}
-FLASH_PATH_SHAPES = {(128, 1024, 64): 5}
+FLASH_PATH_SHAPES = {(128, 1024, 64): 5, (32, 1024, 64): 5}
+# the synthetic256 4x super-resolution wrapper's parameter count, the JAX
+# package's (tests/test_torch_cfm_conditional.py takes it by jax.eval_shape)
+SR256_PARAMS = 125375107
 # the GroupNorm calls of one CIFAR forward with norm_impl="fused":
 # {(x shape, groups, FiLM, act): calls}
 GN_PATH_SHAPES = {
@@ -789,6 +817,45 @@ def compare(torch, got, want, what):
                     "output by O(1)"), ok
 
 
+def flash_shapes(net, batch):
+    """{(batch * heads, T, d): calls} of the flash blocks in `net`'s last
+    forward, from its decision log."""
+    shapes = {}
+    for n, d in net.attn_decisions.items():
+        if d["impl"] == "flash":
+            c = getattr(net, n).qkv.in_features
+            key = (batch * d["heads"], d["tokens"], c // d["heads"])
+            shapes[key] = shapes.get(key, 0) + 1
+    return shapes
+
+
+def sr256_flash_shapes(torch, dev):
+    """The flash calls of one forward of the synthetic256 super-resolution
+    wrapper (`train_cfm_conditional.build`, full width, batch SR_BATCH,
+    random weights): its 32x32 blocks on the flash path, the others dense."""
+    from tpu_diffusion_torch.cli import train_cfm_conditional as cc
+    from tpu_diffusion_torch.models import unet
+    model, (h, w, c) = cc.build("superres", "synthetic256", device=dev)
+    unet.randomize_(model, torch.Generator().manual_seed(SEED)).eval()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    x = torch.randn((SR_BATCH, h, w, c), generator=gen, device=dev)
+    low = torch.randn((SR_BATCH, h // 4, w // 4, c), generator=gen,
+                      device=dev)
+    with torch.no_grad():
+        model(torch.full((SR_BATCH,), 0.5, device=dev), x, low)
+    decisions = model.net.attn_decisions
+    flash = sorted(n for n, d in decisions.items() if d["impl"] == "flash")
+    check(flash == ["dec_attn_3_0", "dec_attn_3_1", "dec_attn_3_2",
+                    "enc_attn_3_0", "enc_attn_3_1"]
+          and all(decisions[n]["tokens"] == 1024 for n in flash)
+          and {d["impl"] for d in decisions.values()} == {"flash", "dense"},
+          f"the SR256 wrapper's attention decisions {decisions}")
+    shapes = flash_shapes(model.net, SR_BATCH)
+    del model
+    torch.cuda.empty_cache()
+    return shapes
+
+
 def flash_blocks(model):
     """(flash blocks in the encoder, in middle + decoder), from the decision
     log of the model's last full forward."""
@@ -824,7 +891,6 @@ def conditional_phase(torch, F, card_info, dev):
     t = torch.full((COND_BATCH,), 0.5, device=dev)
 
     # --- full-width forward: kernels against plain versions -------------
-    path_shapes = {}
     for name, (mk, mp, lik) in {
             "amortized": (amort, amort_plain, parts_a["likelihood"]),
             "unconditional": (uncond, uncond_plain, None)}.items():
@@ -855,14 +921,14 @@ def conditional_phase(torch, F, card_info, dev):
               and all(mk.attn_decisions[n]["tokens"] == 1024 for n in flash)
               and set(decisions.values()) == {"flash", "dense"},
               f"cond_forward {name}: attention decisions {decisions}")
-        if name == "amortized":  # both models make the same flash calls
-            for n in flash:
-                d = mk.attn_decisions[n]
-                c = getattr(mk, n).qkv.in_features
-                key = (COND_BATCH * d["heads"], d["tokens"], c // d["heads"])
-                path_shapes[key] = path_shapes.get(key, 0) + 1
-    check(path_shapes == FLASH_PATH_SHAPES,
+        # both models make the same flash calls
+        path_shapes = flash_shapes(mk, COND_BATCH)
+    check(path_shapes == {(128, 1024, 64): 5},
           f"the 64px UNet's flash calls {path_shapes}")
+    path_shapes.update(sr256_flash_shapes(torch, dev))
+    check(path_shapes == FLASH_PATH_SHAPES,
+          f"the 64px UNet's and the SR256 wrapper's flash calls "
+          f"{path_shapes}")
     totals = flash_kernel_phase(torch, F, card_info, path_shapes, dev)
 
     # --- guidance gradient: kernels against plain versions ---------------
@@ -1370,6 +1436,41 @@ def eval_metrics_phase(torch, card_info, dev):
 CFM_TRAIN_STEPS = 20
 
 
+class TimedTrainer:
+    """Swap `module.Trainer` for a subclass whose `fit` reads the metrics
+    after every step (a device synchronisation) and stamps the host clock
+    and the flash kernels' launch counts; `trace` holds (seconds, loss,
+    flash forward launches, flash backward launches) per step."""
+
+    def __init__(self, module):
+        from tpu_diffusion_torch.kernels import attention
+        self.module, self.real, self.trace = module, module.Trainer, []
+        trace = self.trace
+
+        class Timed(module.Trainer):
+            def fit(self, num_steps, metrics_hook=None):
+                return super().fit(num_steps, metrics_hook=lambda step, m: (
+                    trace.append((time.perf_counter(), m["loss"],
+                                  attention.flash_fwd_launches,
+                                  attention.flash_bwd_launches))))
+
+        self.timed = Timed
+
+    def __enter__(self):
+        self.module.Trainer = self.timed
+        return self.trace
+
+    def __exit__(self, *exc):
+        self.module.Trainer = self.real
+
+
+def step_times(t0, trace):
+    """(first step's ms, the later steps' ms sorted)."""
+    stamps = [t0] + [s for s, *_ in trace]
+    ms = [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])]
+    return ms[0], sorted(ms[1:])
+
+
 def cfm_train_phase(torch, card_info, out):
     """CIFAR-10 OT-CFM training through `cli.train_cifar10.main` at the
     config's full width and batch (synthetic CIFAR-10), then 5 I-CFM
@@ -1377,18 +1478,8 @@ def cfm_train_phase(torch, card_info, out):
     import os
 
     from tpu_diffusion_torch.cli import train_cifar10 as tc
-    trace = []
-
-    class TimedTrainer(tc.Trainer):
-        def fit(self, num_steps, metrics_hook=None):
-            # reading the metrics synchronises the device once per step
-            return super().fit(num_steps, metrics_hook=lambda step, m: (
-                trace.append((time.perf_counter(), m["loss"]))))
-
     common = ["--output_dir", out, "--warmup", "5"]
-    real_trainer = tc.Trainer
-    tc.Trainer = TimedTrainer
-    try:
+    with TimedTrainer(tc) as trace:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         s0 = time.perf_counter()
@@ -1402,11 +1493,8 @@ def cfm_train_phase(torch, card_info, out):
         tc.main(["--model", "icfm", "--total_steps", "5", "--save_step",
                  "1000"] + common)
         icfm = list(trace)
-    finally:
-        tc.Trainer = real_trainer
-    step_ms = sorted((b - a) * 1e3 for (a, _), (b, _) in
-                     zip(otcfm, otcfm[1:]))
-    losses = [l for _, l in otcfm]
+    _, step_ms = step_times(s0, otcfm)
+    losses = [l for _, l, _, _ in otcfm]
     ckpt_dir = os.path.join(out, "otcfm", "ckpt")
     ckpts = sorted(os.listdir(ckpt_dir))
     saved = torch.load(os.path.join(ckpt_dir, ckpts[-1]), map_location="cpu",
@@ -1423,7 +1511,7 @@ def cfm_train_phase(torch, card_info, out):
          checkpoints=ckpts, grid_shape=list(grid.shape),
          grid_nfe=last["nfe"], grid_min=grid.min().item(),
          grid_max=grid.max().item(),
-         icfm_losses=[l for _, l in icfm],
+         icfm_losses=[l for _, l, _, _ in icfm],
          note="128 channels, (1,2,2,2), attention at 16x16 with 4 heads, "
               "dropout 0.1, bf16 forward, fp32 parameters; exact OT pairs "
               "on the host (prefetch 2); synthetic CIFAR-10; ms per step: "
@@ -1432,7 +1520,7 @@ def cfm_train_phase(torch, card_info, out):
               "the 64-image Euler-100 grid); seconds: the whole main() "
               "call, data and model set-up included")
     check(len(otcfm) == CFM_TRAIN_STEPS and len(icfm) == 5
-          and all(math.isfinite(l) for _, l in otcfm + icfm),
+          and all(math.isfinite(l) for _, l, _, _ in otcfm + icfm),
           f"cfm_train: losses {losses} {icfm}")
     check(dtypes == ["torch.float32"], f"cfm_train: parameters {dtypes}")
     check(ckpts == ["ckpt_00000010.pt", "ckpt_00000020.pt"]
@@ -1474,6 +1562,316 @@ def cfm_fid_phase(torch, card_info, out):
         else:
             check(res["mean_nfe"] > 6 and not res["dopri5_truncated"],
                   f"cfm_fid dopri5: {res}")
+
+
+SR_BATCH = 8
+SR_STEPS = 20
+SR_EVAL_STEPS = 20
+
+
+# kernel classes of a step's device time, by kernel name (first match)
+KERNEL_CLASSES = [
+    ("flash", ("flash_",)),
+    ("groupnorm", ("Moments", "GroupNorm", "group_norm", "FusedParams",
+                   "InternalGradients", "GammaBeta")),
+    ("optimizer_ema", ("multi_tensor", "foreach", "adam", "Adam")),
+    ("conv_gemm", ("gemm", "conv", "xmma", "cutlass", "cudnn", "fprop",
+                   "dgrad", "wgrad", "sm90", "sm80")),
+]
+
+
+def profile_steps(torch, step, steps=3):
+    """Device time by kernel class and the top kernels over `steps` calls
+    of `step()` under `torch.profiler` (one warm-up call first), in ms per
+    call, and the host ms per call under the profiler (which adds its own
+    host overhead). User annotations on the device timeline (such as
+    `Optimizer.step#Adam.step`) span kernels counted on their own, and are
+    left out."""
+    from torch.profiler import ProfilerActivity, profile
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_name = {}
+    for e in prof.events():
+        if (e.device_type == torch.autograd.DeviceType.CUDA
+                and not getattr(e, "is_user_annotation", False)):
+            by_name[e.name] = (by_name.get(e.name, 0.0)
+                               + e.time_range.elapsed_us() / 1e3 / steps)
+    classes = {}
+    for name, ms in by_name.items():
+        cls = next((c for c, keys in KERNEL_CLASSES
+                    if any(k in name for k in keys)), "elementwise_other")
+        classes[cls] = classes.get(cls, 0.0) + ms
+    device_ms = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    return {"device_ms_per_step": device_ms,
+            "profiled_host_ms_per_step": wall_ms / steps,
+            "device_ms_by_class": classes,
+            "top_kernels_ms": [[n[:90], ms] for n, ms in top]}
+
+
+def cfm_cond_sr256_phase(torch, card_info, out):
+    """`train_cfm_conditional.main --task superres --dataset synthetic256`
+    at full width, batch SR_BATCH: 20 steps, then one eval batch by
+    Euler-20. Returns the flash kernels' launches."""
+    import os
+
+    from tpu_diffusion_torch.cli import train_cfm_conditional as cc
+    from tpu_diffusion_torch.kernels import attention
+    from tpu_diffusion_torch.models import unet
+    args = ["--task", "superres", "--dataset", "synthetic256", "--model",
+            "icfm", "--batch_size", str(SR_BATCH), "--num_steps",
+            str(SR_STEPS), "--warmup", "5", "--eval_batches", "1",
+            "--eval_batch_size", str(SR_BATCH), "--eval_method", "euler",
+            "--eval_ode_steps", str(SR_EVAL_STEPS), "--eval_every_div", "0",
+            "--output_dir", out]
+    with TimedTrainer(cc) as trace:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        attention.flash_fwd_launches = 0
+        attention.flash_bwd_launches = 0
+        t0 = time.perf_counter()
+        res = cc.main(args)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    launches = {"flash_attention_fwd": attention.flash_fwd_launches,
+                "flash_attention_bwd": attention.flash_bwd_launches}
+    first_ms, later = step_times(t0, trace)
+    losses = [l for _, l, _, _ in trace]
+    per_step = [(f1 - f0, b1 - b0) for (_, _, f0, b0), (_, _, f1, b1)
+                in zip([(0, 0, 0, 0)] + trace, trace)]
+    train_f, train_b = trace[-1][2], trace[-1][3]
+    eval_f = launches["flash_attention_fwd"] - train_f
+    eval_b = launches["flash_attention_bwd"] - train_b
+    results = res["results"]
+    state = res["state"]
+    # the checkpoint of the final eval, read back
+    path = os.path.join(res["output_dir"], "ckpt",
+                        f"ckpt_{SR_STEPS:08d}.pt")
+    saved = torch.load(path, map_location="cpu", weights_only=True)
+    same = saved["step"] == SR_STEPS and all(
+        torch.equal(saved[tree][k], v.detach().cpu())
+        for tree, params in (("params", state.params),
+                             ("ema", state.ema.params))
+        for k, v in params.items())
+    dtypes = sorted({str(v.dtype) for v in state.params.values()})
+    # reckoned activations: every leaf module's output bytes in one forward
+    model = state.model
+    dev = next(model.parameters()).device
+    total = [0]
+
+    def count(_m, _a, out):
+        total[0] += out.numel() * out.element_size()
+
+    hooks = [m.register_forward_hook(count) for m in model.modules()
+             if not list(m.children())]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    x = torch.randn((SR_BATCH, 256, 256, 3), generator=gen, device=dev)
+    with torch.no_grad():
+        model(torch.full((SR_BATCH,), 0.5, device=dev), x, x[:, ::4, ::4])
+    for h in hooks:
+        h.remove()
+    # where a step's device time goes: the CLI's own loss and train step on
+    # the trained state, one fixed batch of synthetic256 images
+    from tpu_diffusion_torch.losses.cfm import get_matcher
+    from tpu_diffusion_torch.train.trainer import make_train_step
+    loss_fn = cc.make_loss_fn(
+        get_matcher("icfm", sigma=0.0),
+        cc.make_condition_fn("superres", (256, 256, 3), 20, -2.0),
+        "superres", False, -2.0)
+    train_step = make_train_step(loss_fn, ema_decay=0.9999)
+    batch = x.clamp(-1, 1)
+    breakdown = profile_steps(torch, lambda: train_step(state, batch))
+    # the device's busy share of an unprofiled step
+    breakdown["device_share_of_median_step"] = (
+        breakdown["device_ms_per_step"] / later[len(later) // 2])
+    emit(card_info, phase="cfm_cond_sr256", task="superres",
+         dataset="synthetic256", batch=SR_BATCH, steps=SR_STEPS,
+         seconds=seconds, first_step_ms=first_ms,
+         ms_per_step_median=later[len(later) // 2],
+         ms_per_step_min=later[0], ms_per_step_max=later[-1],
+         peak_memory_gb=peak, n_params=res["n_params"],
+         n_params_jax=SR256_PARAMS, param_dtypes=dtypes,
+         compute_dtype=str(model.net.dtype),
+         activation_bytes_per_forward=total[0],
+         loss_first=losses[0], loss_last=losses[-1], losses=losses,
+         eval=results, eval_method=f"euler-{SR_EVAL_STEPS}",
+         flash_fwd_launches_train=train_f, flash_bwd_launches_train=train_b,
+         flash_fwd_launches_eval=eval_f, flash_bwd_launches_eval=eval_b,
+         checkpoint_equal=same, step_profile=breakdown,
+         note="128 channels, (1,1,2,2,4,4), attention at 32/16/8 with 4 "
+              "heads (the 32x32 blocks: T=1024, d=64, the flash kernels), "
+              "bf16 forward, fp32 parameters and GroupNorm, warmup cut "
+              "from 500 to 5; synthetic 256px images; ms per step: host "
+              "clock between the per-step metric reads over steps 2-20; "
+              "activation_bytes_per_forward: every leaf module's output "
+              "in one forward at this batch; step_profile: three more "
+              "steps under torch.profiler (device ms per step by kernel "
+              "class; the device's share of the median step above); "
+              "seconds: the whole "
+              "main() call, data and model set-up included; random "
+              "weights and 20 steps: no quality claim")
+    check(res["n_params"] == SR256_PARAMS,
+          f"cfm_cond_sr256: {res['n_params']} parameters, the JAX model "
+          f"has {SR256_PARAMS}")
+    check(len(losses) == SR_STEPS and all(math.isfinite(l) for l in losses),
+          f"cfm_cond_sr256: losses {losses}")
+    check(results["num_batches"] == 1 and results["nfe"] == SR_EVAL_STEPS
+          and all(math.isfinite(results[k])
+                  for k in ("mse", "psnr", "ssim", "nfe")),
+          f"cfm_cond_sr256: eval {results}")
+    check(all(d == (5, 5) for d in per_step),
+          f"cfm_cond_sr256: flash launches per step {per_step}")
+    check((eval_f, eval_b) == (5 * SR_EVAL_STEPS, 0),
+          f"cfm_cond_sr256: eval flash launches {(eval_f, eval_b)}")
+    check(dtypes == ["torch.float32"] and model.net.dtype == torch.bfloat16,
+          f"cfm_cond_sr256: parameter types {dtypes}")
+    check(same, "cfm_cond_sr256: the checkpoint read back differs")
+    del res, state, model, saved
+    torch.cuda.empty_cache()
+    return launches
+
+
+def cfm_cond_64_phase(torch, card_info, out):
+    """`train_cfm_conditional.main --task inpaint --weighted_loss` on flowers
+    at its defaults (64px, 128 channels, attention at 16x16: T=256, dense,
+    no kernel on this path), batch 32, 10 steps, one eval batch of 8 by
+    dopri5."""
+    from tpu_diffusion_torch.cli import train_cfm_conditional as cc
+    from tpu_diffusion_torch.kernels import attention
+    from tpu_diffusion_torch.sampling.ode import dopri5_truncated
+    steps = 10
+    args = ["--task", "inpaint", "--weighted_loss", "--dataset", "flowers",
+            "--batch_size", "32", "--num_steps", str(steps),
+            "--eval_batches", "1", "--eval_batch_size", "8",
+            "--eval_method", "dopri5", "--eval_every_div", "0",
+            "--output_dir", out]
+    with TimedTrainer(cc) as trace:
+        torch.cuda.synchronize()
+        attention.flash_fwd_launches = 0
+        attention.flash_bwd_launches = 0
+        t0 = time.perf_counter()
+        res = cc.main(args)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    first_ms, later = step_times(t0, trace)
+    results = res["results"]
+    truncated = dopri5_truncated(int(results["nfe"]), 1000)
+    launches = (attention.flash_fwd_launches, attention.flash_bwd_launches)
+    emit(card_info, phase="cfm_cond_64", task="inpaint", weighted_loss=True,
+         dataset="flowers", batch=32, steps=steps, seconds=seconds,
+         first_step_ms=first_ms, ms_per_step_median=later[len(later) // 2],
+         ms_per_step_min=later[0], ms_per_step_max=later[-1],
+         n_params=res["n_params"], losses=[l for _, l, _, _ in trace],
+         eval=results, eval_method="dopri5 (rtol = atol = 1e-5)",
+         dopri5_finished=not truncated, flash_launches=list(launches),
+         kernels_on_path="none: attention only at 16x16 (T=256), dense; "
+                         "GroupNorm plain",
+         note="ms per step: host clock between the per-step metric reads "
+              "over steps 2-10; warmup 500 (the default), so 10 steps "
+              "barely move the model: no quality claim")
+    check(all(math.isfinite(l) for _, l, _, _ in trace)
+          and len(trace) == steps, "cfm_cond_64: losses")
+    check(results["num_batches"] == 1
+          and all(math.isfinite(results[k])
+                  for k in ("mse", "psnr", "ssim", "nfe"))
+          and results["nfe"] > 6 and not truncated,
+          f"cfm_cond_64: eval {results}")
+    check(launches == (0, 0), f"cfm_cond_64: flash launches {launches}")
+    del res
+    torch.cuda.empty_cache()
+
+
+def cond_mnist_phase(torch, card_info, out):
+    """`train_conditional_mnist.main` for cfm, otcfm and sf2m at the default
+    32 channels and batch 128: 20 steps each, then the 10x8 class grid
+    (Euler-100, or the SDE for sf2m)."""
+    from tpu_diffusion_torch.cli import train_conditional_mnist as tcm
+    steps = 20
+    for variant in ("cfm", "otcfm", "sf2m"):
+        with TimedTrainer(tcm) as trace:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            last = tcm.main(["--variant", variant, "--num_steps", str(steps),
+                             "--save_every", "1000", "--output_dir", out])
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+        first_ms, later = step_times(t0, trace)
+        grid = last["grid"]
+        n_params = sum(v.numel() for v in last["state"].params.values())
+        emit(card_info, phase="cond_mnist", variant=variant, batch=128,
+             steps=steps, seconds=seconds, first_step_ms=first_ms,
+             ms_per_step_median=later[len(later) // 2],
+             ms_per_step_min=later[0], ms_per_step_max=later[-1],
+             n_params=n_params, losses=[l for _, l, _, _ in trace],
+             grid_shape=list(grid.shape), grid_min=grid.min().item(),
+             grid_max=grid.max().item(),
+             sampler="sde-100" if variant == "sf2m" else "euler-100",
+             class_consistency=last["class_trend"][-1],
+             note="32 channels, attention at 14x14 (T=196, dense; no kernel "
+                  "on this path), 10 classes; synthetic MNIST, 20 steps at "
+                  "warmup 500: no quality claim; ms per step: host clock "
+                  "between the per-step metric reads over steps 2-20")
+        check(len(trace) == steps
+              and all(math.isfinite(l) for _, l, _, _ in trace),
+              f"cond_mnist {variant}: losses")
+        check(tuple(grid.shape) == (80, 28, 28, 1)
+              and bool(torch.isfinite(grid).all())
+              and grid.abs().max() <= 1.0,
+              f"cond_mnist {variant}: grid {tuple(grid.shape)}")
+        del last
+    torch.cuda.empty_cache()
+
+
+def sde_phase(torch, card_info, dev):
+    """`sampling/sde.py`'s three samplers on the card over the exact score of
+    p0 = N(0.8, 0.05^2) (`core/analytic.py`), recovering p0's mean and
+    spread to the JAX test's tolerances
+    (tests/test_sde_sweep_conditional.py:35-60)."""
+    from tpu_diffusion_torch.core.analytic import marginal_score
+    from tpu_diffusion_torch.core.schedules import VPSDE
+    from tpu_diffusion_torch.sampling import sde
+    vp = VPSDE()
+    mu0, s0 = 0.8, 0.05
+
+    def score(x, t):
+        return marginal_score(vp, mu0, s0**2, x, t[:, None])
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    runs = [
+        ("euler_maruyama", 4096, 500, 0.05, 0.05, lambda xT: sde.euler_maruyama(
+            gen, score, vp, xT, 500, return_nan_flag=True)),
+        ("probability_flow", 2048, 200, 0.05, None, lambda xT: (
+            sde.probability_flow(score, vp, xT, 200), None)),
+        ("predictor_corrector", 1024, 200, 0.1, None,
+         lambda xT: sde.predictor_corrector(
+             gen, score, vp, xT, 200, n_corrector=2,
+             return_nan_flag=True)),
+    ]
+    for name, n, steps, mean_tol, std_tol, run in runs:
+        xT = torch.randn((n, 1), generator=gen, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        x0, bad = run(xT)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        mean, std = x0.mean().item(), x0.std().item()
+        emit(card_info, phase="sde", sampler=name, samples=n, steps=steps,
+             seconds=seconds, mean=mean, std=std, want_mean=mu0,
+             want_std=s0, mean_tol=mean_tol, std_tol=std_tol,
+             nan_flag=None if bad is None else bool(bad),
+             device=str(x0.device))
+        check(x0.is_cuda and abs(mean - mu0) < mean_tol
+              and (std_tol is None or abs(std - s0) < std_tol)
+              and (bad is None or not bool(bad)),
+              f"sde {name}: mean {mean} std {std} nan {bad}")
 
 
 def main():
@@ -1618,6 +2016,13 @@ def main():
     try:
         cfm_train_phase(torch, card_info, out)
         cfm_fid_phase(torch, card_info, out)
+        torch.cuda.empty_cache()
+        # --- the CFM conditional CLIs and the SDE samplers ------------------
+        for name, n in cfm_cond_sr256_phase(torch, card_info, out).items():
+            counts[name] += n
+        cfm_cond_64_phase(torch, card_info, out)
+        cond_mnist_phase(torch, card_info, out)
+        sde_phase(torch, card_info, dev)
     finally:
         shutil.rmtree(out, ignore_errors=True)
     for name, n in counts.items():
@@ -1648,14 +2053,20 @@ def main():
                                 "(sum over its call shapes); launches: the "
                                 "four DDIM-100 runs",
         "flash_attention_fwd": "one full 64px UNet forward at batch 32 (5 "
-                               "calls); launches: the five conditional "
-                               "sampling runs, the 20 training steps and "
-                               "the eval_metrics run",
+                               "calls at [128,1024,64]) plus one SR256 "
+                               "forward at batch 8 (5 at [32,1024,64]); "
+                               "launches: the five conditional sampling "
+                               "runs, the 20 training steps, the "
+                               "eval_metrics run and the cfm_cond_sr256 "
+                               "run (20 steps and its Euler-20 eval)",
         "flash_attention_bwd": "one guidance gradient through the 64px UNet "
-                               "at batch 32 (5 calls); launches: the "
-                               "guidance run and the 20 training steps; "
-                               "max_rel_err: the largest |dq, dk, dv - "
-                               "plain| over each gradient's largest entry",
+                               "at batch 32 (5 calls at [128,1024,64]) plus "
+                               "one SR256 training step at batch 8 (5 at "
+                               "[32,1024,64]); launches: the guidance run, "
+                               "the 20 DDPM training steps and the 20 "
+                               "cfm_cond_sr256 steps; max_rel_err: the "
+                               "largest |dq, dk, dv - plain| over each "
+                               "gradient's largest entry",
         "fused_resblock": "one full CIFAR UNet forward through the engine "
                           "at batch 64 (its 5 calls); launches: the two "
                           "engine DDIM-100 runs; library_ms: the port's "

@@ -158,7 +158,8 @@ def test_cuda_flash_forward_matches_plain(cuda, dtype, bh, t, d):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("bh,t", [(8, 1024), (4, 128), (2, 384)])
+@pytest.mark.parametrize("bh,t", [(8, 1024), (4, 128), (2, 384),
+                                  (32, 1024)])
 def test_cuda_flash_forward_wgmma_route(cuda, bh, t):
     """The TMA / `wgmma` forward: against the plain version as above, and
     two calls bitwise equal (no atomics)."""
@@ -182,7 +183,9 @@ def test_cuda_flash_forward_wgmma_route(cuda, bh, t):
     # the one-pass kernel: an uneven T over several key blocks, one tile,
     # d = 32 and d = 128 over several key blocks
     (torch.bfloat16, 4, 1000, 64), (torch.bfloat16, 3, 64, 64),
-    (torch.bfloat16, 2, 1000, 32), (torch.bfloat16, 2, 520, 128)])
+    (torch.bfloat16, 2, 1000, 32), (torch.bfloat16, 2, 520, 128),
+    # the synthetic256 super-resolution path's shape (batch 8, 4 heads)
+    (torch.bfloat16, 32, 1024, 64)])
 def test_cuda_flash_backward_matches_plain(cuda, dtype, bh, t, d):
     q, k, v, g = _flash_inputs(t * d, bh, t, d, dtype, cuda)
     o, lse = attention.flash_attention_fwd_ref(q, k, v)

@@ -209,8 +209,14 @@ def test_create_model_takes_the_jax_signature():
     dropped = create_model(**kw, dropout=0.1)
     assert {b.dropout for b in dropped.modules() if hasattr(b, "dropout")
             } == {0.1}
-    with pytest.raises(NotImplementedError, match="class"):
-        create_model(**kw, class_cond=True, num_classes=10)
+    cond = create_model(**kw, class_cond=True, num_classes=10,
+                        dtype=torch.float32)
+    assert cond.class_emb.weight.shape == (10, 4 * 16)
+    x = torch.zeros(2, 32, 32, 3)
+    with torch.no_grad():
+        assert cond(x, torch.ones(2), torch.tensor([1, 7])).shape == x.shape
+        with pytest.raises(ValueError, match="requires labels"):
+            cond(x, torch.ones(2))
 
 
 def test_timestep_embedding_matches_jax():

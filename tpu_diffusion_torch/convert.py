@@ -1,7 +1,10 @@
 """Weights from the JAX package's flax trees into the port's state_dicts.
 
-The UNet (`unet_state_dict_from_flax`) and its CFM wrapper
-(`wrapper_state_dict_from_flax`: the same tree under `net/`), and the
+The UNet (`unet_state_dict_from_flax`), its CFM wrappers
+(`wrapper_state_dict_from_flax`: the same tree under `net/`, for
+`UNetModelWrapper`, `InPaintModelWrapper` and `SuperResModelWrapper`), a
+dict of such wrappers (`heads_state_dict_from_flax`: SF2M's
+`{"flow": ..., "score": ...}` onto an `nn.ModuleDict`), and the
 evaluation feature networks (`feature_state_dict_from_flax`, `load_flax_npz`:
 `eval/fid.py:RandomConvFeatures`, `eval/lpips.py:VGGFeaturePyramid`,
 `eval/inception.py:InceptionV3Features`, whose port modules carry the flax
@@ -19,6 +22,7 @@ arrays) names its blocks as the port does (`enc_{l}_{i}`, `mid_attn`,
                   qkv -> qkv, Conv_0 -> proj
   Down/Upsample   Conv_0 -> conv
   out_norm        GroupNorm_0/{scale,bias} or {scale,bias} -> out_norm
+  class_emb       embedding -> weight ([num_classes, 4C], same layout)
 
 Layouts: conv kernels HWIO -> OIHW, Dense [in, out] -> [out, in], the 1-D
 attention kernels (1, C, K) -> [K, C] (qkv channel order kept), norm
@@ -58,6 +62,8 @@ def _leaf(leaf: str, value: np.ndarray) -> tuple:
         return "weight", value
     if leaf == "bias":
         return "bias", value
+    if leaf == "embedding":
+        return "weight", value
     if leaf != "kernel":
         raise KeyError(f"unknown flax leaf {leaf!r}")
     if value.ndim == 4:                      # conv HWIO -> OIHW
@@ -78,7 +84,8 @@ def unet_state_dict_from_flax(params: Mapping) -> dict:
     out = {}
     for path, value in _flatten(params).items():
         block = path[0]
-        if block in ("time_dense_0", "time_dense_1", "conv_in", "conv_out"):
+        if block in ("time_dense_0", "time_dense_1", "conv_in", "conv_out",
+                     "class_emb"):
             names = [block]
             leaf = path[1]
         elif block == "out_norm":
@@ -110,6 +117,13 @@ def wrapper_state_dict_from_flax(params: Mapping) -> dict:
         params = params["params"]
     return {f"net.{k}": v
             for k, v in unet_state_dict_from_flax(params["net"]).items()}
+
+
+def heads_state_dict_from_flax(params: Mapping) -> dict:
+    """A dict of wrapper trees ({head: flax tree}, e.g. SF2M's flow and
+    score) -> the state_dict of an `nn.ModuleDict` of port wrappers."""
+    return {f"{head}.{k}": v for head, tree in params.items()
+            for k, v in wrapper_state_dict_from_flax(tree).items()}
 
 
 def feature_state_dict_from_flax(variables: Mapping) -> dict:
@@ -166,13 +180,19 @@ def load_flax_train_state(state, params: Mapping,
     (`train/trainer.py:TrainState`), in place, so that both packages take
     the same step from the same state. The optimizer's moments are not
     carried: the state must be fresh on both sides. A tree with a `net`
-    level is a `UNetModelWrapper`'s."""
+    level is a CFM wrapper's; a tree without `params` or `net` at its top,
+    a dict of wrappers' (`heads_state_dict_from_flax`)."""
     if state.optimizer.count:
         raise ValueError("the optimizer has taken steps: its moments cannot "
                          "be carried over")
     tree = params.get("params", params)
-    convert = (wrapper_state_dict_from_flax if "net" in tree
-               else unet_state_dict_from_flax)
+    if "net" in tree:
+        convert = wrapper_state_dict_from_flax
+    elif all(isinstance(v, Mapping) and ("net" in v.get("params", v))
+             for v in tree.values()):
+        convert = heads_state_dict_from_flax
+    else:
+        convert = unet_state_dict_from_flax
     state.model.load_state_dict(convert(params))
     ema = convert(params if ema_params is None else ema_params)
     for name, value in state.ema.params.items():

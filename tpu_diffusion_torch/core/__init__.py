@@ -1,6 +1,6 @@
 from tpu_diffusion_torch.core.ema import EMAState, ema_update
-from tpu_diffusion_torch.core.schedules import (DDPM, bcast_right,
+from tpu_diffusion_torch.core.schedules import (DDPM, VPSDE, bcast_right,
                                                 linear_vpsde_betas)
 
-__all__ = ["DDPM", "EMAState", "bcast_right", "ema_update",
+__all__ = ["DDPM", "EMAState", "VPSDE", "bcast_right", "ema_update",
            "linear_vpsde_betas"]

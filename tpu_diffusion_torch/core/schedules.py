@@ -1,7 +1,8 @@
-"""The discretized DDPM process in PyTorch.
+"""The continuous VP-SDE and the discretized DDPM process in PyTorch.
 
-Counterpart of `tpu_diffusion/core/schedules.py` (`linear_vpsde_betas`,
-`bcast_right`, `DDPM`). The tables are built host-side in float64 numpy and
+Counterpart of `tpu_diffusion/core/schedules.py` (`VPSDE`,
+`linear_vpsde_betas`, `bcast_right`, `DDPM`). `VPSDE`'s methods take t as
+a tensor (or a number) and compute on its device. The DDPM tables are built host-side in float64 numpy and
 stored as float32 tensors on the CPU; `DDPM.to(device)` moves them, once per
 sampler, to the device its steps run on.
 """
@@ -14,6 +15,82 @@ from typing import Tuple
 
 import numpy as np
 import torch
+
+
+@dataclass(frozen=True)
+class VPSDE:
+    """Variance-preserving SDE with linear beta(t) = bm + (bd - bm) * t
+    (image_diffusion/sde_diffusion.py:15-98).
+
+    p(x_t | x_0) = N(x_t | scale(t) x_0, sigma(t)^2 I).
+    """
+
+    beta_min: float = 0.1
+    beta_max: float = 20.0
+    tmin: float = 1e-4
+    tmax: float = 1.0
+
+    def int_beta(self, t) -> torch.Tensor:
+        """Integral of beta from 0 to t."""
+        t = torch.as_tensor(t)
+        return self.beta_min * t + (self.beta_max - self.beta_min) * t**2 / 2
+
+    def beta(self, t) -> torch.Tensor:
+        return self.beta_min + (self.beta_max - self.beta_min) * \
+            torch.as_tensor(t)
+
+    def scale(self, t) -> torch.Tensor:
+        return torch.exp(-self.int_beta(t) / 2)
+
+    def sigma(self, t) -> torch.Tensor:
+        return torch.sqrt(1.0 - torch.exp(-self.int_beta(t)))
+
+    def marginal_prob(self, x0: torch.Tensor, t
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Mean and std of p(x_t | x_0), broadcast against x0."""
+        s = bcast_right(self.scale(t), x0.ndim)
+        sig = bcast_right(self.sigma(t), x0.ndim)
+        return s * x0, sig
+
+    def drift(self, x: torch.Tensor, t) -> torch.Tensor:
+        """dx = drift dt + g dW (forward)."""
+        return bcast_right(-0.5 * self.beta(t), x.ndim) * x
+
+    def diffusion(self, t) -> torch.Tensor:
+        return torch.sqrt(self.beta(t))
+
+    def backward_drift(self, score: torch.Tensor, x: torch.Tensor, t
+                       ) -> torch.Tensor:
+        g2 = bcast_right(self.beta(t), x.ndim)
+        return self.drift(x, t) - g2 * score
+
+    def probability_flow_drift(self, score: torch.Tensor, x: torch.Tensor,
+                               t) -> torch.Tensor:
+        g2 = bcast_right(self.beta(t), x.ndim)
+        return self.drift(x, t) - 0.5 * g2 * score
+
+    def noise_score(self, xt: torch.Tensor, x0: torch.Tensor, t
+                    ) -> torch.Tensor:
+        """Score of the Gaussian marginal: grad log p(x_t | x_0)."""
+        mean, sig = self.marginal_prob(x0, t)
+        return (mean - xt) / sig**2
+
+    def noise_input(self, generator: torch.Generator | None,
+                    x0: torch.Tensor, t, eps: torch.Tensor | None = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Sample x_t | x_0 (with `eps`, or noise drawn from `generator`);
+        returns (x_t, eps)."""
+        mean, sig = self.marginal_prob(x0, t)
+        if eps is None:
+            eps = torch.randn(x0.shape, generator=generator,
+                              dtype=x0.dtype, device=x0.device)
+        return mean + sig * eps, eps
+
+    def denoise_input(self, score: torch.Tensor, xt: torch.Tensor, t
+                      ) -> torch.Tensor:
+        s = bcast_right(self.scale(t), xt.ndim)
+        sig = bcast_right(self.sigma(t), xt.ndim)
+        return (xt + sig**2 * score) / s
 
 
 def linear_vpsde_betas(num_steps: int, beta_min: float = 0.1,

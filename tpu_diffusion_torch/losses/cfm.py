@@ -23,8 +23,11 @@ linear_sum_assignment`: for uniform minibatch marginals the exact plan is a
 permutation). `host_ot_pairs` pairs (noise, data) on the host between
 steps, on a prefetch thread; `exact_ot_permutation` solves inside a step
 (one device-to-host copy of the cost matrix); `sinkhorn_assignment` is
-entropic OT on the device. The SF2M variants (`*_with_eps`, `guided_*`,
-`compute_lambda`) come with the conditional MNIST CLI (ROADMAP A8).
+entropic OT on the device. `sample_location_and_conditional_flow_with_eps`
+also returns the path noise (the SF2M score head's target),
+`guided_sample_location_and_conditional_flow` carries class labels along
+with x1 (reordered with it by a coupling), and the SB matcher's
+`compute_lambda` weighs the score loss (`cli/train_conditional_mnist.py`).
 """
 
 from __future__ import annotations
@@ -87,6 +90,34 @@ class ConditionalFlowMatcher:
         xt = self.sample_xt(generator, x0, x1, t, eps)
         ut = self.compute_conditional_flow(x0, x1, t, xt)
         return t, xt, ut
+
+    def sample_location_and_conditional_flow_with_eps(
+            self, generator: Optional[torch.Generator], x0: Tensor,
+            x1: Tensor, t: Optional[Tensor] = None,
+            eps: Optional[Tensor] = None
+    ) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
+        """(t, x_t, u_t, eps): also the path noise, the target of the SF2M
+        score head (conditional_mnist.ipynb cells 9-11)."""
+        if t is None:
+            t = self.sample_t(generator, x0.shape[0], x0.device)
+        if eps is None:
+            eps = torch.randn(x0.shape, generator=generator,
+                              device=x0.device, dtype=x0.dtype)
+        t, xt, ut = ConditionalFlowMatcher.sample_location_and_conditional_flow(
+            self, generator, x0, x1, t, eps)
+        return t, xt, ut, eps
+
+    def guided_sample_location_and_conditional_flow(
+            self, generator: Optional[torch.Generator], x0: Tensor,
+            x1: Tensor, y1: Tensor, t: Optional[Tensor] = None,
+            eps: Optional[Tensor] = None
+    ) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
+        """(t, x_t, u_t, y1): class labels ride along with x1 (torchcfm's
+        guided_* of conditional_mnist.ipynb); a coupling that reorders x1
+        reorders y1 identically."""
+        t, xt, ut = self.sample_location_and_conditional_flow(
+            generator, x0, x1, t, eps)
+        return t, xt, ut, y1
 
 
 @dataclass(frozen=True)
@@ -271,20 +302,29 @@ class ExactOptimalTransportConditionalFlowMatcher(ConditionalFlowMatcher):
     method: str = "exact"
     reg: float = 0.05
 
+    def plan(self, generator: Optional[torch.Generator], x0: Tensor,
+             x1: Tensor) -> Tensor:
+        """The permutation of x1 that pairs it with x0."""
+        if self.method == "exact":
+            return exact_ot_permutation(x0, x1)
+        return sinkhorn_assignment(x0, x1, reg=self.reg, generator=generator)
+
     def pair(self, generator: Optional[torch.Generator], x0: Tensor,
              x1: Tensor) -> Tuple[Tensor, Tensor]:
-        if self.method == "exact":
-            perm = exact_ot_permutation(x0, x1)
-        else:
-            perm = sinkhorn_assignment(x0, x1, reg=self.reg,
-                                       generator=generator)
-        return x0, x1[perm]
+        return x0, x1[self.plan(generator, x0, x1)]
 
     def sample_location_and_conditional_flow(
             self, generator, x0, x1, t=None, eps=None):
         x0, x1 = self.pair(generator, x0, x1)
         return super().sample_location_and_conditional_flow(
             generator, x0, x1, t, eps)
+
+    def guided_sample_location_and_conditional_flow(
+            self, generator, x0, x1, y1, t=None, eps=None):
+        perm = self.plan(generator, x0, x1)
+        t, xt, ut = ConditionalFlowMatcher.sample_location_and_conditional_flow(
+            self, generator, x0, x1[perm], t, eps)
+        return t, xt, ut, y1[perm]
 
 
 @dataclass(frozen=True)
@@ -308,12 +348,23 @@ class SchrodingerBridgeConditionalFlowMatcher(ConditionalFlowMatcher):
         bridge = (1.0 - 2.0 * tb) / (2.0 * tb * (1.0 - tb) + 1e-8) * (xt - mu)
         return bridge + x1 - x0
 
+    def compute_lambda(self, t: Tensor) -> Tensor:
+        """The SF2M score loss's weight 2 sigma_t / sigma^2."""
+        return 2.0 * self.compute_sigma_t(t) / (self.sigma**2 + 1e-8)
+
+    def _couple(self, generator, x0: Tensor, x1: Tensor) -> Tensor:
+        return x1[sinkhorn_assignment(x0, x1, reg=2 * self.sigma**2,
+                                      generator=generator)]
+
     def sample_location_and_conditional_flow(
             self, generator, x0, x1, t=None, eps=None):
-        perm = sinkhorn_assignment(x0, x1, reg=2 * self.sigma**2,
-                                   generator=generator)
         return super().sample_location_and_conditional_flow(
-            generator, x0, x1[perm], t, eps)
+            generator, x0, self._couple(generator, x0, x1), t, eps)
+
+    def sample_location_and_conditional_flow_with_eps(
+            self, generator, x0, x1, t=None, eps=None):
+        return super().sample_location_and_conditional_flow_with_eps(
+            generator, x0, self._couple(generator, x0, x1), t, eps)
 
 
 MATCHERS = {

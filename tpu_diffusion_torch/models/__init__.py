@@ -1,4 +1,6 @@
-from tpu_diffusion_torch.models.unet import (UNetModel, UNetModelWrapper,
-                                             create_model)
+from tpu_diffusion_torch.models.unet import (InPaintModelWrapper,
+                                             SuperResModelWrapper, UNetModel,
+                                             UNetModelWrapper, create_model)
 
-__all__ = ["UNetModel", "UNetModelWrapper", "create_model"]
+__all__ = ["InPaintModelWrapper", "SuperResModelWrapper", "UNetModel",
+           "UNetModelWrapper", "create_model"]

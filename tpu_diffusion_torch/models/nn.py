@@ -146,6 +146,18 @@ class CastLinear(_CastParams, nn.Linear):
         return F.linear(x, self.cast("weight"), self.cast("bias"))
 
 
+class CastEmbedding(_CastParams, nn.Embedding):
+    """A lookup table of fp32 rows returned in `compute_dtype` (flax's
+    `nn.Embed` with `dtype`)."""
+
+    def __init__(self, *args, dtype=None, **kw):
+        super().__init__(*args, dtype=torch.float32, **kw)
+        self._init_cast(dtype)
+
+    def forward(self, y: torch.Tensor) -> torch.Tensor:
+        return F.embedding(y, self.cast("weight"))
+
+
 def dropout(x: torch.Tensor, p: float,
             generator: torch.Generator | None = None) -> torch.Tensor:
     """Inverted dropout with the mask drawn from `generator`

@@ -2,7 +2,8 @@
 
 Counterpart of `tpu_diffusion/models/unet.py` (`ResBlock`, `AttentionBlock`,
 `Downsample`, `Upsample`, `UNetModel`, `create_model`, `attention_ds`, and
-the conditional-flow-matching velocity field `UNetModelWrapper`).
+the torchcfm wrappers `UNetModelWrapper`, `InPaintModelWrapper` and
+`SuperResModelWrapper`).
 The public layout is the JAX package's: `model(x_nhwc, t)` returns NHWC
 eps, and the encode/decode cache holds NHWC tensors. Internally activations
 are NCHW in `channels_last` memory (see `models/nn.py`). Submodules carry
@@ -22,11 +23,13 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from tpu_diffusion_torch.conditioning.likelihoods import resize_bilinear
 from tpu_diffusion_torch.kernels.attention import (dense_attention,
                                                    flash_attention,
                                                    flash_attention_fused)
 from tpu_diffusion_torch.models.nn import (NORM_IMPLS, CastConv2d,
-                                           CastLinear, FusedNormAct,
+                                           CastEmbedding, CastLinear,
+                                           FusedNormAct,
                                            GroupNorm32, avg_pool_2x,
                                            channels_last, dropout,
                                            nearest_upsample,
@@ -205,7 +208,9 @@ class Upsample(nn.Module):
 
 
 class UNetModel(nn.Module):
-    """The denoiser backbone: model(x_nhwc, t) -> [B, H, W, out_channels].
+    """The denoiser backbone: model(x_nhwc, t[, y]) -> [B, H, W,
+    out_channels]. With `num_classes`, the labels `y` ([B] integers) are
+    embedded (`class_emb`) and added to the time embedding.
 
     `attn_decisions` maps each attention block's name to the implementation
     it ran, its token count and head count, as of its last call. The
@@ -223,7 +228,8 @@ class UNetModel(nn.Module):
                  resblock_updown: bool = False,
                  attention_impl: str = "fused", dtype=torch.bfloat16,
                  norm_dtype=None, norm_impl: str = "plain", device="cuda",
-                 dropout: float = 0.0, time_scale: float = 1.0):
+                 dropout: float = 0.0, time_scale: float = 1.0,
+                 num_classes: int | None = None):
         super().__init__()
         if norm_impl not in NORM_IMPLS:
             raise ValueError(f"norm_impl must be one of {NORM_IMPLS}, got "
@@ -254,6 +260,8 @@ class UNetModel(nn.Module):
 
         self.time_dense_0 = CastLinear(ch0, time_dim, **dd)
         self.time_dense_1 = CastLinear(time_dim, time_dim, **dd)
+        self.class_emb = (None if num_classes is None else
+                          CastEmbedding(num_classes, time_dim, **dd))
         self.conv_in = conv3x3(in_channels, ch0, dtype, device)
         chans = [ch0]
         ch, ds = ch0, 1
@@ -302,17 +310,19 @@ class UNetModel(nn.Module):
                                      "tokens": tokens, "heads": block.heads}
         return block(h)
 
-    def forward(self, x: torch.Tensor, t, *, mode: str = "full",
-                cache=None, generator: torch.Generator | None = None):
+    def forward(self, x: torch.Tensor, t, y: torch.Tensor | None = None, *,
+                mode: str = "full", cache=None,
+                generator: torch.Generator | None = None):
         """mode="full": the plain forward. mode="encode": the
         `(bottleneck, skips)` cache (NHWC). mode="decode": middle and
         decoder from such a cache, with the current timestep's embedding.
         `generator` draws the dropout masks in `train()` mode."""
         return self.run(x, t, mode, cache,
                         lambda name, h, emb: getattr(self, name)(h, emb,
-                                                                 generator))
+                                                                 generator),
+                        y)
 
-    def run(self, x: torch.Tensor, t, mode: str, cache, res_fn):
+    def run(self, x: torch.Tensor, t, mode: str, cache, res_fn, y=None):
         """The forward with every ResBlock called as `res_fn(name, h, emb)`
         (`models/unet_infer.py` passes its own)."""
         if mode not in MODES:
@@ -323,6 +333,10 @@ class UNetModel(nn.Module):
         emb = timestep_embedding(t * self.time_scale, ch0)
         emb = self.time_dense_0(emb.to(self.dtype))
         emb = self.time_dense_1(F.silu(emb))
+        if self.class_emb is not None:
+            if y is None:
+                raise ValueError("class-conditional model requires labels")
+            emb = emb + self.class_emb(y)
 
         if mode in ("full", "encode"):
             h = self.conv_in(x.permute(0, 3, 1, 2).to(self.dtype))
@@ -406,12 +420,7 @@ def create_model(image_size: int, num_channels: int, num_res_blocks: int,
                  norm_dtype=None, norm_impl: str = "plain",
                  device="cuda", time_scale: float = 1.0) -> UNetModel:
     """The JAX `create_model` signature (less `use_checkpoint` and
-    `sp_mesh`); what the port does not implement raises."""
-    if class_cond:
-        raise NotImplementedError(
-            "class_cond=True: the class embedding is not ported yet "
-            "(ROADMAP A8, with the class-conditional CLIs)")
-    del num_classes  # read by the JAX package only with class_cond
+    `sp_mesh`)."""
     if not channel_mult:
         if image_size not in _DEFAULT_CHANNEL_MULT:
             raise ValueError(f"unsupported image size: {image_size}")
@@ -429,7 +438,8 @@ def create_model(image_size: int, num_channels: int, num_res_blocks: int,
         use_scale_shift_norm=use_scale_shift_norm,
         resblock_updown=resblock_updown, attention_impl=attention_impl,
         dtype=dtype, norm_dtype=norm_dtype, norm_impl=norm_impl,
-        device=device, dropout=dropout, time_scale=time_scale)
+        device=device, dropout=dropout, time_scale=time_scale,
+        num_classes=num_classes if class_cond else None)
 
 
 # ---------------------------------------------------------------------------
@@ -457,14 +467,13 @@ def _cfm_backbone(dim: Tuple[int, int, int], num_channels: int,
 
 
 class UNetModelWrapper(nn.Module):
-    """torchcfm `UNetModelWrapper`: the velocity field v(t, x) -> NHWC.
+    """torchcfm `UNetModelWrapper`: the velocity field v(t, x[, y]) -> NHWC.
 
     `dim` is (H, W, C), NHWC as in the JAX package. The backbone (`net`,
     so the JAX tree's `net/` prefix maps by name) has FiLM, embeds
     t * 1000, computes in `dtype` with fp32 parameters. `attention_impl`
     takes the port's names ("dense" is the JAX default "xla"; "auto" is
-    dense below 1024 tokens). Class labels (`num_classes`) are not ported
-    yet (ROADMAP A8)."""
+    dense below 1024 tokens). With `num_classes`, `y` is required."""
 
     def __init__(self, dim: Tuple[int, int, int], num_channels: int = 128,
                  num_res_blocks: int = 2, channel_mult=None,
@@ -478,10 +487,59 @@ class UNetModelWrapper(nn.Module):
                                  attention_resolutions, dropout, num_classes,
                                  attention_impl, dtype, device)
 
-    def forward(self, t, x: torch.Tensor,
+    def forward(self, t, x: torch.Tensor, y: torch.Tensor | None = None,
                 generator: torch.Generator | None = None) -> torch.Tensor:
         """`generator` draws the dropout masks in `train()` mode."""
-        return self.net(x, t, generator=generator)
+        return self.net(x, t, y, generator=generator)
+
+
+class _ConcatWrapper(nn.Module):
+    """A CFM backbone over 2C channels: x and a condition image of x's
+    shape, concatenated on the channel axis."""
+
+    def __init__(self, dim: Tuple[int, int, int], num_channels: int,
+                 num_res_blocks: int = 2, channel_mult=None,
+                 num_heads: int = 4, attention_resolutions: str = "16",
+                 dropout: float = 0.0, attention_impl: str = "dense",
+                 dtype=torch.bfloat16, device="cuda"):
+        super().__init__()
+        self.net = _cfm_backbone(dim, num_channels, 2 * dim[2],
+                                 num_res_blocks, channel_mult, num_heads,
+                                 attention_resolutions, dropout, None,
+                                 attention_impl, dtype, device)
+
+    def _concat(self, t, x, cond, generator):
+        return self.net(torch.cat([x, cond], dim=-1), t, generator=generator)
+
+
+class InPaintModelWrapper(_ConcatWrapper):
+    """torchcfm `InPaintModelWrapper`: v(t, x, con), the masked image `con`
+    concatenated as extra input channels (mnist/train_mnist.py:193)."""
+
+    def __init__(self, dim: Tuple[int, int, int], num_channels: int = 32,
+                 **kw):
+        super().__init__(dim, num_channels, **kw)
+
+    def forward(self, t, x: torch.Tensor, con: torch.Tensor,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        return self._concat(t, x, con, generator)
+
+
+class SuperResModelWrapper(_ConcatWrapper):
+    """torchcfm `SuperResModelWrapper`: v(t, x, low_res), the low-res image
+    resized bilinearly to x's size (when the sizes differ) riding along as
+    extra channels (mnist/train_mnist_hy.py:231)."""
+
+    def __init__(self, dim: Tuple[int, int, int], num_channels: int = 128,
+                 **kw):
+        super().__init__(dim, num_channels, **kw)
+
+    def forward(self, t, x: torch.Tensor, low_res: torch.Tensor,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        h, w = x.shape[1:3]
+        if tuple(low_res.shape[1:3]) != (h, w):
+            low_res = resize_bilinear(low_res, h, w)
+        return self._concat(t, x, low_res, generator)
 
 
 @torch.no_grad()

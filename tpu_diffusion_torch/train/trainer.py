@@ -151,9 +151,10 @@ class Trainer:
     """fit() = feed batches to the step + fire periodic callbacks.
 
     Callbacks receive (step, state=..., metrics=...), as `PeriodicCallback`
-    expects. `batches` yields numpy arrays or tensors, or tuples of them
-    (the (x0, x1) pairs of `losses.cfm.host_ot_pairs`); they are moved to
-    the model's device.
+    expects. `batches` yields numpy arrays or tensors, tuples of them
+    (the (x0, x1) pairs of `losses.cfm.host_ot_pairs`) or dicts of them
+    (the {"x", "y"} batches of `cli/train_conditional_mnist.py`); they are
+    moved to the model's device.
     """
 
     def __init__(self, train_step: Callable, state: TrainState,
@@ -175,6 +176,9 @@ class Trainer:
             if isinstance(batch, tuple):
                 batch = tuple(torch.as_tensor(b).to(self._device)
                               for b in batch)
+            elif isinstance(batch, dict):
+                batch = {k: torch.as_tensor(b).to(self._device)
+                         for k, b in batch.items()}
             else:
                 batch = torch.as_tensor(batch).to(self._device)
             self.state, metrics = self._step_fn(self.state, batch)
