@@ -125,6 +125,27 @@ The CFM conditional CLIs (`cli/train_cfm_conditional.py`,
            the card over the exact score of a Gaussian
            (`core/analytic.py`): the recovered mean and spread within the
            JAX test's tolerances.
+The protein stack (`cli/train_protein.py`, `cli/sample_protein.py`) at the
+reference width: 112 residues, (256, 64), 5 GVP conv layers, 250 diffusion
+steps, fp32 with TF32 off (no kernel on this path: dense products and
+elementwise work):
+  protein_forward  the parameter count held to the JAX model's
+           (PROTEIN_PARAMS), one forward at batch 20 on the card against the
+           CPU (same weights), its device time beside its fp32 bound (the
+           Linear layers' FLOPs counted from their shapes, at 67 TFLOP/s);
+  protein_train  `train_protein.main` at batch 32 for 10 steps, then again
+           to 15 (resumed from its checkpoint), then the same 10 steps
+           through `Trainer.fit_scanned` from `make_protein_sampler` at
+           chunk 10 and chunk 5: ms per step (median and quartiles, device
+           and wall), peak memory, whether the chunkings agree bitwise, and
+           a step's device time by kernel class;
+  protein_sample  `sample_protein.main` from that checkpoint, 20 chains of
+           250 steps, guided (gs 1500 for steps < 125) and unguided:
+           seconds per chain, ms per guided and unguided step, peak memory,
+           cond_loss_mean, every sample finite (the unguided ones COM-free),
+           and one guided and one plain step under the profiler (what the
+           SVD's synchronisations cost: `tpu_diffusion_torch/protein/
+           sync_probe.py`).
 Then the kernel table line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Any failure exits nonzero before that line.
 Needs one CUDA card; imports nothing of JAX.
@@ -1874,6 +1895,347 @@ def sde_phase(torch, card_info, dev):
               f"sde {name}: mean {mean} std {std} nan {bad}")
 
 
+# --- the protein stack: train_protein and sample_protein at the reference
+# width (train_protein's defaults: 112 residues, (256, 64), 5 conv layers,
+# 250 diffusion steps)
+PROTEIN = dict(max_len=112, node_scalars=256, node_vectors=64,
+               conv_layers=5, diffusion_steps=250)
+PROTEIN_PARAMS = 3336001   # jax.eval_shape of the JAX GVPDenoiser()
+PROTEIN_TRAIN_BATCH = 32
+PROTEIN_TRAIN_STEPS = 10
+PROTEIN_RESUME_STEPS = 15  # the second train_protein run resumes at 10
+PROTEIN_SAMPLES = 20
+PROTEIN_GS = 1500.0
+PROTEIN_FORWARD_TOL = 1e-4  # max |card - CPU| over max |eps|, both fp32
+
+
+def protein_flags(extra):
+    return [f for k, v in PROTEIN.items() for f in (f"--{k}", str(v))] + extra
+
+
+def linear_flops(torch, model, call):
+    """2 * rows * in * out summed over the model's Linear layers in one
+    `call()`, counted from the shapes they see."""
+    total = [0]
+
+    def count(m, inputs, _out):
+        total[0] += 2 * inputs[0].numel() * m.out_features
+
+    hooks = [m.register_forward_hook(count) for m in model.modules()
+             if isinstance(m, torch.nn.Linear)]
+    try:
+        call()
+    finally:
+        for h in hooks:
+            h.remove()
+    return total[0]
+
+
+def quartiles(xs):
+    s = sorted(xs)
+    n = len(s)
+    return {"median": s[n // 2], "q1": s[n // 4], "q3": s[(3 * n) // 4],
+            "min": s[0], "max": s[-1], "n": n}
+
+
+def forward_events(torch, model, events):
+    """Record a CUDA event on the current stream whenever `model`'s forward
+    starts: one per training or sampling step on these paths, so the
+    deltas are the steps' times on the device's timeline (idle gaps
+    included)."""
+    def pre(_m, _inputs):
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        events.append(e)
+    return model.register_forward_pre_hook(pre)
+
+
+class ForwardEvents:
+    """Patch `module.build_model` so the models a CLI builds record
+    `forward_events`."""
+
+    def __init__(self, torch, module):
+        self.torch, self.module, self.real = torch, module, module.build_model
+        self.events = []
+
+    def __enter__(self):
+        def build(*a, **kw):
+            model = self.real(*a, **kw)
+            forward_events(self.torch, model, self.events)
+            return model
+        self.module.build_model = build
+        return self.events
+
+    def __exit__(self, *exc):
+        self.module.build_model = self.real
+
+
+def event_deltas(torch, events):
+    torch.cuda.synchronize()
+    return [a.elapsed_time(b) for a, b in zip(events, events[1:])]
+
+
+def protein_phase(torch, card_info, dev, out):
+    """The protein stack at the reference width: the parameter count, one
+    forward on the card against the CPU, `cli.train_protein.main` (a run,
+    then a resumed run), the same steps through `Trainer.fit_scanned` with
+    `make_protein_sampler` at two chunkings, then `cli.sample_protein.main`
+    guided (gs 1500, cond_start_step 125 of 250) and unguided."""
+    import os
+
+    import numpy as np
+
+    from tpu_diffusion_torch.cli import sample_protein, train_protein
+    from tpu_diffusion_torch.data.device_cache import make_protein_sampler
+    from tpu_diffusion_torch.protein.data import get_protein_data
+    from tpu_diffusion_torch.protein.sde import (HoogeboomGraphSDE,
+                                                 ProteinBatch)
+    from tpu_diffusion_torch.train.trainer import (TrainState, Trainer,
+                                                   make_optimizer,
+                                                   make_train_step)
+    args = train_protein.parser().parse_args(protein_flags([]))
+    n_len, b = args.max_len, PROTEIN_SAMPLES
+
+    # --- the parameter count and one forward, card against CPU ----------
+    torch.manual_seed(SEED)
+    cpu_model = train_protein.build_model(args, "cpu").eval()
+    model = train_protein.build_model(args, dev).eval()
+    model.load_state_dict(cpu_model.state_dict())
+    n_params = sum(p.numel() for p in model.parameters())
+    ds = get_protein_data("data/scope", max_len=n_len, seed=SEED)
+    pos = torch.from_numpy(ds.positions[:b])
+    mask = torch.arange(n_len)[None] < torch.from_numpy(ds.lengths[:b])[:, None]
+    t = torch.linspace(0.05, 0.95, b)
+    with torch.no_grad():
+        want = cpu_model(ProteinBatch.from_positions(pos, mask), t)
+    batch = ProteinBatch.from_positions(pos.to(dev), mask.to(dev))
+    td = t.to(dev)
+
+    def forward():
+        with torch.no_grad():
+            return model(batch, td)
+
+    flops = linear_flops(torch, model, forward)
+    got = forward().cpu()
+    diff = (got - want).abs()
+    fwd_ms, fwd_eager_ms = time_ms(forward, iters=3)
+    torch.cuda.reset_peak_memory_stats()
+    forward()
+    fwd_peak = torch.cuda.max_memory_allocated() / 1e9
+    fwd_bound = flops / FP32_FLOPS * 1e3
+    pairs = b * n_len * n_len
+    emit(card_info, phase="protein_forward", batch=b, residues=n_len,
+         width=[args.node_scalars, args.node_vectors],
+         conv_layers=args.conv_layers, n_params=n_params,
+         n_params_jax=PROTEIN_PARAMS, max_abs_diff=diff.max().item(),
+         mean_abs_diff=diff.mean().item(),
+         max_abs_eps=want.abs().max().item(),
+         mean_abs_eps=want.abs().mean().item(),
+         tol=f"max |card - CPU| <= {PROTEIN_FORWARD_TOL} * max |eps|: fp32 "
+             "on both, TF32 off; only the order of the sums differs",
+         linear_flops=flops, flops_per_pair=flops / pairs,
+         bound_ms=fwd_bound, bound_by="operations (fp32, 67 TFLOP/s)",
+         device_ms=fwd_ms, eager_ms=fwd_eager_ms,
+         fp32_tflops=flops / fwd_ms / 1e9, peak_memory_gb=fwd_peak,
+         note="random weights from seed 0 (the CLI's initialisation); "
+              "synthetic chains at t in [0.05, 0.95]; flops: the Linear "
+              "layers' products (the dense [B, N, N] messages), counted "
+              "from their shapes; device_ms: CUDA-graph replay")
+    check(n_params == PROTEIN_PARAMS,
+          f"protein: {n_params} parameters, the JAX model has "
+          f"{PROTEIN_PARAMS}")
+    check(bool(torch.isfinite(got).all())
+          and diff.max() <= PROTEIN_FORWARD_TOL * want.abs().max(),
+          f"protein: the card's forward differs from the CPU's by "
+          f"{diff.max().item()}")
+    del cpu_model, want
+
+    # --- train_protein.main, then a resumed run -------------------------
+    train_out = os.path.join(out, "protein")
+    common = protein_flags(["--output_dir", train_out, "--batch_size",
+                            str(PROTEIN_TRAIN_BATCH), "--ckpt_every", "5",
+                            "--seed", str(SEED)])
+    runs = {}
+    for name, steps in (("fit", PROTEIN_TRAIN_STEPS),
+                        ("fit_resumed", PROTEIN_RESUME_STEPS)):
+        with TimedTrainer(train_protein) as trace, \
+                ForwardEvents(torch, train_protein) as events:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            res = train_protein.main(common + ["--num_steps", str(steps)])
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+        _, wall = step_times(t0, trace)
+        runs[name] = {
+            "steps": len(trace), "final_step": res["state"].step,
+            "seconds": seconds,
+            "wall_ms_per_step": quartiles(wall),
+            "device_ms_per_step": quartiles(event_deltas(torch, events)[1:]),
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "losses": [l for _, l, _, _ in trace]}
+    ckpts = sorted(os.listdir(os.path.join(train_out, "gvp", "ckpt")))
+    fit_state = res["state"]
+    # where a training step's device time goes: the CLI's loss and step on
+    # the trained state, one fixed batch
+    diffuser = HoogeboomGraphSDE(num_steps=args.diffusion_steps, device=dev)
+    loss_fn = train_protein.make_loss_fn(diffuser, args.aux_weight,
+                                         args.aux_cutoff, args.distogram)
+    sampler = make_protein_sampler(ds.positions, ds.lengths,
+                                   PROTEIN_TRAIN_BATCH, device=dev)
+    fixed = sampler(torch.Generator(device=dev).manual_seed(SEED))
+    train_step = make_train_step(loss_fn, ema_decay=0.999)
+    train_profile = profile_steps(torch, lambda: train_step(fit_state, fixed))
+    del fit_state, res
+
+    # --- the same steps through fit_scanned, at two chunkings ------------
+    scanned = {}
+    for chunk in (PROTEIN_TRAIN_STEPS, PROTEIN_TRAIN_STEPS // 2):
+        torch.manual_seed(SEED)
+        m = train_protein.build_model(args, dev)
+        events = []
+        forward_events(torch, m, events)
+        opt = make_optimizer(m.parameters(), args.lr, warmup=0,
+                             grad_clip=1.0, schedule="constant")
+        state = TrainState.create(
+            m, opt, torch.Generator(device=dev).manual_seed(SEED))
+        rows = []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state = Trainer(make_train_step(loss_fn, ema_decay=0.999), state,
+                        iter(())).fit_scanned(
+            PROTEIN_TRAIN_STEPS, sampler, chunk=chunk, base_seed=SEED,
+            metrics_hook=lambda s, mm: rows.append((time.perf_counter(),
+                                                     s, mm)))
+        stamps = [t0] + [r[0] for r in rows]
+        steps = [0] + [r[1] for r in rows]
+        scanned[chunk] = {
+            "state": state,
+            "wall_ms_per_step_by_chunk": [
+                (b1 - a1) * 1e3 / (s1 - s0) for a1, b1, s0, s1
+                in zip(stamps, stamps[1:], steps, steps[1:])],
+            "device_ms_per_step": quartiles(event_deltas(torch, events)),
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "losses": [float(x) for r in rows
+                       for x in r[2]["loss_trace"]]}
+    (c1, a), (c2, bb) = scanned.items()
+    pa, pb_ = a.pop("state").params, bb.pop("state").params
+    chunk_diff = max((pa[k] - pb_[k]).abs().max().item() for k in pa)
+    bitwise = all(torch.equal(pa[k], pb_[k]) for k in pa)
+    step_bound = 3 * flops * PROTEIN_TRAIN_BATCH / b / FP32_FLOPS * 1e3
+    emit(card_info, phase="protein_train", batch=PROTEIN_TRAIN_BATCH,
+         residues=n_len, width=[args.node_scalars, args.node_vectors],
+         conv_layers=args.conv_layers, runs=runs, checkpoints=ckpts,
+         fit_scanned={str(k): v for k, v in scanned.items()},
+         chunkings_bitwise_equal=bitwise, chunkings_max_abs_diff=chunk_diff,
+         step_bound_ms=step_bound, step_profile=train_profile,
+         note="runs: train_protein.main for 10 steps, then again to 15 "
+              "(resuming from the step-10 checkpoint, EMA included); "
+              "wall: host clock between per-step metric reads; device: "
+              "CUDA events at each step's forward; fit_scanned: the CLI's "
+              "model, loss and optimizer for 10 steps from "
+              "make_protein_sampler at chunk 10 and at chunk 5, wall per "
+              "step per chunk; step_bound_ms: three forwards' products "
+              "(forward, and the backward's two) at fp32's 67 TFLOP/s; "
+              "step_profile: device ms by kernel class of three steps on "
+              "a fixed batch under torch.profiler")
+    check(all(math.isfinite(l) for r in runs.values() for l in r["losses"])
+          and runs["fit"]["steps"] == PROTEIN_TRAIN_STEPS
+          and runs["fit_resumed"]["steps"]
+          == PROTEIN_RESUME_STEPS - PROTEIN_TRAIN_STEPS
+          and runs["fit_resumed"]["final_step"] == PROTEIN_RESUME_STEPS,
+          f"protein_train: runs {runs}")
+    check("ckpt_00000015.pt" in ckpts, f"protein_train: checkpoints {ckpts}")
+    check(all(math.isfinite(l) for v in scanned.values()
+              for l in v["losses"])
+          and chunk_diff <= 1e-6,
+          f"protein_train: fit_scanned chunkings differ by {chunk_diff}")
+
+    # --- sample_protein.main: guided, then unguided ---------------------
+    ckpt_dir = os.path.join(train_out, "gvp", "ckpt")
+    sample_common = protein_flags([
+        "--ckpt_dir", ckpt_dir, "--num_samples", str(b), "--batch_size",
+        str(b), "--seed", str(SEED), "--guidance_scale", str(PROTEIN_GS)])
+    sampled = {}
+    for name, extra in (("guided", []), ("unguided", ["--no_conditioner"])):
+        with ForwardEvents(torch, sample_protein) as events:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            res = sample_protein.main(sample_common + extra + [
+                "--output_dir", os.path.join(out, f"protein_{name}")])
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+        deltas = event_deltas(torch, events)
+        # event k starts step 249 - k; delta k is that step's time
+        cond_start = args.diffusion_steps // 2
+        n_plain = args.diffusion_steps - cond_start
+        pos_s, mask_s = res["pos"], res["mask"]
+        m = mask_s[..., None].float()
+        com = (pos_s * m).sum(1) / m.sum(1)
+        rg = (((pos_s - com[:, None]) ** 2).sum(-1) * mask_s).sum(1) \
+            / mask_s.sum(1)
+        sampled[name] = {
+            "seconds_main": seconds,
+            "chain_seconds": (sum(deltas) + deltas[-1]) / 1e3,
+            "seconds_per_sample": (sum(deltas) + deltas[-1]) / 1e3 / b,
+            "unguided_ms_per_step": quartiles(deltas[:n_plain]),
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "forwards": len(events), "summary": res["summary"],
+            "finite": bool(torch.isfinite(pos_s).all()),
+            "max_abs_pos": pos_s.abs().max().item(),
+            "max_abs_com": com.abs().max().item(),
+            "max_com_over_rg": (com.norm(dim=-1) / rg.sqrt()).max().item()}
+        if name == "guided":
+            sampled[name]["guided_ms_per_step"] = quartiles(
+                deltas[n_plain:])
+    # one guided and one plain step under the profiler, on the trained EMA
+    # weights
+    model = sample_protein.build_model(args, dev).eval()
+    saved = torch.load(os.path.join(ckpt_dir, "ckpt_00000015.pt"),
+                       map_location="cpu", weights_only=True)
+    model.load_state_dict(saved["ema"])
+    model.requires_grad_(False)
+    motif_pos, motif_idx = sample_protein.load_motif(None, None, n_len, SEED,
+                                                     dev)
+    from tpu_diffusion_torch.protein.conditioner import Structconditioner
+    cond = Structconditioner(motif_pos=motif_pos, motif_indices=motif_idx,
+                             guidance_scale=PROTEIN_GS)
+    guided_profile = profile_steps(
+        torch, lambda: cond.guide(batch, model, 10, diffuser))
+    plain_profile = profile_steps(torch, forward)
+    emit(card_info, phase="protein_sample", samples=b, residues=n_len,
+         diffusion_steps=args.diffusion_steps, cond_start_step=cond_start,
+         guidance_scale=PROTEIN_GS, runs=sampled,
+         guided_step_profile=guided_profile,
+         plain_step_profile=plain_profile, forward_bound_ms=fwd_bound,
+         note="sample_protein.main from the step-15 checkpoint's EMA "
+              "weights, 20 chains of 112 residues, 250 steps (no cut); "
+              "guided: the conditioner at gs 1500 for steps < 125, whose "
+              "forward with a graph to the positions also gives the "
+              "step's eps_hat; ms per step: CUDA events at each step's "
+              "forward (device timeline, idle gaps included); "
+              "chain_seconds: their sum plus the last step; the "
+              "profiles: the guidance at step 10 and a plain forward; the "
+              "guided samples' COM drifts as the JAX package's "
+              "does (the guidance update is not projected); random-init "
+              "weights after 15 steps: no quality claim")
+    g, u = sampled["guided"], sampled["unguided"]
+    check(g["finite"] and u["finite"]
+          and g["forwards"] == u["forwards"] == args.diffusion_steps,
+          f"protein_sample: finite {g['finite']} {u['finite']}, forwards "
+          f"{g['forwards']} {u['forwards']}")
+    check(math.isfinite(g["summary"]["cond_loss_mean"])
+          and g["summary"]["num_samples"] == b
+          and g["summary"]["ckpt_step"] == PROTEIN_RESUME_STEPS,
+          f"protein_sample: summary {g['summary']}")
+    check(u["max_abs_com"] <= 1e-4 * max(1.0, u["max_abs_pos"]),
+          f"protein_sample: unguided samples' COM {u['max_abs_com']}")
+    del model, batch
+    torch.cuda.empty_cache()
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2023,6 +2385,8 @@ def main():
         cfm_cond_64_phase(torch, card_info, out)
         cond_mnist_phase(torch, card_info, out)
         sde_phase(torch, card_info, dev)
+        # --- the protein stack at the reference width ------------------------
+        protein_phase(torch, card_info, dev, out)
     finally:
         shutil.rmtree(out, ignore_errors=True)
     for name, n in counts.items():

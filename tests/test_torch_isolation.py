@@ -38,7 +38,14 @@ def test_port_has_modules():
                    "train/actions.py", "train/writers.py",
                    "train/checkpoint.py", "eval/fid.py", "eval/lpips.py",
                    "eval/inception.py", "losses/cfm.py", "sampling/ode.py",
-                   "cli/train_cifar10.py", "cli/compute_fid.py"):
+                   "cli/train_cifar10.py", "cli/compute_fid.py",
+                   "protein/geometry.py", "protein/sde.py",
+                   "protein/gvp.py", "protein/denoiser.py",
+                   "protein/resdiff.py", "protein/conditioner.py",
+                   "protein/data.py", "protein/pdb.py",
+                   "data/device_cache.py", "eval/plotting.py",
+                   "cli/train_protein.py", "cli/sample_protein.py",
+                   "protein/sync_probe.py"):
         assert f"tpu_diffusion_torch/{module}" in names
 
 
@@ -55,7 +62,11 @@ def test_import_leaves_jax_unloaded():
             "build, tpu_diffusion_torch.cli.main, tpu_diffusion_torch.models."
             "unet_infer, tpu_diffusion_torch.train.trainer, "
             "tpu_diffusion_torch.cli.compute_fid, "
-            "tpu_diffusion_torch.eval.inception\n"
+            "tpu_diffusion_torch.eval.inception, "
+            "tpu_diffusion_torch.cli.train_protein, "
+            "tpu_diffusion_torch.cli.sample_protein, "
+            "tpu_diffusion_torch.data.device_cache, "
+            "tpu_diffusion_torch.eval.plotting\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{sorted(FORBIDDEN)!r})\n"
             "assert not bad, bad\n")

@@ -11,7 +11,11 @@ whole-ResBlock kernel; DDPM training (`losses/ddpm.py`, `core/ema.py`,
 `train/`) through `cli/main.py --mode train|all`; LPIPS and FID
 (`eval/lpips.py`, `eval/fid.py`, `eval/inception.py`) in `run_eval`; and
 CIFAR-10 conditional flow matching (`losses/cfm.py`, `sampling/ode.py`,
-`UNetModelWrapper`, `cli/train_cifar10.py`, `cli/compute_fid.py`).
+`UNetModelWrapper`, `cli/train_cifar10.py`, `cli/compute_fid.py`); the
+conditional CFM CLIs and the VP-SDE samplers; and the protein backbone
+diffusion stack (`protein/`, `cli/train_protein.py`,
+`cli/sample_protein.py`) with `Trainer.fit_scanned` and the
+device-resident batch samplers (`data/device_cache.py`).
 Hand-written Hopper kernels are in `kernels/`.
 """
 

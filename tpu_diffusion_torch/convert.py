@@ -8,7 +8,9 @@ dict of such wrappers (`heads_state_dict_from_flax`: SF2M's
 evaluation feature networks (`feature_state_dict_from_flax`, `load_flax_npz`:
 `eval/fid.py:RandomConvFeatures`, `eval/lpips.py:VGGFeaturePyramid`,
 `eval/inception.py:InceptionV3Features`, whose port modules carry the flax
-names, so a path maps to a key one to one).
+names, so a path maps to a key one to one), and the protein GVP denoiser
+(`gvp_denoiser_state_dict_from_flax`: `protein/denoiser.py:GVPDenoiser`,
+whose children carry the flax names too).
 
 The flax tree (`tpu_diffusion/models/unet.py`, as nested dicts of numpy
 arrays) names its blocks as the port does (`enc_{l}_{i}`, `mid_attn`,
@@ -32,6 +34,7 @@ keep their names.
 
 from __future__ import annotations
 
+import re
 from typing import Mapping
 
 import numpy as np
@@ -138,6 +141,51 @@ def feature_state_dict_from_flax(variables: Mapping) -> dict:
                      else _leaf(leaf, value))
         out[".".join(names + [name])] = torch.from_numpy(
             np.array(arr, np.float32, order="C"))
+    return out
+
+
+# the GVP denoiser's parameter paths: a GVP's four Dense layers, and the
+# LayerNorm inside each GVPLayerNorm
+_GVP_BLOCK = r"(W_v|W_e|W_out|conv_\d+\.GVP_\d+)"
+_GVP_NAMES = re.compile(
+    _GVP_BLOCK + r"\.(wh\.weight|wv\.weight|ws\.(weight|bias)"
+    r"|wsv\.(weight|bias))$")
+_GVP_NORM_NAMES = re.compile(
+    r"(W_e_norm|out_norm|conv_\d+\.GVPLayerNorm_[01])\.LayerNorm_0\."
+    r"(weight|bias)$")
+
+
+def gvp_denoiser_state_dict_from_flax(params: Mapping) -> dict:
+    """The flax tree of `tpu_diffusion/protein/denoiser.py:GVPDenoiser`
+    (with or without the top "params" level) -> the port's state_dict:
+    Dense `kernel` [in, out] -> `weight` [out, in], `bias` kept, LayerNorm
+    `scale` -> `weight`. A name the port's model does not have, or a
+    missing one (a GVP without `ws`, a norm without its scale or bias, a
+    conv layer without its two norms, or one of `W_v`, `W_e`, `W_e_norm`,
+    `out_norm`, `W_out` absent), raises KeyError."""
+    if set(params) == {"params"}:
+        params = params["params"]
+    out = {}
+    for path, value in _flatten(params).items():
+        name, arr = _leaf(path[-1], value)
+        key = ".".join(list(path[:-1]) + [name])
+        if not (_GVP_NAMES.match(key) or _GVP_NORM_NAMES.match(key)):
+            raise KeyError(f"{'/'.join(path)} has no counterpart in the "
+                           f"port's GVPDenoiser")
+        out[key] = torch.from_numpy(np.array(arr, np.float32, order="C"))
+    gvps = {"W_v", "W_e", "W_out"} | {
+        m.group(1) for m in map(_GVP_NAMES.match, out) if m}
+    norms = {"W_e_norm", "out_norm"} | {
+        m.group(1) for m in map(_GVP_NORM_NAMES.match, out) if m} | {
+        f"{k.split('.')[0]}.GVPLayerNorm_{i}" for k in out
+        if k.startswith("conv_") for i in (0, 1)}
+    missing = sorted(
+        [f"{b}.ws.{leaf}" for b in gvps for leaf in ("weight", "bias")]
+        + [f"{b}.LayerNorm_0.{leaf}" for b in norms
+           for leaf in ("weight", "bias")])
+    missing = [k for k in missing if k not in out]
+    if missing:
+        raise KeyError(f"the flax tree lacks {missing}")
     return out
 
 

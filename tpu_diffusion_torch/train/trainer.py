@@ -6,9 +6,10 @@ the JAX package's three learning-rate schedules and global-norm clipping),
 `Trainer.fit`, whose host loop feeds batches and fires periodic callbacks.
 The model's parameters are fp32 whatever the forward's type
 (`models/nn.py:CastConv2d`), so Adam and the EMA run on fp32 values as in
-the JAX package. The state is updated in place. `fit_scanned` (the
-device-resident batch sampler), the mesh and tensor parallelism are not
-ported.
+the JAX package. The state is updated in place. `Trainer.fit_scanned`
+trains from a device-resident batch sampler (`data/device_cache.py`) and
+reads the metrics once per chunk. The mesh and tensor parallelism are not
+ported (ROADMAP A10).
 """
 
 from __future__ import annotations
@@ -18,10 +19,12 @@ import time
 from dataclasses import dataclass
 from typing import Callable, Dict, Iterator, List, Optional
 
+import numpy as np
 import torch
 from torch import nn
 
 from tpu_diffusion_torch.core.ema import EMAState, ema_update
+from tpu_diffusion_torch.train.actions import PeriodicAction
 
 # loss(model, generator, batch) -> scalar
 LossFn = Callable[[nn.Module, Optional[torch.Generator], torch.Tensor],
@@ -204,3 +207,66 @@ class Trainer:
                 else:
                     cb(step, state=self.state, metrics=m)
         return self.state
+
+    def fit_scanned(self, num_steps: int,
+                    sample_batch: Callable[[torch.Generator], object],
+                    chunk: int = 100, base_seed: int = 0,
+                    metrics_hook: Optional[Callable[[int, Dict], None]]
+                    = None) -> TrainState:
+        """Train from an on-device batch sampler, `chunk` steps between
+        host reads.
+
+        The batch of global step s is `sample_batch(generator)` with a
+        generator on the model's device seeded by `step_seed(base_seed,
+        s)`, so the stream depends on neither `chunk` nor where a run
+        resumed. Inside a chunk nothing is read on the host: the losses and
+        gradient norms gather into device tensors, read once at its end
+        (which also bounds how far the host runs ahead). Callbacks and the
+        hook fire once per chunk with `loss`, `grad_norm` (the last
+        step's), `loss_mean`, `steps_per_sec` and the whole
+        `loss_trace`/`grad_norm_trace`; a `PeriodicAction`, which must be
+        called every step, raises.
+        """
+        for cb in self.callbacks:
+            if isinstance(cb, PeriodicAction):
+                raise ValueError(
+                    "fit_scanned() fires callbacks once per chunk, which "
+                    "violates PeriodicAction's call-every-step contract - "
+                    "use the metrics_hook (it receives the full per-step "
+                    "loss_trace) or fit() for per-step cadence")
+        step0 = self.state.step
+        t0 = time.monotonic()
+        done = 0
+        while done < num_steps:
+            k = min(chunk, num_steps - done)
+            losses, gnorms = [], []
+            for i in range(k):
+                gen = torch.Generator(device=self._device).manual_seed(
+                    step_seed(base_seed, step0 + done + i))
+                self.state, metrics = self._step_fn(self.state,
+                                                    sample_batch(gen))
+                losses.append(metrics["loss"])
+                gnorms.append(metrics["grad_norm"])
+            # one host read per chunk
+            trace = torch.stack([torch.stack(losses).float(),
+                                 torch.stack(gnorms).float()]).cpu().numpy()
+            losses, gnorms = trace[0], trace[1]
+            done += k
+            step = step0 + done
+            m = {"loss": float(losses[-1]), "grad_norm": float(gnorms[-1]),
+                 "loss_mean": float(np.mean(losses)),
+                 "steps_per_sec": done / (time.monotonic() - t0),
+                 "loss_trace": losses, "grad_norm_trace": gnorms}
+            if metrics_hook is not None:
+                metrics_hook(step, m)
+            for cb in self.callbacks:
+                cb(step, state=self.state, metrics=m)
+        return self.state
+
+
+def step_seed(base_seed: int, step: int) -> int:
+    """The seed of global step `step`'s batch generator: base_seed in the
+    high 32 bits, the step in the low 32."""
+    if not (0 <= base_seed < 2**31 and 0 <= step < 2**32):
+        raise ValueError(f"base_seed {base_seed} or step {step} out of range")
+    return (base_seed << 32) | step
