@@ -146,6 +146,28 @@ elementwise work):
            and one guided and one plain step under the profiler (what the
            SVD's synchronisations cost: `tpu_diffusion_torch/protein/
            sync_probe.py`).
+The evaluation of the 20 guided samples (no kernel; host numpy and C++,
+and the CA-ProteinMPNN in fp32 on the card):
+  protein_eval_mpnn  the MPNN at its published width (hidden 128, k 48,
+           3+3 layers, random weights from seed 0), its parameter count
+           held to the JAX model's (MPNN_PARAMS); on the first sample the
+           card against the CPU: teacher-forced log-probs (1e-4), k-NN
+           sets, the designed sequence with the same order and Gumbel
+           draws (the first differing step and its margin if not), host
+           syncs per design; one pass's and one decode step's device time
+           beside their fp32 bound (GEMM FLOPs by FlopCounterMode), a
+           step's launches and wall time, the seconds per designed
+           sequence and the card's idle share across one;
+  protein_eval_self_consistency  `self_consistency_eval` at n_seq 3 (20
+           rows, scores in (0, 1], each sequence as long as its sample,
+           protein_mpnn_seqs.csv), then a design with the sampling motif's
+           indices fixed to MOTIF_RES, which they keep;
+  protein_eval_cli  `protein.evaluate.main --novelty --compare_train
+           --max_train 200`: summary_stats.json's keys, 20 rows in
+           sample_stats.csv, novelty TM and GDT in [0, 1], finite
+           Wasserstein fields; the C++ scan against numpy (1e-9); the
+           seconds of main, the novelty scan and `eval_many` at n_jobs 1
+           and -1, and a spawned worker's start.
 Then the kernel table line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Any failure exits nonzero before that line.
 Needs one CUDA card; imports nothing of JAX.
@@ -1604,8 +1626,9 @@ KERNEL_CLASSES = [
 def profile_steps(torch, step, steps=3):
     """Device time by kernel class and the top kernels over `steps` calls
     of `step()` under `torch.profiler` (one warm-up call first), in ms per
-    call, and the host ms per call under the profiler (which adds its own
-    host overhead). User annotations on the device timeline (such as
+    call, the device's kernels, memcopies and memsets per call, and the
+    host ms per call under the profiler (which adds its own host
+    overhead). User annotations on the device timeline (such as
     `Optimizer.step#Adam.step`) span kernels counted on their own, and are
     left out."""
     from torch.profiler import ProfilerActivity, profile
@@ -1619,11 +1642,13 @@ def profile_steps(torch, step, steps=3):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     by_name = {}
+    launches = 0
     for e in prof.events():
         if (e.device_type == torch.autograd.DeviceType.CUDA
                 and not getattr(e, "is_user_annotation", False)):
             by_name[e.name] = (by_name.get(e.name, 0.0)
                                + e.time_range.elapsed_us() / 1e3 / steps)
+            launches += 1
     classes = {}
     for name, ms in by_name.items():
         cls = next((c for c, keys in KERNEL_CLASSES
@@ -1632,6 +1657,7 @@ def profile_steps(torch, step, steps=3):
     device_ms = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
     return {"device_ms_per_step": device_ms,
+            "launches_per_step": launches / steps,
             "profiled_host_ms_per_step": wall_ms / steps,
             "device_ms_by_class": classes,
             "top_kernels_ms": [[n[:90], ms] for n, ms in top]}
@@ -2236,6 +2262,304 @@ def protein_phase(torch, card_info, dev, out):
     torch.cuda.empty_cache()
 
 
+# the CA-ProteinMPNN at its published width (hidden 128, k 48, 3 encoder and
+# 3 decoder layers), random weights from seed 0
+MPNN_PARAMS = 1627717      # jax.eval_shape of the JAX CAProteinMPNN()
+MPNN_LP_TOL = 1e-4         # max |card - CPU| of teacher-forced log-probs
+MPNN_N_SEQ = 3
+MPNN_DESIGNS_TIMED = 3     # designs timed alone (wall, and under the profiler)
+EVAL_MAX_TRAIN = 200
+NOVELTY_CHECK = (2, 20)    # samples x training chains, C++ scan against numpy
+MOTIF_RES = "WHYKDEPC"
+
+
+def spawn_seconds(args):
+    """Wall seconds of a fresh interpreter running `args` (`-c ...`)."""
+    import os
+    t0 = time.perf_counter()
+    subprocess.run([sys.executable, *args], check=True, timeout=300,
+                   cwd=os.path.dirname(os.path.abspath(__file__)))
+    return time.perf_counter() - t0
+
+
+def protein_eval_phase(torch, card_info, dev, sample_dir, work):
+    """Protein sample evaluation on the samples of `sample_dir` (the guided
+    ones of `protein_phase`): the CA-ProteinMPNN at its published width on
+    the card against the CPU, `self_consistency_eval` with it, the
+    evaluation CLI's `main` with the novelty scan and the training-set
+    comparison (its training set and cache under `work`), the C++ scan
+    against its numpy version, and the timings."""
+    import contextlib
+    import io
+    import os
+
+    import numpy as np
+
+    from tpu_diffusion_torch.cli.sample_protein import load_motif
+    from tpu_diffusion_torch.protein import evaluate, mpnn, novelty
+    from tpu_diffusion_torch.protein.data import get_protein_data
+    from tpu_diffusion_torch.protein.self_consistency import (
+        proteinmpnn_scores, self_consistency_eval)
+    from tpu_diffusion_torch.protein.sync_probe import count_syncs
+    from tpu_diffusion_torch.utils.debug import compiled_cost
+
+    structures = evaluate.load_structures(sample_dir)
+    check(len(structures) == PROTEIN_SAMPLES,
+          f"protein_eval: {len(structures)} samples in {sample_dir}")
+    lengths = [len(v) for v in structures.values()]
+
+    # --- the MPNN at the published width, card against CPU --------------
+    scorer = mpnn.load_mpnn_scorer(seed=SEED, device=dev)
+    model = scorer.model
+    n_params = sum(p.numel() for p in model.parameters())
+    cpu_model = mpnn.CAProteinMPNN(hidden=model.hidden, k=model.k,
+                                   device="cpu").eval()
+    cpu_model.load_state_dict(model.state_dict())
+    coords = next(iter(structures.values())).astype(np.float32)
+    n = len(coords)
+    order = scorer._order(n, SEED)
+    gen = torch.Generator().manual_seed(SEED)
+    tokens = torch.randint(0, 21, (n,), generator=gen)
+    noise = mpnn.gumbel_noise((n, 21), gen, "cpu")
+    x_c = torch.from_numpy(coords)
+    x_d, tok_d = x_c.to(dev), tokens.to(dev)
+    order_c = torch.from_numpy(order)
+    order_d = order_c.to(dev)
+    ones_c, ones_d = torch.ones(n), torch.ones(n, device=dev)
+    zeros = torch.zeros(n)
+    with torch.no_grad():
+        lp_c = cpu_model(x_c, tokens, order_c)
+        lp_d = model(x_d, tok_d, order_d)
+    lp_diff = (lp_d.cpu() - lp_c).abs().max().item()
+    e_c, _ = mpnn.knn_graph(x_c, ones_c, model.k)
+    e_d, _ = mpnn.knn_graph(x_d, ones_d, model.k)
+    e_d = e_d.cpu()
+    sets_equal = torch.equal(e_c.sort(-1).values, e_d.sort(-1).values)
+    order_equal = torch.equal(e_c, e_d)
+    _, sample_c = mpnn.make_mpnn_fns(cpu_model)
+    _, sample_d = mpnn.make_mpnn_fns(model)
+    design_c = sample_c(x_c, order, ones_c, zeros.long(), zeros,
+                        scorer.temperature, noise=noise)
+    design_d = sample_d(x_d, order, ones_d, zeros.long(), zeros,
+                        scorer.temperature, noise=noise).cpu()
+    first_diff = None
+    if not torch.equal(design_c, design_d):
+        # the first step whose token differs, and the CPU's logit margin
+        # there (best minus runner-up of lp / T + g), on the CPU's chain
+        step = next(i for i, p in enumerate(order)
+                    if design_c[p] != design_d[p])
+        p = int(order[step])
+        with torch.no_grad():
+            prefix = design_c.clone()
+            lp = cpu_model(x_c, prefix, order_c)[p]
+        top = torch.topk(lp / scorer.temperature + noise[step], 2).values
+        first_diff = {"step": step, "position": p,
+                      "cpu_token": int(design_c[p]),
+                      "card_token": int(design_d[p]),
+                      "cpu_margin": (top[0] - top[1]).item()}
+    syncs = count_syncs(torch, lambda: scorer.sample(coords, seed=SEED))
+
+    # --- timings: one pass, one decode step, one design ------------------
+    flops_pass = compiled_cost(lambda: model(x_d, tok_d, order_d))["flops"]
+    with torch.no_grad():
+        enc = model.encode(x_d, ones_d)
+        flops_step = compiled_cost(lambda: model.decode(
+            *enc[:3], ones_d, enc[3], tok_d, order_d))["flops"]
+
+        def one_pass():
+            return model(x_d, tok_d, order_d)
+
+        def one_step():
+            return model.decode(*enc[:3], ones_d, enc[3], tok_d, order_d)
+
+        pass_ms, pass_eager_ms = time_ms(one_pass, iters=10)
+        step_ms, step_eager_ms = time_ms(one_step, iters=10)
+        step_profile = profile_steps(torch, one_step)
+    design_wall = []
+    for seed in range(MPNN_DESIGNS_TIMED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        scorer.sample(coords, seed=seed)
+        design_wall.append(time.perf_counter() - t0)
+    design_profile = profile_steps(
+        torch, lambda: scorer.sample(coords, seed=SEED), steps=1)
+    design_busy_ms = design_profile["device_ms_per_step"]
+    design_launches = design_profile["launches_per_step"]
+    design_s = sorted(design_wall)[len(design_wall) // 2]
+    emit(card_info, phase="protein_eval_mpnn", residues=n,
+         hidden=model.hidden, k=model.k, n_params=n_params,
+         n_params_jax=MPNN_PARAMS, lp_max_abs_diff=lp_diff,
+         lp_tol=f"max |card - CPU| <= {MPNN_LP_TOL}: fp32 on both, TF32 "
+                "off; only the order of the sums differs",
+         knn_sets_equal=sets_equal, knn_order_equal=order_equal,
+         design_equal=first_diff is None, first_difference=first_diff,
+         syncs_per_design=syncs,
+         pass_flops=flops_pass, pass_bound_ms=flops_pass / FP32_FLOPS * 1e3,
+         bound_by="operations (fp32, 67 TFLOP/s)",
+         pass_device_ms=pass_ms, pass_eager_ms=pass_eager_ms,
+         step_flops=flops_step,
+         step_bound_ms=flops_step / FP32_FLOPS * 1e3,
+         step_device_ms=step_ms, step_wall_ms=step_eager_ms,
+         step_launches=step_profile["launches_per_step"],
+         step_profile=step_profile,
+         design_seconds=design_wall, design_seconds_median=design_s,
+         design_launches=design_launches, design_busy_ms=design_busy_ms,
+         design_idle_share=1 - design_busy_ms / 1e3 / design_s,
+         note="random weights from seed 0 (not the published model); the "
+              "first guided sample; pass: one teacher-forced forward "
+              "(encoder and one decode pass), step: one decode pass of "
+              "the design loop; flops: the GEMMs by FlopCounterMode; "
+              "device_ms: CUDA-graph replay, eager/wall ms: launched from "
+              "Python; design: scorer.sample (encoder, then one decode "
+              "pass per residue, Gumbel draws on the card), its seconds "
+              "alone, its launches and busy ms under torch.profiler, idle "
+              "share = 1 - busy / the median seconds alone; step_profile: "
+              "a decode step's device ms by kernel class under "
+              "torch.profiler; syncs: sync "
+              "debug mode over one design (the host copies in and out)")
+    check(n_params == MPNN_PARAMS,
+          f"protein_eval: the MPNN has {n_params} parameters, the JAX one "
+          f"{MPNN_PARAMS}")
+    check(lp_diff <= MPNN_LP_TOL and bool(torch.isfinite(lp_d).all()),
+          f"protein_eval: log-probs differ by {lp_diff}")
+    check(sets_equal, "protein_eval: the card's k-NN sets differ from the "
+                      "CPU's")
+    check(first_diff is None,
+          f"protein_eval: the card's design differs from the CPU's: "
+          f"{first_diff}")
+    check(syncs < n // 4, f"protein_eval: {syncs} host syncs in one design "
+                          f"of {n} steps")
+    del cpu_model
+
+    # --- self_consistency_eval over the samples ---------------------------
+    sc_dir = os.path.join(work, "self_consistency")
+    os.makedirs(sc_dir)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rows = self_consistency_eval(structures, sc_dir, scorer=scorer,
+                                 n_seq=MPNN_N_SEQ)
+    sc_seconds = time.perf_counter() - t0
+    scores = [s for r in rows for s in r.get("protein_mpnn_scores", [])]
+    seq_lens = [{len(q) for q in r.get("protein_mpnn_seqs", [])}
+                for r in rows]
+    _, motif_idx = load_motif(None, None, PROTEIN["max_len"], SEED)
+    motif_idx = motif_idx.tolist()
+    motif_res = MOTIF_RES[:len(motif_idx)]
+    host = next(v for v in structures.values() if len(v) > max(motif_idx))
+    m_scores, m_seqs = proteinmpnn_scores(host, scorer, n_seq=MPNN_N_SEQ,
+                                          motif_inds=motif_idx,
+                                          motif_res=motif_res)
+    motif_kept = all("".join(q[i] for i in motif_idx) == motif_res
+                     for q in m_seqs)
+    emit(card_info, phase="protein_eval_self_consistency",
+         samples=len(rows), n_seq=MPNN_N_SEQ, seconds=sc_seconds,
+         seconds_per_sample=sc_seconds / len(rows),
+         score_min=min(scores), score_max=max(scores),
+         score_mean=sum(scores) / len(scores),
+         motif_indices=motif_idx, motif_res=motif_res,
+         motif_kept=motif_kept, motif_scores=m_scores.tolist(),
+         note="self_consistency_eval with the published-width MPNN "
+              "(random weights): per sample one design, then n_seq "
+              "teacher-forced re-scorings; ColabFold is absent, so the "
+              "refolding stage skips; then proteinmpnn_scores on one "
+              "sample with the sampling motif's indices fixed")
+    check(len(rows) == PROTEIN_SAMPLES
+          and len(scores) == PROTEIN_SAMPLES * MPNN_N_SEQ
+          and all(0 < s <= 1 for s in scores),
+          f"protein_eval: self-consistency scores {scores}")
+    check(seq_lens == [{ln} for ln in lengths],
+          f"protein_eval: sequence lengths {seq_lens} against {lengths}")
+    check(os.path.exists(os.path.join(sc_dir, "protein_mpnn_seqs.csv")),
+          "protein_eval: protein_mpnn_seqs.csv not written")
+    check(motif_kept, f"protein_eval: motif residues not kept: {m_seqs}")
+
+    # --- the evaluation CLI ---------------------------------------------
+    train_root = os.path.join(work, "scope")
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):  # it prints the summary
+        evaluate.main(["--sample_dir", sample_dir, "--train_root",
+                       train_root, "--novelty", "--compare_train",
+                       "--max_train", str(EVAL_MAX_TRAIN)])
+    main_seconds = time.perf_counter() - t0
+    with open(os.path.join(sample_dir, "summary_stats.json")) as f:
+        summary = json.load(f)
+    stat_rows = evaluate._read_csv(os.path.join(sample_dir,
+                                                "sample_stats.csv"))
+    ds = get_protein_data(train_root)
+    train = {f"train_{i}": ds.positions[i][:ds.lengths[i]] / (1.0 / 15.0)
+             for i in range(min(len(ds), EVAL_MAX_TRAIN))}
+    t0 = time.perf_counter()
+    found = [novelty.find_closest_structure(c, train)
+             for c in structures.values()]
+    scan_seconds = time.perf_counter() - t0
+    windows = sum(max(1, abs(len(c) - len(v))) for c in structures.values()
+                  for v in train.values())
+    n_s, n_t = NOVELTY_CHECK
+    keys = list(train)[:n_t]
+    scan_diff = 0.0
+    for c in list(structures.values())[:n_s]:
+        got = novelty.find_closest_structure(c, {k: train[k] for k in keys})
+        want = novelty._np_find_closest(
+            novelty._prep(c), keys, [novelty._prep(train[k]) for k in keys])
+        scan_diff = max([scan_diff] + [abs(got[k] - want[k]) for k in
+                                       ("rmsd", "tm_score", "gdt_score")])
+        check(all(got[k] == want[k] for k in got if k.endswith("_match")),
+              f"protein_eval: the C++ scan's matches {got} against {want}")
+    pipeline = evaluate.EvaluationPipeline(
+        list(evaluate.DEFAULT_STAGES) + [evaluate.make_novelty_stage(train)])
+    many = {}
+    for n_jobs in (1, -1):
+        t0 = time.perf_counter()
+        out_rows = pipeline.eval_many(structures, n_jobs=n_jobs)
+        many[str(n_jobs)] = time.perf_counter() - t0
+        check(len(out_rows) == PROTEIN_SAMPLES
+              and not any(k.endswith("_error") for r in out_rows for k in r),
+              f"protein_eval: eval_many(n_jobs={n_jobs}) rows {out_rows}")
+    worker = {"bare": spawn_seconds(["-c", "pass"]),
+              "import_evaluate": spawn_seconds(
+                  ["-c", "import tpu_diffusion_torch.protein.evaluate"])}
+    jax_keys = [f"{k}_{s}" for k in stat_rows[0]
+                if isinstance(stat_rows[0][k], float)
+                for s in ("mean", "std", "median")]
+    w1 = {k: v for k, v in summary.items() if k.endswith("_w1_vs_train")}
+    tm = [r["novelty_tm_score"] for r in stat_rows]
+    gdt = [r["novelty_gdt_score"] for r in stat_rows]
+    emit(card_info, phase="protein_eval_cli", samples=len(stat_rows),
+         lengths=lengths, max_train=EVAL_MAX_TRAIN,
+         main_seconds=main_seconds, novelty_scan_seconds=scan_seconds,
+         novelty_windows=windows,
+         novelty_tm_mean=sum(tm) / len(tm), novelty_gdt_mean=sum(gdt)
+         / len(gdt), novelty_rmsd_mean=sum(r["novelty_rmsd"]
+                                           for r in stat_rows) / len(tm),
+         scan_vs_numpy_max_abs_diff=scan_diff,
+         scan_check=f"{n_s} samples x {n_t} training chains",
+         eval_many_seconds=many, cpu_count=os.cpu_count(),
+         worker_start_seconds=worker, summary_keys=len(summary),
+         w1_fields=len(w1),
+         note="main: `python -m tpu_diffusion_torch.protein.evaluate "
+              "--novelty --compare_train --max_train 200` by its main(argv) "
+              "(the synthetic training chains: the repository holds no "
+              "SCOPe data); novelty scan: find_closest_structure of every "
+              "sample against the 200 chains, host C++; eval_many: the "
+              "default stages and the novelty stage, n_jobs 1 and -1 "
+              "(spawned process pool); worker_start: a fresh interpreter, "
+              "bare and importing the evaluation module (torch included)")
+    check(len(stat_rows) == PROTEIN_SAMPLES,
+          f"protein_eval: sample_stats.csv has {len(stat_rows)} rows")
+    check(all(k in summary for k in jax_keys) and w1,
+          f"protein_eval: summary_stats.json keys {sorted(summary)}")
+    check(all(0 <= v <= 1 for v in tm + gdt),
+          f"protein_eval: novelty TM {tm}, GDT {gdt}")
+    check(all(math.isfinite(v) for v in w1.values()),
+          f"protein_eval: Wasserstein fields {w1}")
+    check(scan_diff <= 1e-9,
+          f"protein_eval: the C++ scan differs from numpy by {scan_diff}")
+    check(all(0 <= f["tm_score"] <= 1 for f in found),
+          "protein_eval: novelty scan out of range")
+    del model, scorer
+    torch.cuda.empty_cache()
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2372,6 +2696,7 @@ def main():
     torch.cuda.empty_cache()
 
     # --- CIFAR-10 conditional flow matching: train, then FID ---------------
+    import os
     import shutil
     import tempfile
     out = tempfile.mkdtemp(prefix="chip_smoke_cfm_")
@@ -2387,6 +2712,12 @@ def main():
         sde_phase(torch, card_info, dev)
         # --- the protein stack at the reference width ------------------------
         protein_phase(torch, card_info, dev, out)
+        # --- the evaluation of its guided samples -----------------------------
+        protein_eval_work = os.path.join(out, "protein_eval")
+        os.makedirs(protein_eval_work)
+        protein_eval_phase(torch, card_info, dev,
+                           os.path.join(out, "protein_guided"),
+                           protein_eval_work)
     finally:
         shutil.rmtree(out, ignore_errors=True)
     for name, n in counts.items():

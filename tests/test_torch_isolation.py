@@ -45,8 +45,14 @@ def test_port_has_modules():
                    "protein/data.py", "protein/pdb.py",
                    "data/device_cache.py", "eval/plotting.py",
                    "cli/train_protein.py", "cli/sample_protein.py",
-                   "protein/sync_probe.py"):
+                   "protein/sync_probe.py", "protein/mpnn.py",
+                   "protein/self_consistency.py", "protein/novelty.py",
+                   "protein/evaluate.py", "protein/so3.py", "protein/se3.py",
+                   "protein/transforms.py", "data/storage.py",
+                   "data/minilmdb.py", "eval/f1max.py", "utils/debug.py",
+                   "utils/logging.py"):
         assert f"tpu_diffusion_torch/{module}" in names
+    assert (ROOT / "tpu_diffusion_torch" / "native" / "novelty.cpp").exists()
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: p.relative_to(ROOT)
@@ -66,7 +72,13 @@ def test_import_leaves_jax_unloaded():
             "tpu_diffusion_torch.cli.train_protein, "
             "tpu_diffusion_torch.cli.sample_protein, "
             "tpu_diffusion_torch.data.device_cache, "
-            "tpu_diffusion_torch.eval.plotting\n"
+            "tpu_diffusion_torch.eval.plotting, "
+            "tpu_diffusion_torch.protein.evaluate, "
+            "tpu_diffusion_torch.protein.mpnn, "
+            "tpu_diffusion_torch.protein.se3, "
+            "tpu_diffusion_torch.data.storage, "
+            "tpu_diffusion_torch.eval.f1max, "
+            "tpu_diffusion_torch.utils.debug\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{sorted(FORBIDDEN)!r})\n"
             "assert not bad, bad\n")

@@ -15,7 +15,11 @@ CIFAR-10 conditional flow matching (`losses/cfm.py`, `sampling/ode.py`,
 conditional CFM CLIs and the VP-SDE samplers; and the protein backbone
 diffusion stack (`protein/`, `cli/train_protein.py`,
 `cli/sample_protein.py`) with `Trainer.fit_scanned` and the
-device-resident batch samplers (`data/device_cache.py`).
+device-resident batch samplers (`data/device_cache.py`); the protein
+evaluation (`protein/evaluate.py`, the novelty scan over
+`native/novelty.cpp`, the self-consistency stage with the CA-ProteinMPNN),
+the SO(3)/SE(3) diffusers, the storage layer, `eval/f1max.py`,
+`utils/debug.py` and `utils/logging.py`.
 Hand-written Hopper kernels are in `kernels/`.
 """
 

@@ -10,7 +10,9 @@ evaluation feature networks (`feature_state_dict_from_flax`, `load_flax_npz`:
 `eval/inception.py:InceptionV3Features`, whose port modules carry the flax
 names, so a path maps to a key one to one), and the protein GVP denoiser
 (`gvp_denoiser_state_dict_from_flax`: `protein/denoiser.py:GVPDenoiser`,
-whose children carry the flax names too).
+whose children carry the flax names too), and the CA-ProteinMPNN
+(`mpnn_state_dict_from_flax`: `protein/mpnn.py:CAProteinMPNN`, whose
+children carry the public checkpoint's names).
 
 The flax tree (`tpu_diffusion/models/unet.py`, as nested dicts of numpy
 arrays) names its blocks as the port does (`enc_{l}_{i}`, `mid_attn`,
@@ -186,6 +188,47 @@ def gvp_denoiser_state_dict_from_flax(params: Mapping) -> dict:
     missing = [k for k in missing if k not in out]
     if missing:
         raise KeyError(f"the flax tree lacks {missing}")
+    return out
+
+
+# the JAX CA-ProteinMPNN's top-level names -> the public checkpoint's,
+# which the port's modules carry (`tpu_diffusion/protein/mpnn.py:402-432`)
+_MPNN_TOP = {"pos_enc": "features.embeddings.linear",
+             "edge_embedding": "features.edge_embedding",
+             "norm_edges": "features.norm_edges",
+             "W_e": "W_e", "W_s": "W_s", "W_out": "W_out"}
+_MPNN_LAYER = re.compile(r"(enc|dec)_(\d+)$")
+
+
+def mpnn_state_dict_from_flax(params: Mapping) -> dict:
+    """The JAX `CAProteinMPNN`'s weights -> the port's state_dict (the
+    public checkpoint's names). `params` is the flax tree (with or without
+    the top "params" level) or the flat npz the JAX `load_mpnn_scorer`
+    reads (`"params/enc_0/W1/kernel"`, ...). Dense `kernel` [in, out] ->
+    `weight` [out, in]; LayerNorm `scale` and the embedding -> `weight`. A
+    name with no counterpart raises KeyError; `protein/mpnn.py:
+    load_mpnn_state_dict` raises on a missing one."""
+    if any("/" in k for k in params):
+        flat = {tuple(k.split("/")): np.asarray(v)
+                for k, v in params.items()}
+    else:
+        flat = _flatten(params)
+    out = {}
+    for path, value in flat.items():
+        if path[0] == "params":
+            path = path[1:]
+        layer = _MPNN_LAYER.match(path[0])
+        if layer:
+            top = ("encoder_layers." if layer.group(1) == "enc"
+                   else "decoder_layers.") + layer.group(2)
+        elif path[0] in _MPNN_TOP:
+            top = _MPNN_TOP[path[0]]
+        else:
+            raise KeyError(f"{'/'.join(path)} has no counterpart in the "
+                           f"port's CAProteinMPNN")
+        name, arr = _leaf(path[-1], value)
+        out[".".join([top, *path[1:-1], name])] = torch.from_numpy(
+            np.array(arr, np.float32, order="C"))
     return out
 
 
