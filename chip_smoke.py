@@ -113,6 +113,19 @@ The CFM conditional CLIs (`cli/train_cfm_conditional.py`,
            model's (SR256_PARAMS), losses and eval metrics finite, 5 flash
            forward and 5 backward launches per step and 5 forward per eval
            NFE, the checkpoint read back equal;
+  parallel (a) the same CLI at that width, batch 8, 10 steps, with
+           --sequence_parallel --model_axis 1 in a one-rank NCCL world
+           (`parallel/distributed.py:initialize_distributed` from
+           COORDINATOR_ADDRESS / NUM_PROCESSES / PROCESS_ID) and with no
+           process group, in turns (mesh, plain, plain, mesh): ms per step
+           of each, the losses (the first step's bitwise equal, all within
+           1e-3: the bf16 flash backward's atomic dq sums vary from call to
+           call, plain against plain too), every sp decision "no mesh
+           axis", 5 flash forward and 5 backward launches per step; (b)
+           the ring (`parallel/sp.py:simulated_ring_attention`, 4 token
+           shards rotated on one card) at [32, 1024, 64] bf16 against the
+           flash kernels and the fp32 plain version, o and the gradients,
+           and its time as a simulated one-card figure;
   cfm_cond_64  weighted inpainting on flowers at its defaults (64px, 128
            channels, attention at 16x16: dense, no kernel), batch 32, 10
            steps, one eval batch of 8 by dopri5: ms per step, NFE, whether
@@ -1786,6 +1799,219 @@ def cfm_cond_sr256_phase(torch, card_info, out):
     return launches
 
 
+PAR_STEPS = 10
+RING_SHARDS = 4
+# the meshed run's losses after the first against the plain run's: the
+# bf16 flash backward's atomic dq sums vary in their last bits from call to
+# call, so two plain runs differ too (by 1.5e-5 at most over 10 steps on an
+# H100, PERF.md); the first step sees the same weights and must agree
+# bitwise
+PAR_LOSS_RTOL = 1e-4
+
+
+def parallel_phase(torch, card_info, dev, out):
+    """(a) `train_cfm_conditional.main` at the SR256 width (batch SR_BATCH,
+    PAR_STEPS steps, Euler-20 eval) with `--sequence_parallel --model_axis
+    1` in a one-rank NCCL world (COORDINATOR_ADDRESS / NUM_PROCESSES /
+    PROCESS_ID, `initialize_distributed`), then with no process group in
+    the same process, four runs in turns (mesh, plain, plain, mesh): ms
+    per step, losses and `sp_decisions` of each, and the meshed run's
+    flash launches. (b) The ring's arithmetic on the
+    card: `simulated_ring_attention` over RING_SHARDS token shards at
+    [32, 1024, 64] bf16 against the flash kernels and the fp32 plain
+    version, values and gradients, and its time (a simulated one-card
+    figure). Returns the flash launches of (a)'s meshed run."""
+    import os
+
+    import torch.distributed as dist
+    from tpu_diffusion_torch.cli import train_cfm_conditional as cc
+    from tpu_diffusion_torch.kernels import attention
+    from tpu_diffusion_torch.parallel import distributed, sp
+    from tpu_diffusion_torch.parallel.dryrun import free_port
+    args = ["--task", "superres", "--dataset", "synthetic256", "--model",
+            "icfm", "--batch_size", str(SR_BATCH), "--num_steps",
+            str(PAR_STEPS), "--warmup", "5", "--eval_batches", "1",
+            "--eval_batch_size", str(SR_BATCH), "--eval_method", "euler",
+            "--eval_ode_steps", str(SR_EVAL_STEPS), "--eval_every_div", "0"]
+    env = {"NUM_PROCESSES": "1", "PROCESS_ID": "0"}
+    runs = []
+    try:
+        # in turns: the meshed and the plain run twice each
+        for name in ("mesh", "plain", "plain", "mesh"):
+            extra = []
+            if name == "mesh":
+                os.environ.update(env, COORDINATOR_ADDRESS=(
+                    f"127.0.0.1:{free_port()}"))
+                check(distributed.initialize_distributed(device=dev),
+                      "parallel: no process group")
+                backend, world = dist.get_backend(), dist.get_world_size()
+                extra = ["--sequence_parallel", "--model_axis", "1"]
+            sp.reset_sp_decisions()
+            attention.flash_fwd_launches = 0
+            attention.flash_bwd_launches = 0
+            with TimedTrainer(cc) as trace:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res = cc.main(args + extra + [
+                    "--output_dir", os.path.join(out, f"{name}{len(runs)}")])
+                torch.cuda.synchronize()
+            first_ms, later = step_times(t0, trace)
+            per_step = [(f1 - f0, b1 - b0) for (_, _, f0, b0), (_, _, f1, b1)
+                        in zip([(0, 0, 0, 0)] + trace, trace)]
+            runs.append({
+                "run": name, "losses": [l for _, l, _, _ in trace],
+                "first_step_ms": first_ms,
+                "ms_per_step_median": later[len(later) // 2],
+                "ms_per_step_min": later[0], "ms_per_step_max": later[-1],
+                "seconds": time.perf_counter() - t0,
+                "sp_decisions": sorted({(d["reason"], d["tokens"],
+                                         d["axis_size"])
+                                        for d in sp.sp_decisions()}),
+                "n_sp_decisions": len(sp.sp_decisions()),
+                "flash_launches_per_step": per_step,
+                "flash_fwd_launches": attention.flash_fwd_launches,
+                "flash_bwd_launches": attention.flash_bwd_launches,
+                "eval": res["results"]})
+            del res
+            if dist.is_initialized():
+                dist.destroy_process_group()
+            torch.cuda.empty_cache()
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for key in list(env) + ["COORDINATOR_ADDRESS"]:
+            os.environ.pop(key, None)
+    mesh, plain = runs[0], runs[1]
+
+    def loss_diffs(a, b):
+        return ([x == y for x, y in zip(a["losses"], b["losses"])],
+                max(abs(x - y) / abs(y) for x, y in zip(a["losses"],
+                                                        b["losses"])))
+
+    bitwise, max_diff = loss_diffs(mesh, plain)
+    plain_bitwise, plain_diff = loss_diffs(runs[2], plain)
+    ms = {kind: [r["ms_per_step_median"] for r in runs if r["run"] == kind]
+          for kind in ("mesh", "plain")}
+    emit(card_info, phase="parallel", part="a_one_rank_nccl_world",
+         backend=backend, world_size=world, batch=SR_BATCH, steps=PAR_STEPS,
+         runs=runs, losses_bitwise_equal_mesh_plain=bitwise,
+         max_rel_loss_diff_mesh_plain=max_diff,
+         losses_bitwise_equal_plain_plain=plain_bitwise,
+         max_rel_loss_diff_plain_plain=plain_diff,
+         max_rel_loss_diff_bound=PAR_LOSS_RTOL,
+         ms_per_step_median_mesh=ms["mesh"],
+         ms_per_step_median_plain=ms["plain"],
+         step_ms_ratio_mesh_over_plain=sum(ms["mesh"]) / sum(ms["plain"]),
+         note="the SR256 CFM CLI (128 channels, (1,1,2,2,4,4), attention "
+              "at 32/16/8, bf16 forward, fp32 parameters) from one seed, "
+              "four runs in turns (mesh, plain, plain, mesh): mesh: a "
+              "one-rank NCCL world, --sequence_parallel --model_axis 1 "
+              "(the state broadcast from rank 0, the gradients and the "
+              "loss all-reduced over 'data', the ring declined: one rank "
+              "on 'model'); plain: no process group; ms per step: host "
+              "clock between per-step metric reads over steps 2-10; the "
+              "first step of every run sees the same weights and batch, "
+              "so its loss must agree bitwise; later steps inherit the "
+              "bf16 flash backward's atomic dq sums, whose last bits vary "
+              "from call to call (compare plain with plain)")
+    check(backend == ("nccl" if dev.type == "cuda" else "gloo")
+          and world == 1,
+          f"parallel: backend {backend}, world {world}")
+    check(all(len(r["losses"]) == PAR_STEPS
+              and all(math.isfinite(l) for l in r["losses"]) for r in runs),
+          f"parallel: losses {[r['losses'] for r in runs]}")
+    check(bitwise[0] and max_diff <= PAR_LOSS_RTOL,
+          f"parallel: meshed losses {mesh['losses']} against plain "
+          f"{plain['losses']}")
+    check(all(r[0] == "no mesh axis" for run in runs
+              for r in run["sp_decisions"])
+          and all((run["n_sp_decisions"] > 0) == (run["run"] == "mesh")
+                  for run in runs),
+          f"parallel: sp decisions {[r['sp_decisions'] for r in runs]}")
+    check(all(d == (5, 5) for d in mesh["flash_launches_per_step"])
+          and mesh["flash_fwd_launches"] - 5 * PAR_STEPS
+          == 5 * SR_EVAL_STEPS,
+          f"parallel: flash launches {mesh['flash_launches_per_step']}, "
+          f"{mesh['flash_fwd_launches']} forward in all")
+    launches = {"flash_attention_fwd": mesh["flash_fwd_launches"],
+                "flash_attention_bwd": mesh["flash_bwd_launches"]}
+
+    # (b) the ring against the flash kernels, in bf16 at the SR256 shape
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+    bh, t, d = 32, 1024, 64
+    q, k, v, g = (torch.randn((bh, t, d), generator=gen, device=dev)
+                  .to(torch.bfloat16) for _ in range(4))
+
+    def grads(fn, dtype):
+        xs = [x.detach().to(dtype).requires_grad_(True) for x in (q, k, v)]
+        with torch.enable_grad():
+            o = fn(*xs)
+            return (o,) + torch.autograd.grad(o, xs, g.to(dtype))
+
+    def ring(a, b, c):
+        return sp.simulated_ring_attention(a, b, c, RING_SHARDS)
+
+    def plain32(a, b, c):
+        s = torch.einsum("...qd,...kd->...qk", a * d ** -0.5, b)
+        return torch.softmax(s, -1) @ c
+
+    got = grads(ring, torch.bfloat16)
+    kern = grads(attention.flash_attention, torch.bfloat16)
+    want = grads(plain32, torch.float32)
+    torch.cuda.synchronize()
+
+    def rel_errs(xs, ys):
+        return [((a.float() - b.float()).abs().max()
+                 / b.float().abs().max()).item() for a, b in zip(xs, ys)]
+
+    # tolerance, relative to each tensor's largest entry: the ring returns
+    # bf16, and in the backward each shard's k/v gradient is rounded to
+    # bf16 once per rotation and summed in bf16 over the shards, as in the
+    # JAX ring: at most 2 * shards - 1 roundings of 2^-9; against the
+    # kernels, plus their own 1e-2 (the flash_kernel phase's)
+    ring_tol = (2 * RING_SHARDS - 1) * 2.0 ** -9
+    ring_vs_plain = rel_errs(got, want)
+    ring_vs_kernel = rel_errs(got, kern)
+    kernel_vs_plain = rel_errs(kern, want)
+    with torch.no_grad():
+        ring_fwd = time_ms(lambda: ring(q, k, v), iters=5)
+        flash_fwd = time_ms(lambda: attention.flash_attention(q, k, v),
+                            iters=5)
+    ring_fwd_bwd = time_ms(lambda: grads(ring, torch.bfloat16), iters=5)
+    flash_fwd_bwd = time_ms(
+        lambda: grads(attention.flash_attention, torch.bfloat16), iters=5)
+    emit(card_info, phase="parallel", part="b_ring_arithmetic",
+         shape=[bh, t, d], dtype="bfloat16", shards=RING_SHARDS,
+         rel_err_ring_vs_fp32_plain_o_dq_dk_dv=ring_vs_plain,
+         rel_err_ring_vs_flash_kernels_o_dq_dk_dv=ring_vs_kernel,
+         rel_err_flash_kernels_vs_fp32_plain_o_dq_dk_dv=kernel_vs_plain,
+         rel_tol_ring=ring_tol, rel_tol_ring_vs_kernels=ring_tol + 1e-2,
+         ring_fwd_ms_simulated=ring_fwd[0],
+         ring_fwd_eager_ms_simulated=ring_fwd[1],
+         flash_fwd_ms=flash_fwd[0], flash_fwd_eager_ms=flash_fwd[1],
+         ring_fwd_bwd_ms_simulated=ring_fwd_bwd[0],
+         ring_fwd_bwd_eager_ms_simulated=ring_fwd_bwd[1],
+         flash_fwd_bwd_ms=flash_fwd_bwd[0],
+         flash_fwd_bwd_eager_ms=flash_fwd_bwd[1],
+         note="simulated_ring_attention: the per-rank arithmetic of "
+              f"{RING_SHARDS} ranks run on this one card, the rotation a "
+              "shift of a list (no communication): fp32 einsums over "
+              "[256, 256] score blocks per head; its times are a simulated "
+              "one-card figure, not a multi-card one. Errors: max |x - "
+              "ref| over max |ref| for o, dq, dk, dv; the plain version is "
+              "fp32 softmax attention on the same bf16-rounded inputs; "
+              "ms: device time (CUDA graph), eager_ms: launched from "
+              "Python between CUDA events")
+    check(all(e <= ring_tol for e in ring_vs_plain),
+          f"parallel ring: errors against fp32 {ring_vs_plain}")
+    check(all(e <= ring_tol + 1e-2 for e in ring_vs_kernel),
+          f"parallel ring: errors against the flash kernels "
+          f"{ring_vs_kernel}")
+    del got, kern, want
+    torch.cuda.empty_cache()
+    return launches
+
+
 def cfm_cond_64_phase(torch, card_info, out):
     """`train_cfm_conditional.main --task inpaint --weighted_loss` on flowers
     at its defaults (64px, 128 channels, attention at 16x16: T=256, dense,
@@ -2707,6 +2933,9 @@ def main():
         # --- the CFM conditional CLIs and the SDE samplers ------------------
         for name, n in cfm_cond_sr256_phase(torch, card_info, out).items():
             counts[name] += n
+        # --- parallelism: a one-rank NCCL world and the ring ---------------
+        for name, n in parallel_phase(torch, card_info, dev, out).items():
+            counts[name] += n
         cfm_cond_64_phase(torch, card_info, out)
         cond_mnist_phase(torch, card_info, out)
         sde_phase(torch, card_info, dev)
@@ -2752,14 +2981,17 @@ def main():
                                "forward at batch 8 (5 at [32,1024,64]); "
                                "launches: the five conditional sampling "
                                "runs, the 20 training steps, the "
-                               "eval_metrics run and the cfm_cond_sr256 "
-                               "run (20 steps and its Euler-20 eval)",
+                               "eval_metrics run, the cfm_cond_sr256 "
+                               "run (20 steps and its Euler-20 eval) and "
+                               "the parallel phase's first meshed run (10 "
+                               "steps and its Euler-20 eval)",
         "flash_attention_bwd": "one guidance gradient through the 64px UNet "
                                "at batch 32 (5 calls at [128,1024,64]) plus "
                                "one SR256 training step at batch 8 (5 at "
                                "[32,1024,64]); launches: the guidance run, "
-                               "the 20 DDPM training steps and the 20 "
-                               "cfm_cond_sr256 steps; max_rel_err: the "
+                               "the 20 DDPM training steps, the 20 "
+                               "cfm_cond_sr256 steps and the parallel "
+                               "phase's 10 meshed steps; max_rel_err: the "
                                "largest |dq, dk, dv - plain| over each "
                                "gradient's largest entry",
         "fused_resblock": "one full CIFAR UNet forward through the engine "

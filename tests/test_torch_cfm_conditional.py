@@ -35,6 +35,7 @@ from tpu_diffusion_torch.convert import (heads_state_dict_from_flax,
                                          wrapper_state_dict_from_flax)
 from tpu_diffusion_torch.losses import cfm
 from tpu_diffusion_torch.models import unet
+from tpu_diffusion_torch.parallel import sp
 from tpu_diffusion_torch.train import trainer
 from tpu_diffusion_torch.train.checkpoint import CheckpointManager
 
@@ -625,10 +626,39 @@ def test_train_cfm_conditional_cli(tmp_path, extra):
     assert set(saved["params"]) == set(out["state"].params)
 
 
-def test_train_cfm_conditional_refuses_the_mesh(tmp_path):
-    for flag in (["--model_axis", "2"], ["--sequence_parallel"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-            cfmc.main(["--output_dir", str(tmp_path)] + CFM_ARGS + flag)
+def test_train_cfm_conditional_refuses_the_mesh(tmp_path, monkeypatch):
+    """The CLI's mesh flags reach the model and the Trainer (the JAX
+    tests/test_sp_tp_surface.py:71-84): `--sequence_parallel` hands the
+    mesh to every attention block (each runs its local attention on the
+    one-rank "model" axis of a one-process run, logged "no mesh axis"), and
+    the Trainer and the optimizer get the mesh (the Trainer
+    `tensor_parallel=False`); `--model_axis 2`
+    is refused in one process, with the JAX package's make_mesh message.
+    The ring itself engages in tests/test_torch_parallel_world.py."""
+    with pytest.raises(ValueError, match="1 devices not divisible by "
+                                         "model=2"):
+        cfmc.main(["--output_dir", str(tmp_path)] + CFM_ARGS
+                  + ["--model_axis", "2"])
+    seen = {}
+
+    class Recording(trainer.Trainer):
+        def __init__(self, *args, mesh=None, tensor_parallel=False, **kw):
+            seen.update(mesh=mesh, tensor_parallel=tensor_parallel)
+            super().__init__(*args, mesh=mesh,
+                             tensor_parallel=tensor_parallel, **kw)
+
+    monkeypatch.setattr(cfmc, "Trainer", Recording)
+    sp.reset_sp_decisions()
+    out = cfmc.main(["--output_dir", str(tmp_path)] + CFM_ARGS
+                    + ["--sequence_parallel"])
+    blocks = [m for m in out["state"].model.modules()
+              if isinstance(m, unet.AttentionBlock)]
+    assert blocks and all(b.sp_mesh is seen["mesh"] for b in blocks)
+    assert seen["mesh"].shape == {"data": 1, "model": 1}
+    assert out["state"].optimizer.mesh is seen["mesh"]
+    assert seen["tensor_parallel"] is False
+    reasons = {d["reason"] for d in sp.sp_decisions()}
+    assert reasons == {"no mesh axis"}
 
 
 @pytest.mark.parametrize("variant", ["cfm", "otcfm", "sf2m"])

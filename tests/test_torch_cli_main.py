@@ -3,6 +3,7 @@ package, on the CPU."""
 
 import json
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -10,9 +11,13 @@ import torch
 
 from torch_twin import one_torch_thread  # noqa: F401
 from tpu_diffusion.eval.metrics import eval_statistics as jax_statistics
+from tpu_diffusion.parallel.mesh import make_mesh as jax_make_mesh
 from tpu_diffusion.utils import config as jax_config
 from tpu_diffusion_torch.cli import main as cli
 from tpu_diffusion_torch.conditioning import guidance, likelihoods
+from tpu_diffusion_torch.models import unet
+from tpu_diffusion_torch.parallel import sp
+from tpu_diffusion_torch.parallel.mesh import make_mesh
 from tpu_diffusion_torch.utils import config
 
 
@@ -83,11 +88,56 @@ def test_build_geometry(spec, in_channels, lik, cond):
             "enc_attn_1_1"]
 
 
-def test_build_rejects_the_mesh():
-    cfg = config.get_config("flowers,inpainting,amortized")
-    config.apply_overrides(cfg, ["mesh.model_axis=2"])
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        cli.build(cfg, device="meta")
+def test_build_rejects_the_mesh(tmp_path, monkeypatch):
+    """The mesh knobs reach the model and the Trainer (the JAX
+    tests/test_sp_tp_surface.py:87-101): `network.sequence_parallel` hands
+    the mesh to every attention block, which runs its local attention on a
+    one-rank "model" axis; `main` passes the mesh and `tensor_parallel`
+    (mesh.model_axis > 1) to the Trainer and the mesh to the optimizer; a
+    `mesh.model_axis` that one process cannot hold is rejected with the JAX
+    package's message."""
+    cfg = config.get_config("mnist,inpainting,amortized")
+    config.apply_overrides(cfg, ["network.sequence_parallel=True",
+                                 "network.num_channels=16",
+                                 "network.num_head_channels=16"])
+    mesh = make_mesh(model=cfg.mesh.model_axis)
+    parts = cli.build(cfg, device="cpu", mesh=mesh)
+    blocks = [m for m in parts["model"].modules()
+              if isinstance(m, unet.AttentionBlock)]
+    assert blocks and all(b.sp_mesh is mesh for b in blocks)
+    sp.reset_sp_decisions()
+    with torch.no_grad():
+        out = parts["model"](torch.zeros(4, 28, 28, parts["in_channels"]),
+                             torch.zeros(4))
+    assert out.shape == (4, 28, 28, 1)
+    assert [d["reason"] for d in sp.sp_decisions()] == (
+        ["no mesh axis"] * len(blocks))
+
+    class Seen(Exception):
+        pass
+
+    def record(train_step, state, *args, mesh=None, tensor_parallel=False,
+               **kw):
+        raise Seen(mesh, tensor_parallel, state.optimizer.mesh)
+
+    monkeypatch.setattr(cli, "Trainer", record)
+    args = ["--config", "mnist,inpainting,amortized", "--mode", "train",
+            "--device", "cpu", "--workdir", str(tmp_path)]
+    for o in ["network.sequence_parallel=True", "network.num_channels=16",
+              "network.num_head_channels=16", "training.num_steps=2",
+              "diffusion.num_steps=25"]:
+        args += ["--override", o]
+    with pytest.raises(Seen) as seen:
+        cli.main(args)
+    got_mesh, tensor_parallel, optimizer_mesh = seen.value.args
+    assert got_mesh.shape == {"data": 1, "model": 1}
+    assert optimizer_mesh is got_mesh
+    assert tensor_parallel is False
+    with pytest.raises(ValueError) as err:
+        cli.main(args + ["--override", "mesh.model_axis=2"])
+    with pytest.raises(ValueError) as want:
+        jax_make_mesh(model=2, devices=jax.devices()[:1])
+    assert str(err.value) == str(want.value)
 
 
 EVAL_OVERRIDES = ["testing.num_test=4", "testing.batch_size=2",

@@ -50,7 +50,9 @@ def test_port_has_modules():
                    "protein/evaluate.py", "protein/so3.py", "protein/se3.py",
                    "protein/transforms.py", "data/storage.py",
                    "data/minilmdb.py", "eval/f1max.py", "utils/debug.py",
-                   "utils/logging.py"):
+                   "utils/logging.py", "parallel/mesh.py",
+                   "parallel/distributed.py", "parallel/tp.py",
+                   "parallel/sp.py", "parallel/dryrun.py"):
         assert f"tpu_diffusion_torch/{module}" in names
     assert (ROOT / "tpu_diffusion_torch" / "native" / "novelty.cpp").exists()
 
@@ -78,9 +80,31 @@ def test_import_leaves_jax_unloaded():
             "tpu_diffusion_torch.protein.se3, "
             "tpu_diffusion_torch.data.storage, "
             "tpu_diffusion_torch.eval.f1max, "
-            "tpu_diffusion_torch.utils.debug\n"
+            "tpu_diffusion_torch.utils.debug, "
+            "tpu_diffusion_torch.parallel.dryrun\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{sorted(FORBIDDEN)!r})\n"
             "assert not bad, bad\n")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
                    timeout=120)
+
+
+def test_evaluation_imports_leave_torch_unloaded():
+    """The package root loads its names on first use, so the evaluation
+    modules a spawned `eval_many` worker unpickles from load numpy only."""
+    code = ("import sys, tpu_diffusion_torch.protein.evaluate, "
+            "tpu_diffusion_torch.protein.novelty\n"
+            "assert 'torch' not in sys.modules, sorted(sys.modules)\n")
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
+                   timeout=120)
+
+
+def test_every_root_name_resolves():
+    import tpu_diffusion_torch as root
+    from tpu_diffusion_torch.core.schedules import DDPM
+    assert root.DDPM is DDPM
+    for name in root.__all__:
+        assert getattr(root, name) is not None, name
+    assert set(root.__all__) <= set(dir(root))
+    with pytest.raises(AttributeError):
+        root.not_a_name

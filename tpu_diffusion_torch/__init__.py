@@ -19,27 +19,39 @@ device-resident batch samplers (`data/device_cache.py`); the protein
 evaluation (`protein/evaluate.py`, the novelty scan over
 `native/novelty.cpp`, the self-consistency stage with the CA-ProteinMPNN),
 the SO(3)/SE(3) diffusers, the storage layer, `eval/f1max.py`,
-`utils/debug.py` and `utils/logging.py`.
+`utils/debug.py` and `utils/logging.py`; and parallelism over
+`torch.distributed` (`parallel/`: the ("data", "model") mesh, tensor and
+ring-attention sequence parallelism) in the UNet, the Trainer and the CLIs.
 Hand-written Hopper kernels are in `kernels/`.
+
+The names below load on first use, so importing a submodule that needs no
+torch (`protein.evaluate`, `protein.novelty`) loads none: a spawned worker
+that unpickles a function from one starts in a fraction of a second.
 """
 
-from tpu_diffusion_torch.conditioning import (Amortized, HyperResolution,
-                                              InPainting, OutPainting,
-                                              ReconstructionGuidance,
-                                              Replacement, get_conditioning,
-                                              get_likelihood)
-from tpu_diffusion_torch.convert import (load_flax_train_state,
-                                         unet_state_dict_from_flax)
-from tpu_diffusion_torch.core.schedules import DDPM
-from tpu_diffusion_torch.eval.metrics import eval_statistics
-from tpu_diffusion_torch.losses.ddpm import make_eps_model
-from tpu_diffusion_torch.models.unet import create_model
-from tpu_diffusion_torch.models.unet_infer import (FusedUNetInference,
-                                                   make_fused_apply)
-from tpu_diffusion_torch.sampling.ancestral import (
-    make_cached_amortized_sampler, make_cached_ddim_sampler,
-    make_conditional_sampler, make_ddim_sampler, make_prior_sampler)
-from tpu_diffusion_torch.utils.config import apply_overrides, get_config
+import importlib
+
+# name -> the module that defines it
+_LAZY = {
+    "Amortized": "conditioning", "HyperResolution": "conditioning",
+    "InPainting": "conditioning", "OutPainting": "conditioning",
+    "ReconstructionGuidance": "conditioning", "Replacement": "conditioning",
+    "get_conditioning": "conditioning", "get_likelihood": "conditioning",
+    "load_flax_train_state": "convert",
+    "unet_state_dict_from_flax": "convert",
+    "DDPM": "core.schedules",
+    "eval_statistics": "eval.metrics",
+    "make_eps_model": "losses.ddpm",
+    "create_model": "models.unet",
+    "FusedUNetInference": "models.unet_infer",
+    "make_fused_apply": "models.unet_infer",
+    "make_cached_amortized_sampler": "sampling.ancestral",
+    "make_cached_ddim_sampler": "sampling.ancestral",
+    "make_conditional_sampler": "sampling.ancestral",
+    "make_ddim_sampler": "sampling.ancestral",
+    "make_prior_sampler": "sampling.ancestral",
+    "apply_overrides": "utils.config", "get_config": "utils.config",
+}
 
 __all__ = ["Amortized", "DDPM", "FusedUNetInference", "HyperResolution",
            "InPainting", "load_flax_train_state", "make_fused_apply",
@@ -49,3 +61,17 @@ __all__ = ["Amortized", "DDPM", "FusedUNetInference", "HyperResolution",
            "make_cached_amortized_sampler", "make_cached_ddim_sampler",
            "make_conditional_sampler", "make_ddim_sampler", "make_eps_model",
            "make_prior_sampler", "unet_state_dict_from_flax"]
+
+
+def __getattr__(name):
+    if name not in _LAZY:
+        raise AttributeError(f"module {__name__!r} has no attribute "
+                             f"{name!r}")
+    value = getattr(importlib.import_module(f"{__name__}.{_LAZY[name]}"),
+                    name)
+    globals()[name] = value
+    return value
+
+
+def __dir__():
+    return sorted(set(globals()) | set(__all__))

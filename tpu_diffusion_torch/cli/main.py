@@ -21,9 +21,13 @@ the versioned experiment directory `logs/<ds>_<cond>_<lik>/version_XX`;
 features (`testing.fid_features`), with the caveat fields of
 `eval/fid.py:fid_caveat`. The default LPIPS and FID features are random
 (fixed torch seeds): self-consistent only. `--mode all` does both. Runs on
-the CUDA card unless `--device cpu`. Not ported yet, and raising when asked
-for: the mesh (ROADMAP A10). With no checkpoint, `--mode eval` evaluates the
-model's random initialisation, as the JAX package does, and says so.
+the CUDA card unless `--device cpu`. `mesh.model_axis` sets the mesh's
+"model" axis (the parameters sharded over it when > 1) and
+`network.sequence_parallel` hands the mesh to the UNet's attention (ring
+attention over "model"); under COORDINATOR_ADDRESS / NUM_PROCESSES /
+PROCESS_ID each process is one rank of the mesh. With no checkpoint,
+`--mode eval` evaluates the model's random initialisation, as the JAX
+package does, and says so.
 """
 
 from __future__ import annotations
@@ -49,6 +53,9 @@ from tpu_diffusion_torch.eval.lpips import PerceptualDistance
 from tpu_diffusion_torch.eval.metrics import eval_statistics
 from tpu_diffusion_torch.losses.ddpm import get_loss_function
 from tpu_diffusion_torch.models.unet import create_model, resolve_device
+from tpu_diffusion_torch.parallel.distributed import initialize_distributed
+from tpu_diffusion_torch.parallel.mesh import make_mesh
+from tpu_diffusion_torch.parallel.tp import full_tensor
 from tpu_diffusion_torch.sampling.ancestral import (
     make_cached_amortized_sampler, make_conditional_sampler,
     make_prior_sampler)
@@ -77,14 +84,11 @@ def experiment_dir(base: str, spec: str) -> str:
     return path
 
 
-def build(config, device="cuda") -> dict:
+def build(config, device="cuda", mesh=None) -> dict:
     """Instantiate model/process/likelihood/conditioning; returns a dict of
-    parts (mirrors main.py:100-142)."""
+    parts (mirrors main.py:100-142). With `network.sequence_parallel` the
+    UNet's attention takes `mesh`."""
     dsc, net_c = config.dataset, config.network
-    if net_c.get("sequence_parallel", False) or config.mesh.model_axis > 1:
-        raise NotImplementedError(
-            "network.sequence_parallel / mesh.model_axis > 1: the mesh is "
-            "not ported yet (ROADMAP A10)")
     likelihood = None
     if config.likelihood.name != "none":
         likelihood = get_likelihood(config.likelihood.name).from_configdict(
@@ -105,19 +109,20 @@ def build(config, device="cuda") -> dict:
         dropout=net_c.dropout, use_scale_shift_norm=net_c.use_scale_shift_norm,
         attention_impl=net_c.attention_impl,
         dtype=torch.bfloat16 if net_c.dtype == "bfloat16" else torch.float32,
-        device=device)
+        device=device,
+        sp_mesh=mesh if net_c.get("sequence_parallel", False) else None)
     ddpm = DDPM.create(config.diffusion.num_steps).to(device)
     return dict(model=model, ddpm=ddpm, likelihood=likelihood,
                 conditioning=conditioning, in_channels=in_channels)
 
 
-def init_state(config, parts):
+def init_state(config, parts, mesh=None):
     """(train state, tensors warm-started) for `parts["model"]` (already
     initialised from `training.seed`): a `network.model_path` warm start
     copies every shape-matching tensor of the newest checkpoint there (its
-    EMA parameters when it has them), then Adam with the config's schedule,
-    the EMA, and the generator of the training draws on the model's device.
-    The count (0 = none) lets --mode eval tell "evaluating warm-started
+    EMA parameters when it has them), then Adam with the config's schedule
+    (averaging the gradients over `mesh`'s "data" axis), the EMA, and the
+    generator of the training draws on the model's device. The count (0 = none) lets --mode eval tell "evaluating warm-started
     pretrained weights" from "evaluating the random initialisation"."""
     warm_started = 0
     model = parts["model"]
@@ -139,7 +144,7 @@ def init_state(config, parts):
     optimizer = make_optimizer(
         model.parameters(), tr.learning_rate, warmup=tr.warmup,
         grad_clip=tr.grad_clip, total_steps=max(tr.num_steps, 1),
-        schedule=tr.lr_schedule)
+        schedule=tr.lr_schedule, mesh=mesh)
     device = next(model.parameters()).device
     generator = torch.Generator(device=device).manual_seed(tr.seed)
     return TrainState.create(model, optimizer, generator), warm_started
@@ -147,10 +152,11 @@ def init_state(config, parts):
 
 @torch.no_grad()
 def set_params(model, params) -> None:
-    """Copy {name: tensor} into the model's parameters."""
+    """Copy {name: tensor} into the model's parameters (the full tensor of
+    a value sharded over "model")."""
     own = dict(model.named_parameters())
     for name, value in params.items():
-        own[name].copy_(value)
+        own[name].copy_(full_tensor(value))
 
 
 def make_loss(parts):
@@ -318,6 +324,8 @@ def main(argv: Optional[list] = None):
     config = get_config(args.config)
     apply_overrides(config, args.override)
     device = resolve_device(args.device)
+    initialize_distributed(device=device)
+    mesh = make_mesh(model=config.mesh.model_axis)
     logdir = args.workdir or experiment_dir(config.logdir, args.config)
     os.makedirs(logdir, exist_ok=True)
     writer = MultiWriter([LocalWriter(logdir),
@@ -325,7 +333,7 @@ def main(argv: Optional[list] = None):
     writer.log_hparams(config.to_dict())
 
     torch.manual_seed(config.training.seed)  # the model's random init
-    parts = build(config, device)
+    parts = build(config, device, mesh)
     dsc = config.dataset
     train_ds = get_dataset(dsc.name)(dsc.root, train=True)
 
@@ -335,7 +343,7 @@ def main(argv: Optional[list] = None):
                      // config.training.batch_size)
         config.training.num_steps = num_steps
 
-    state, warm_started = init_state(config, parts)
+    state, warm_started = init_state(config, parts, mesh)
     cond_sample, prior_sample = make_samplers(config, parts)
     train_step = make_train_step(
         make_loss(parts), ema_decay=config.training.ema_decay,
@@ -398,8 +406,10 @@ def main(argv: Optional[list] = None):
             PeriodicCallback(callback_fn=plot_samples, every_steps=every),
             PeriodicCallback(callback_fn=periodic_eval, every_steps=every),
         ]
-        state = Trainer(train_step, state, batches,
-                        callbacks=callbacks).fit(num_steps)
+        state = Trainer(train_step, state, batches, mesh=mesh,
+                        callbacks=callbacks,
+                        tensor_parallel=config.mesh.model_axis > 1
+                        ).fit(num_steps)
         save_ckpt(state.step, state)
 
     results = None

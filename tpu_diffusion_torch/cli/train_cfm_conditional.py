@@ -24,10 +24,11 @@ the test images' conditions by the ODE (`--eval_method`; dopri5 at tol
 eval writes `results.json`, image grids and a checkpoint {params, ema,
 step} under `<output_dir>/<dataset>_<task>_<model>/ckpt/`. LPIPS, which the
 reference also reports, needs pretrained VGG weights that the repo does not
-hold, and is left out, as the JAX CLI leaves it out without them. Not
-ported, and raising when asked for: `--model_axis > 1` and
-`--sequence_parallel` (ROADMAP A10). Runs on the CUDA card unless
-`--device cpu`.
+hold, and is left out, as the JAX CLI leaves it out without them.
+`--model_axis` sets the mesh's "model" axis (the parameters sharded over it
+when > 1) and `--sequence_parallel` runs attention as a ring over it; under
+COORDINATOR_ADDRESS / NUM_PROCESSES / PROCESS_ID each process is one rank.
+Runs on the CUDA card unless `--device cpu`.
 """
 
 from __future__ import annotations
@@ -50,6 +51,8 @@ from tpu_diffusion_torch.losses.cfm import get_matcher
 from tpu_diffusion_torch.models.unet import (InPaintModelWrapper,
                                              SuperResModelWrapper,
                                              resolve_device)
+from tpu_diffusion_torch.parallel.distributed import initialize_distributed
+from tpu_diffusion_torch.parallel.mesh import make_mesh
 from tpu_diffusion_torch.sampling.ode import odeint
 from tpu_diffusion_torch.train.actions import PeriodicCallback
 from tpu_diffusion_torch.train.checkpoint import CheckpointManager
@@ -63,9 +66,9 @@ _IMAGE_SIZES = {"mnist": 28, "flowers": 64, "celeba": 64,
 
 
 def build(task: str, dataset: str, attention_impl: str = "auto",
-          num_channels: int = 0, device="cuda"):
+          num_channels: int = 0, device="cuda", sp_mesh=None):
     """(wrapper, (H, W, C)) of the dataset's config; `attention_impl` in
-    the port's names."""
+    the port's names; `sp_mesh` for ring attention."""
     image_size = _IMAGE_SIZES.get(dataset, 64)
     channels = 1 if dataset == "mnist" else 3
     num_channels = num_channels or (32 if dataset == "mnist" else 128)
@@ -81,7 +84,7 @@ def build(task: str, dataset: str, attention_impl: str = "auto",
     cls = InPaintModelWrapper if task == "inpaint" else SuperResModelWrapper
     model = cls(dim=dim, num_channels=num_channels, channel_mult=mult,
                 attention_resolutions=attn, attention_impl=attention_impl,
-                device=device)
+                device=device, sp_mesh=sp_mesh)
     return model, dim
 
 
@@ -223,10 +226,11 @@ def main(argv=None) -> dict:
                    help="xla: dense einsums; pallas: the flash kernels; "
                         "auto: flash at 1024 tokens or more")
     p.add_argument("--model_axis", type=int, default=1,
-                   help="mesh model-axis size (not ported: > 1 raises)")
+                   help="mesh model-axis size; >1 shards params over it "
+                        "(tensor parallelism)")
     p.add_argument("--sequence_parallel", action="store_true",
-                   help="ring attention over the model axis (not ported: "
-                        "raises)")
+                   help="ring attention over the model axis (token-sharded "
+                        "sequence parallelism)")
     p.add_argument("--num_channels", type=int, default=0,
                    help="0 -> dataset default (32 mnist / 128 else)")
     p.add_argument("--eval_ode_steps", type=int, default=100,
@@ -235,11 +239,8 @@ def main(argv=None) -> dict:
                    help="cuda (default) or cpu (the plain PyTorch versions "
                         "of the kernels)")
     args = p.parse_args(argv)
-    if args.model_axis > 1 or args.sequence_parallel:
-        raise NotImplementedError(
-            "--model_axis > 1 / --sequence_parallel: the mesh is not ported "
-            "yet (ROADMAP A10)")
     device = resolve_device(args.device)
+    initialize_distributed(device=device)
 
     patch = args.patch_size or (14 if args.dataset == "mnist" else 20)
     savedir = os.path.join(args.output_dir,
@@ -248,12 +249,14 @@ def main(argv=None) -> dict:
     writer = LocalWriter(savedir)
     writer.log_hparams(vars(args))
 
+    mesh = make_mesh(model=args.model_axis)
     train_ds = get_dataset(args.dataset)(args.data_root, train=True)
     test_ds = get_dataset(args.dataset)(args.data_root, train=False)
     torch.manual_seed(args.seed)  # the model's own initialisation
     model, dim = build(args.task, args.dataset,
                        ATTENTION_IMPLS[args.attention_impl],
-                       args.num_channels, device)
+                       args.num_channels, device,
+                       sp_mesh=mesh if args.sequence_parallel else None)
     matcher = get_matcher(args.model, sigma=0.0,
                           **({"method": "sinkhorn"}
                              if args.model == "otcfm" else {}))
@@ -264,7 +267,8 @@ def main(argv=None) -> dict:
           f": {n_params / 1e6:.2f}M params, device={device}")
 
     optimizer = make_optimizer(model.parameters(), args.lr,
-                               warmup=args.warmup, grad_clip=args.grad_clip)
+                               warmup=args.warmup, grad_clip=args.grad_clip,
+                               mesh=mesh)
     generator = torch.Generator(device=device).manual_seed(args.seed)
     state = TrainState.create(model, optimizer, generator)
     train_step = make_train_step(
@@ -302,8 +306,9 @@ def main(argv=None) -> dict:
         callbacks.append(PeriodicCallback(callback_fn=run_eval,
                                           every_steps=every))
     batches = infinite_batches(train_ds, args.batch_size, seed=args.seed)
-    state = Trainer(train_step, state, batches,
-                    callbacks=callbacks).fit(args.num_steps)
+    state = Trainer(train_step, state, batches, mesh=mesh,
+                    callbacks=callbacks,
+                    tensor_parallel=args.model_axis > 1).fit(args.num_steps)
 
     final = run_eval(state.step, state)
     with open(os.path.join(savedir, "results.json"), "w") as f:

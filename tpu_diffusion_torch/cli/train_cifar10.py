@@ -19,6 +19,8 @@ come from the trainer's generator on the device. Every `--save_step` steps
 and at the end: a checkpoint `{params, ema, step}` under
 `<output_dir>/<model>/ckpt/` and a grid of EMA samples by Euler over
 `--sample_steps` steps. Runs on the CUDA card unless `--device cpu`.
+Under COORDINATOR_ADDRESS / NUM_PROCESSES / PROCESS_ID each process is
+one rank of a data-parallel mesh (`parallel/`).
 """
 
 from __future__ import annotations
@@ -33,6 +35,8 @@ from tpu_diffusion_torch.cli.main import set_params
 from tpu_diffusion_torch.data.registry import get_dataset, infinite_batches
 from tpu_diffusion_torch.losses.cfm import cfm_loss, get_matcher, host_ot_pairs
 from tpu_diffusion_torch.models.unet import UNetModelWrapper, resolve_device
+from tpu_diffusion_torch.parallel.distributed import initialize_distributed
+from tpu_diffusion_torch.parallel.mesh import make_mesh
 from tpu_diffusion_torch.sampling.ode import odeint
 from tpu_diffusion_torch.train.actions import PeriodicCallback
 from tpu_diffusion_torch.train.checkpoint import CheckpointManager
@@ -128,6 +132,8 @@ def main(argv=None) -> dict:
                         "of the kernels)")
     args = p.parse_args(argv)
     device = resolve_device(args.device)
+    initialize_distributed(device=device)
+    mesh = make_mesh()  # every rank on "data"
 
     savedir = os.path.join(args.output_dir, args.model)
     os.makedirs(savedir, exist_ok=True)
@@ -157,7 +163,7 @@ def main(argv=None) -> dict:
           f"device={device}")
     optimizer = make_optimizer(model.parameters(), args.lr,
                                warmup=args.warmup, grad_clip=args.grad_clip,
-                               schedule="warmup")
+                               schedule="warmup", mesh=mesh)
     generator = torch.Generator(device=device).manual_seed(args.seed)
     state = TrainState.create(model, optimizer, generator)
     train_step = make_train_step(make_cfm_loss_fn(matcher, paired=paired),
@@ -186,7 +192,7 @@ def main(argv=None) -> dict:
         PeriodicCallback(callback_fn=save_and_sample,
                          every_steps=args.save_step),
     ]
-    state = Trainer(train_step, state, batches,
+    state = Trainer(train_step, state, batches, mesh=mesh,
                     callbacks=callbacks).fit(args.total_steps)
     save_and_sample(state.step, state)
     writer.flush()

@@ -24,6 +24,8 @@ steps, or the SDE for sf2m), writes it, appends its nearest-template class
 consistency to `class_trend.json` and saves a checkpoint {params, ema,
 step} under `<output_dir>/<variant>/ckpt/`. Runs on the CUDA card unless
 `--device cpu`.
+Under COORDINATOR_ADDRESS / NUM_PROCESSES / PROCESS_ID each process is
+one rank of a data-parallel mesh (`parallel/`).
 """
 
 from __future__ import annotations
@@ -42,6 +44,8 @@ from tpu_diffusion_torch.data.registry import get_dataset
 from tpu_diffusion_torch.losses.cfm import (
     SchrodingerBridgeConditionalFlowMatcher, cfm_loss, get_matcher)
 from tpu_diffusion_torch.models.unet import UNetModelWrapper, resolve_device
+from tpu_diffusion_torch.parallel.distributed import initialize_distributed
+from tpu_diffusion_torch.parallel.mesh import make_mesh
 from tpu_diffusion_torch.sampling.ancestral import NoiseFn, randn_noise
 from tpu_diffusion_torch.sampling.ode import odeint
 from tpu_diffusion_torch.train.actions import PeriodicCallback
@@ -176,6 +180,8 @@ def main(argv=None) -> dict:
                    help="cuda (default) or cpu")
     args = p.parse_args(argv)
     device = resolve_device(args.device)
+    initialize_distributed(device=device)
+    mesh = make_mesh()  # every rank on "data"
 
     savedir = os.path.join(args.output_dir, args.variant)
     os.makedirs(savedir, exist_ok=True)
@@ -196,7 +202,7 @@ def main(argv=None) -> dict:
         matcher = SchrodingerBridgeConditionalFlowMatcher(sigma=args.sigma)
 
     optimizer = make_optimizer(model.parameters(), args.lr,
-                               warmup=args.warmup, grad_clip=1.0)
+                               warmup=args.warmup, grad_clip=1.0, mesh=mesh)
     generator = torch.Generator(device=device).manual_seed(args.seed)
     state = TrainState.create(model, optimizer, generator)
     train_step = make_train_step(make_loss_fn(matcher, sf2m),
@@ -249,7 +255,7 @@ def main(argv=None) -> dict:
     ]
     state = Trainer(train_step, state,
                     labeled_batches(ds, args.batch_size, args.seed),
-                    callbacks=callbacks).fit(args.num_steps)
+                    mesh=mesh, callbacks=callbacks).fit(args.num_steps)
     sample_grid(state.step, state)
     writer.flush()
     print(f"[train_conditional_mnist] {args.variant} done at "

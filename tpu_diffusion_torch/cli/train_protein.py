@@ -15,6 +15,8 @@ Checkpoints `{params, ema, step}` under `<output_dir>/<name>/ckpt/` (the
 newest three kept); a run restarts from the latest one, the EMA included.
 Metrics go to `LocalWriter` every 20 steps, the flags to config.yaml. Runs on
 the CUDA card unless `--device cpu`.
+Under COORDINATOR_ADDRESS / NUM_PROCESSES / PROCESS_ID each process is
+one rank of a data-parallel mesh (`parallel/`).
 """
 
 from __future__ import annotations
@@ -26,6 +28,8 @@ import torch
 
 from tpu_diffusion_torch.cli.main import set_params
 from tpu_diffusion_torch.models.unet import resolve_device
+from tpu_diffusion_torch.parallel.distributed import initialize_distributed
+from tpu_diffusion_torch.parallel.mesh import make_mesh
 from tpu_diffusion_torch.protein.data import get_protein_data, protein_batches
 from tpu_diffusion_torch.protein.denoiser import GVPDenoiser
 from tpu_diffusion_torch.protein.resdiff import resdiff_loss
@@ -97,6 +101,8 @@ def main(argv=None) -> dict:
     parameter count."""
     args = parser().parse_args(argv)
     device = resolve_device(args.device)
+    initialize_distributed(device=device)
+    mesh = make_mesh()  # every rank on "data"
 
     savedir = os.path.join(args.output_dir, args.name)
     os.makedirs(savedir, exist_ok=True)
@@ -117,7 +123,7 @@ def main(argv=None) -> dict:
     print(f"[train_protein] {n_params / 1e6:.2f}M params, device={device}")
 
     optimizer = make_optimizer(model.parameters(), args.lr, warmup=0,
-                               grad_clip=1.0, schedule="constant")
+                               grad_clip=1.0, schedule="constant", mesh=mesh)
     generator = torch.Generator(device=device).manual_seed(args.seed)
     state = TrainState.create(model, optimizer, generator)
     train_step = make_train_step(
@@ -150,7 +156,7 @@ def main(argv=None) -> dict:
         PeriodicCallback(callback_fn=save, every_steps=every),
     ]
     batches = protein_batches(ds, args.batch_size, seed=args.seed)
-    state = Trainer(train_step, state, batches,
+    state = Trainer(train_step, state, batches, mesh=mesh,
                     callbacks=callbacks).fit(max(args.num_steps - start, 0))
     save(state.step, state)
     writer.flush()

@@ -1,15 +1,18 @@
 """The continuous VP-SDE and the discretized DDPM process in PyTorch.
 
 Counterpart of `tpu_diffusion/core/schedules.py` (`VPSDE`,
-`linear_vpsde_betas`, `bcast_right`, `DDPM`). `VPSDE`'s methods take t as
-a tensor (or a number) and compute on its device. The DDPM tables are built host-side in float64 numpy and
-stored as float32 tensors on the CPU; `DDPM.to(device)` moves them, once per
-sampler, to the device its steps run on.
+`linear_vpsde_betas`, the discrete schedule builders, `bcast_right`,
+`DDPM`). The builders are float64 numpy, as in the JAX package.
+`VPSDE`'s methods take t as a tensor (or a number) and compute on its
+device. The DDPM tables are built host-side in float64 numpy and stored as
+float32 tensors on the CPU; `DDPM.to(device)` moves them, once per sampler,
+to the device its steps run on.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from dataclasses import dataclass
 from typing import Tuple
 
@@ -101,6 +104,54 @@ def linear_vpsde_betas(num_steps: int, beta_min: float = 0.1,
     return (beta_min + (beta_max - beta_min) * ts) / num_steps
 
 
+def linear_betas(num_steps: int, beta_start: float = 1e-4,
+                 beta_end: float = 0.02) -> np.ndarray:
+    """Ho et al. (2020) linear schedule."""
+    return np.linspace(beta_start, beta_end, num_steps, dtype=np.float64)
+
+
+def cosine_alphas_cumprod(num_steps: int, s: float = 0.008) -> np.ndarray:
+    """Nichol & Dhariwal cosine schedule, as cumulative alpha-bar."""
+    i = np.arange(num_steps + 1, dtype=np.float64)
+    f = np.cos((i / num_steps + s) / (1 + s) * math.pi / 2) ** 2
+    return f[1:] / f[0]
+
+
+def hoogeboom_alphas_cumprod(num_steps: int, s: float = 1e-4,
+                             exponent: float = 3.0,
+                             clip_value: float = 0.001) -> np.ndarray:
+    """Hoogeboom polynomial schedule, discrete form: alpha_bar(t) =
+    (1 - t^exponent)^2 (1 - 2s) + s on t = linspace(0, 1, N), then the
+    per-step ratios (with 1 prepended) clipped to [clip_value, 1] and
+    re-accumulated (e3-diffusion's `clip_noise_schedule`)."""
+    t = np.linspace(0.0, 1.0, num_steps, dtype=np.float64)
+    abar = (1.0 - t**exponent) ** 2 * (1 - 2 * s) + s
+    abar_ext = np.concatenate([np.ones(1), abar])
+    alphas = np.clip(abar_ext[1:] / abar_ext[:-1], clip_value, 1.0)
+    return np.cumprod(alphas)
+
+
+def sigmoid_betas(num_steps: int, beta_start: float = 1e-4,
+                  beta_end: float = 0.02, tau: float = 6.0) -> np.ndarray:
+    """sigmoid(linspace(-tau, tau, N)) * (beta_end - beta_start) +
+    beta_start, with no renormalisation of the end points."""
+    t = np.linspace(-tau, tau, num_steps, dtype=np.float64)
+    return beta_start + (beta_end - beta_start) / (1.0 + np.exp(-t))
+
+
+def quadratic_betas(num_steps: int, beta_start: float = 1e-4,
+                    beta_end: float = 0.02) -> np.ndarray:
+    return np.linspace(beta_start**0.5, beta_end**0.5, num_steps,
+                       dtype=np.float64) ** 2
+
+
+def betas_from_alphas_cumprod(abar: np.ndarray, max_beta: float = 0.999
+                              ) -> np.ndarray:
+    abar = np.asarray(abar, np.float64)
+    abar_prev = np.concatenate([np.ones((1,), abar.dtype), abar[:-1]])
+    return np.clip(1.0 - abar / abar_prev, 0.0, max_beta)
+
+
 def bcast_right(v: torch.Tensor, ndim: int) -> torch.Tensor:
     """Broadcast a [B]-shaped (or scalar) value against an ndim-tensor."""
     if v.ndim == 0:
@@ -175,6 +226,12 @@ class DDPM:
             posterior_mean_coef2=f(
                 (1.0 - abar_prev) * np.sqrt(alphas) / (1.0 - abar)),
         )
+
+    @classmethod
+    def from_alphas_cumprod(cls, abar, tmin: float = 1e-5,
+                            tmax: float = 1.0) -> "DDPM":
+        return cls.create(len(abar), betas_from_alphas_cumprod(abar),
+                          tmin=tmin, tmax=tmax)
 
     def to(self, device) -> "DDPM":
         """The same process with every table on `device`."""

@@ -113,6 +113,9 @@ class _CastParams:
         self._cast_cache: dict = {}
 
     def cast(self, name: str) -> torch.Tensor | None:
+        full = self.__dict__.get(name)
+        if full is not None:  # gathered for this call (parallel/tp.py)
+            return full.to(self.compute_dtype)
         p = self._parameters[name]
         if p is None or p.dtype is self.compute_dtype:
             return p

@@ -3,7 +3,11 @@
 Counterpart of `tpu_diffusion/models/unet.py` (`ResBlock`, `AttentionBlock`,
 `Downsample`, `Upsample`, `UNetModel`, `create_model`, `attention_ds`, and
 the torchcfm wrappers `UNetModelWrapper`, `InPaintModelWrapper` and
-`SuperResModelWrapper`).
+`SuperResModelWrapper`). With `sp_mesh`, attention shards its tokens over
+the mesh's "model" ranks by ring attention (`parallel/sp.py`) where the
+axis has more than one rank and divides the tokens; elsewhere the block's
+own implementation runs. `use_checkpoint` recomputes each ResBlock's
+activations in the backward pass (the JAX `nn.remat`).
 The public layout is the JAX package's: `model(x_nhwc, t)` returns NHWC
 eps, and the encode/decode cache holds NHWC tensors. Internally activations
 are NCHW in `channels_last` memory (see `models/nn.py`). Submodules carry
@@ -22,6 +26,7 @@ from typing import Sequence, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from tpu_diffusion_torch.conditioning.likelihoods import resize_bilinear
 from tpu_diffusion_torch.kernels.attention import (dense_attention,
@@ -34,6 +39,7 @@ from tpu_diffusion_torch.models.nn import (NORM_IMPLS, CastConv2d,
                                            channels_last, dropout,
                                            nearest_upsample,
                                            timestep_embedding, zero_init_conv)
+from tpu_diffusion_torch.parallel.sp import maybe_sequence_parallel
 
 # "fused": the fused-QKV kernel (JAX "pallas_fused"); "flash": split heads
 # and the flash kernels (JAX "pallas"); "dense": the layout-preserving
@@ -135,13 +141,38 @@ class ResBlock(nn.Module):
         return x + h
 
 
+def checkpointed(block: nn.Module, h: torch.Tensor, emb: torch.Tensor,
+                 generator: torch.Generator | None) -> torch.Tensor:
+    """`block(h, emb, generator)` under `torch.utils.checkpoint`: its
+    activations are recomputed in the backward pass. The recomputation
+    draws its dropout masks from the generator state the forward started
+    from, and leaves the generator where it was."""
+    start = None if generator is None else generator.get_state()
+    ran = []
+
+    def run(h, emb):
+        if not ran or start is None:
+            ran.append(True)
+            return block(h, emb, generator)
+        now = generator.get_state()
+        generator.set_state(start)
+        try:
+            return block(h, emb, generator)
+        finally:
+            generator.set_state(now)
+
+    return checkpoint(run, h, emb, use_reentrant=False)
+
+
 class AttentionBlock(nn.Module):
-    """Self-attention over the H*W tokens of each image."""
+    """Self-attention over the H*W tokens of each image. `last_impl` names
+    the implementation of the last call ("ring" where the tokens were
+    sharded over `sp_mesh`)."""
 
     def __init__(self, channels: int, num_heads: int = 1,
                  num_head_channels: int = -1, impl: str = "fused",
                  dtype=torch.bfloat16, norm_dtype=None,
-                 norm_impl: str = "plain", device=None):
+                 norm_impl: str = "plain", device=None, sp_mesh=None):
         super().__init__()
         if num_head_channels > 0 and channels % num_head_channels:
             raise ValueError(f"channels {channels} not divisible by "
@@ -155,6 +186,8 @@ class AttentionBlock(nn.Module):
             raise ValueError(f"attention impl must be one of "
                              f"{ATTENTION_IMPLS}, got {impl!r}")
         self.impl = impl
+        self.sp_mesh = sp_mesh
+        self.last_impl = None
         self.norm = make_norm(channels, norm_impl, norm_dtype, device,
                               act="none")
         self.qkv = CastLinear(channels, 3 * channels, dtype=dtype,
@@ -173,15 +206,24 @@ class AttentionBlock(nn.Module):
         y = self.norm(x).permute(0, 2, 3, 1).reshape(b, h * w, c)
         qkv = self.qkv(y)  # [b, T, 3c], channel ((s*heads + h)*d + i)
         impl = self.resolved_impl(h * w)
-        if impl == "fused":
-            out = flash_attention_fused(qkv, self.heads)
-        elif impl == "flash":
+        out = None
+        if self.sp_mesh is not None or impl == "flash":
+            # [b, heads, T, d] views
             q, k, v = qkv.reshape(b, h * w, 3, self.heads, c // self.heads
                                   ).permute(2, 0, 3, 1, 4).unbind(0)
+        if self.sp_mesh is not None:
+            out = maybe_sequence_parallel(q, k, v, self.sp_mesh)
+        if out is not None:
+            impl = "ring"
+            out = out.transpose(1, 2).reshape(b, h * w, c)
+        elif impl == "fused":
+            out = flash_attention_fused(qkv, self.heads)
+        elif impl == "flash":
             out = flash_attention(q, k, v).transpose(1, 2).reshape(
                 b, h * w, c)
         else:
             out = dense_attention(qkv, self.heads)
+        self.last_impl = impl
         out = self.proj(out)
         return x + out.reshape(b, h, w, c).permute(0, 3, 1, 2)
 
@@ -215,7 +257,9 @@ class UNetModel(nn.Module):
     `attn_decisions` maps each attention block's name to the implementation
     it ran, its token count and head count, as of its last call. The
     timestep is embedded as `t * time_scale` (1000 for the CFM wrappers,
-    whose t is in [0, 1]).
+    whose t is in [0, 1]). `use_checkpoint` recomputes every ResBlock in
+    the backward pass when training; `sp_mesh` is handed to every
+    attention block.
     """
 
     def __init__(self, in_channels: int, model_channels: int,
@@ -229,7 +273,8 @@ class UNetModel(nn.Module):
                  attention_impl: str = "fused", dtype=torch.bfloat16,
                  norm_dtype=None, norm_impl: str = "plain", device="cuda",
                  dropout: float = 0.0, time_scale: float = 1.0,
-                 num_classes: int | None = None):
+                 num_classes: int | None = None,
+                 use_checkpoint: bool = False, sp_mesh=None):
         super().__init__()
         if norm_impl not in NORM_IMPLS:
             raise ValueError(f"norm_impl must be one of {NORM_IMPLS}, got "
@@ -242,6 +287,8 @@ class UNetModel(nn.Module):
         self.resblock_updown = resblock_updown
         self.dtype = dtype
         self.time_scale = time_scale
+        self.use_checkpoint = use_checkpoint
+        self.sp_mesh = sp_mesh
         self.attn_decisions: dict = {}
         ch0 = model_channels
         time_dim = 4 * ch0
@@ -256,7 +303,7 @@ class UNetModel(nn.Module):
         def attn(name, ch):
             self.add_module(name, AttentionBlock(
                 ch, num_heads, num_head_channels, attention_impl, dtype,
-                norm_dtype, norm_impl, device))
+                norm_dtype, norm_impl, device, sp_mesh))
 
         self.time_dense_0 = CastLinear(ch0, time_dim, **dd)
         self.time_dense_1 = CastLinear(time_dim, time_dim, **dd)
@@ -305,10 +352,11 @@ class UNetModel(nn.Module):
 
     def _attn(self, name: str, h: torch.Tensor) -> torch.Tensor:
         block = getattr(self, name)
-        tokens = h.shape[2] * h.shape[3]
-        self.attn_decisions[name] = {"impl": block.resolved_impl(tokens),
-                                     "tokens": tokens, "heads": block.heads}
-        return block(h)
+        out = block(h)
+        self.attn_decisions[name] = {"impl": block.last_impl,
+                                     "tokens": h.shape[2] * h.shape[3],
+                                     "heads": block.heads}
+        return out
 
     def forward(self, x: torch.Tensor, t, y: torch.Tensor | None = None, *,
                 mode: str = "full", cache=None,
@@ -317,10 +365,14 @@ class UNetModel(nn.Module):
         `(bottleneck, skips)` cache (NHWC). mode="decode": middle and
         decoder from such a cache, with the current timestep's embedding.
         `generator` draws the dropout masks in `train()` mode."""
-        return self.run(x, t, mode, cache,
-                        lambda name, h, emb: getattr(self, name)(h, emb,
-                                                                 generator),
-                        y)
+        def res_fn(name, h, emb):
+            block = getattr(self, name)
+            if (self.use_checkpoint and self.training
+                    and torch.is_grad_enabled()):
+                return checkpointed(block, h, emb, generator)
+            return block(h, emb, generator)
+
+        return self.run(x, t, mode, cache, res_fn, y)
 
     def run(self, x: torch.Tensor, t, mode: str, cache, res_fn, y=None):
         """The forward with every ResBlock called as `res_fn(name, h, emb)`
@@ -415,12 +467,13 @@ def create_model(image_size: int, num_channels: int, num_res_blocks: int,
                  dropout: float = 0.0, class_cond: bool = False,
                  num_classes: int | None = None,
                  use_scale_shift_norm: bool = False,
-                 resblock_updown: bool = False, learn_sigma: bool = False,
+                 resblock_updown: bool = False,
+                 use_checkpoint: bool = False, learn_sigma: bool = False,
                  attention_impl: str = "fused", dtype=torch.bfloat16,
                  norm_dtype=None, norm_impl: str = "plain",
-                 device="cuda", time_scale: float = 1.0) -> UNetModel:
-    """The JAX `create_model` signature (less `use_checkpoint` and
-    `sp_mesh`)."""
+                 device="cuda", sp_mesh=None,
+                 time_scale: float = 1.0) -> UNetModel:
+    """The JAX `create_model` signature, plus `device`."""
     if not channel_mult:
         if image_size not in _DEFAULT_CHANNEL_MULT:
             raise ValueError(f"unsupported image size: {image_size}")
@@ -439,7 +492,8 @@ def create_model(image_size: int, num_channels: int, num_res_blocks: int,
         resblock_updown=resblock_updown, attention_impl=attention_impl,
         dtype=dtype, norm_dtype=norm_dtype, norm_impl=norm_impl,
         device=device, dropout=dropout, time_scale=time_scale,
-        num_classes=num_classes if class_cond else None)
+        num_classes=num_classes if class_cond else None,
+        use_checkpoint=use_checkpoint, sp_mesh=sp_mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -453,7 +507,7 @@ def _cfm_backbone(dim: Tuple[int, int, int], num_channels: int,
                   attention_resolutions: str = "16", dropout: float = 0.0,
                   num_classes: int | None = None,
                   attention_impl: str = "dense", dtype=torch.bfloat16,
-                  device="cuda") -> UNetModel:
+                  device="cuda", sp_mesh=None) -> UNetModel:
     h, w, c = dim
     return create_model(
         image_size=h, num_channels=num_channels,
@@ -463,7 +517,7 @@ def _cfm_backbone(dim: Tuple[int, int, int], num_channels: int,
         dropout=dropout, class_cond=num_classes is not None,
         num_classes=num_classes, use_scale_shift_norm=True,
         attention_impl=attention_impl, dtype=dtype, device=device,
-        time_scale=1000.0)  # torchcfm embeds t * 1000
+        sp_mesh=sp_mesh, time_scale=1000.0)  # torchcfm embeds t * 1000
 
 
 class UNetModelWrapper(nn.Module):
@@ -473,19 +527,20 @@ class UNetModelWrapper(nn.Module):
     so the JAX tree's `net/` prefix maps by name) has FiLM, embeds
     t * 1000, computes in `dtype` with fp32 parameters. `attention_impl`
     takes the port's names ("dense" is the JAX default "xla"; "auto" is
-    dense below 1024 tokens). With `num_classes`, `y` is required."""
+    dense below 1024 tokens). With `num_classes`, `y` is required.
+    `sp_mesh` reaches every attention block."""
 
     def __init__(self, dim: Tuple[int, int, int], num_channels: int = 128,
                  num_res_blocks: int = 2, channel_mult=None,
                  num_heads: int = 4, attention_resolutions: str = "16",
                  dropout: float = 0.0, num_classes: int | None = None,
                  attention_impl: str = "dense", dtype=torch.bfloat16,
-                 device="cuda"):
+                 device="cuda", sp_mesh=None):
         super().__init__()
         self.net = _cfm_backbone(dim, num_channels, dim[2], num_res_blocks,
                                  channel_mult, num_heads,
                                  attention_resolutions, dropout, num_classes,
-                                 attention_impl, dtype, device)
+                                 attention_impl, dtype, device, sp_mesh)
 
     def forward(self, t, x: torch.Tensor, y: torch.Tensor | None = None,
                 generator: torch.Generator | None = None) -> torch.Tensor:
@@ -501,12 +556,12 @@ class _ConcatWrapper(nn.Module):
                  num_res_blocks: int = 2, channel_mult=None,
                  num_heads: int = 4, attention_resolutions: str = "16",
                  dropout: float = 0.0, attention_impl: str = "dense",
-                 dtype=torch.bfloat16, device="cuda"):
+                 dtype=torch.bfloat16, device="cuda", sp_mesh=None):
         super().__init__()
         self.net = _cfm_backbone(dim, num_channels, 2 * dim[2],
                                  num_res_blocks, channel_mult, num_heads,
                                  attention_resolutions, dropout, None,
-                                 attention_impl, dtype, device)
+                                 attention_impl, dtype, device, sp_mesh)
 
     def _concat(self, t, x, cond, generator):
         return self.net(torch.cat([x, cond], dim=-1), t, generator=generator)

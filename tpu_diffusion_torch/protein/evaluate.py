@@ -3,7 +3,9 @@
 The port's own copy of `tpu_diffusion/protein/evaluate.py`: numpy at
 module level; scipy, the novelty scan, the datasets and the
 self-consistency stage are imported where they are used. Run it as
-`python -m tpu_diffusion_torch.protein.evaluate` with the JAX CLI's flags.
+`python -m tpu_diffusion_torch.protein.evaluate` with the JAX CLI's flags
+plus `--device`, where `--self_consistency` runs the CA-ProteinMPNN (the
+CUDA card unless `--device cpu`).
 
 Rebuilds `amortised diffusion/src/evaluation/evaluation_pipeline.py`: a
 staged pipeline over sampled structures producing per-sample statistics
@@ -479,6 +481,9 @@ def main(argv=None):
                    help="designed sequences scored per sample (:703)")
     p.add_argument("--colabfold", default="colabfold_batch",
                    help="refolding executable (:711)")
+    p.add_argument("--device", default="cuda",
+                   help="where --self_consistency runs the ProteinMPNN: cuda "
+                        "(default) or cpu")
     args = p.parse_args(argv)
 
     stages = list(DEFAULT_STAGES)
@@ -496,9 +501,10 @@ def main(argv=None):
     rows = pipeline.eval_dir(args.sample_dir, n_jobs=args.n_jobs)
     if args.self_consistency:
         from tpu_diffusion_torch.protein.self_consistency import (
-            self_consistency_eval)
+            load_proteinmpnn_scorer, self_consistency_eval)
         sc_rows = self_consistency_eval(
             load_structures(args.sample_dir), args.sample_dir,
+            scorer=load_proteinmpnn_scorer(device=args.device),
             n_seq=args.n_seq, colabfold_executable=args.colabfold)
         for row, sc in zip(rows, sc_rows):
             row.update(sc)

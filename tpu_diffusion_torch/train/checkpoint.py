@@ -5,7 +5,11 @@ with `save(step, assets)`, `latest_step()`, `load(initial_assets) ->
 (assets, step)`, retention of the newest `maximum`, and restart from the
 latest; `load_pretrained` and the shape-matched `load_matching_params` for
 warm starts. Assets are nested dicts of tensors and plain numbers, one file
-`ckpt_<step>.pt` per step. The port's two norm implementations name their
+`ckpt_<step>.pt` per step. Under a process group every rank calls `save`:
+a tensor sharded over "model" (`parallel/tp.py`) is gathered, so the file
+holds the global state, and the first rank alone writes it. `load` returns
+full tensors; `parallel/tp.py:local_like` lays each back out as a sharded
+tensor. The port's two norm implementations name their
 parameters alike, and its modules were named from the start, so the JAX
 package's `remap_norm_impl` and `remap_by_order` have no counterpart.
 """
@@ -17,6 +21,9 @@ import re
 from typing import Any, List, Mapping, Optional
 
 import torch
+import torch.distributed as dist
+
+from tpu_diffusion_torch.parallel.tp import full_tensor
 
 _NAME = re.compile(r"ckpt_(\d+)\.pt$")
 
@@ -36,7 +43,7 @@ def _to_cpu(tree: Any) -> Any:
     if isinstance(tree, Mapping):
         return {k: _to_cpu(v) for k, v in tree.items()}
     if isinstance(tree, torch.Tensor):
-        return tree.detach().cpu()
+        return full_tensor(tree).detach().cpu()
     return tree
 
 
@@ -49,12 +56,20 @@ class CheckpointManager:
     def save(self, step: int, assets: Any) -> bool:
         """Write `assets` for `step` (atomically) and drop all but the
         newest `maximum` checkpoints."""
-        tmp = _path(self.directory, step) + ".tmp"
-        torch.save(_to_cpu(assets), tmp)
-        os.replace(tmp, _path(self.directory, step))
-        for old in _steps(self.directory)[:-self.maximum]:
-            os.unlink(_path(self.directory, old))
+        assets = _to_cpu(assets)
+        if not dist.is_initialized() or dist.get_rank() == 0:
+            tmp = _path(self.directory, step) + ".tmp"
+            torch.save(assets, tmp)
+            os.replace(tmp, _path(self.directory, step))
+            for old in _steps(self.directory)[:-self.maximum]:
+                os.unlink(_path(self.directory, old))
+        if dist.is_initialized():
+            dist.barrier()  # no rank reads before the file is there
         return True
+
+    def close(self) -> None:
+        """Nothing to wait for: `torch.save` is synchronous. Kept for code
+        written against the JAX manager, whose writes are asynchronous."""
 
     def latest_step(self) -> Optional[int]:
         steps = _steps(self.directory)

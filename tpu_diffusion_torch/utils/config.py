@@ -4,8 +4,6 @@ Counterpart of `tpu_diffusion/utils/config.py`: the same
 `<dataset>,<likelihood>,<conditioning>` spec strings, fields, defaults,
 `PRETRAINED_WEIGHTS` table and dotted CLI overrides, over `ConfigDict`, a
 dict whose keys are also attributes (the port needs no `ml_collections`).
-Some fields configure parts the port does not run yet (training, LPIPS/FID,
-the mesh); `cli/main.py` says so where it reads them.
 """
 
 from __future__ import annotations
@@ -149,7 +147,8 @@ def _network_config(dataset: str) -> ConfigDict:
     c.dropout = 0.0
     # "auto": dense attention below 1024 tokens, the flash kernels at/above
     c.attention_impl = "auto"
-    # token-axis ring attention over the mesh (not ported: ROADMAP A10)
+    # token-axis ring attention over the mesh's "model" axis
+    # (parallel/sp.py); pairs with mesh.model_axis > 1
     c.sequence_parallel = False
     c.dtype = "bfloat16"
     return c
@@ -213,8 +212,9 @@ def get_config(spec: str = "mnist,inpainting,amortized") -> ConfigDict:
     # sampler (the reference protocol)
     config.testing.encoder_reuse = 3
 
-    # parallelism: model_axis > 1 shards the UNet over a mesh (not ported:
-    # ROADMAP A10)
+    # parallelism: model_axis > 1 shards the UNet's parameters over the
+    # mesh's "model" axis (parallel/tp.py) and, with
+    # network.sequence_parallel, its attention tokens (parallel/sp.py)
     config.mesh = ConfigDict()
     config.mesh.model_axis = 1
 
