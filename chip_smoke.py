@@ -23,9 +23,9 @@ The DDIM path of the CIFAR-10 bench UNet:
            eps with the plain versions, for both norm configurations;
   forward_time  one forward's device time (CUDA graph) and eager time;
   ddim     DDIM-100 with encoder reuse K=3 and plain K=1, both norm
-           configurations, each timed twice: samples/s, outputs finite and
-           in [-1, 1], the kernels' launch counts equal to what the path
-           implies, and every attention block on the fused kernel.
+           configurations, each timed once, eager: samples/s, outputs
+           finite and in [-1, 1], the kernels' launch counts equal to what
+           the path implies, and every attention block on the fused kernel.
 The fused-inference engine (`models/unet_infer.py`) on the same UNet:
   resblock_kernel  the whole-ResBlock kernel against its plain version at
            the five shapes the engine gives it (batch 64, bf16), plus an
@@ -44,6 +44,25 @@ The fused-inference engine (`models/unet_infer.py`) on the same UNet:
   engine_ddim  DDIM-100 through the engine, K=3 and K=1: samples/s, outputs
            finite and in [-1, 1], and the ResBlock kernel's launch count
            equal to what the path implies (368 and 500).
+The graphed chains (`sampling/graph.py`: a sampler's step, or K-step group,
+captured once as a CUDA graph and replayed), each against its eager loop:
+  graphs   DDIM-100 K=3 and K=1 at batch 64 through the engine and through
+           the model with the GN kernel; the cached amortized 64px chain of
+           `cli.main` (K=3, cut to GRAPH_COND_STEPS); Euler-Maruyama over
+           an exact Gaussian score; the SR256 eval's Euler-20 (the flash
+           forward at [32,1024,64]); the MPNN's design at its published
+           width; the unguided protein chain (cut to GRAPH_PROTEIN_STEPS):
+           the outputs bitwise equal (or within the full forward's
+           tolerance, ROADMAP trap (d)), the replays' kernel launches equal
+           to the eager chain's, capture seconds and pool bytes per body,
+           wall and device ms per chain (median and quartiles over
+           GRAPH_REPEATS chains; device: the sum of the replays' CUDA-event
+           times), the idle share; then `python -m
+           tpu_diffusion_torch.bench`, whose line it echoes, and a capture
+           with a host read in its body, which must raise (in a process of
+           its own). Launch checks on graphed chains elsewhere count what
+           ran: the wrappers' calls less the warm-ups' and captures', plus
+           the replays' (`graph.executed_launches`).
 The conditional path of `tpu_diffusion_torch.cli.main --mode eval` on the
 64px flowers UNet (128 channels, channel_mult (1,2,3,4), 2 res blocks,
 64-channel heads, attention at 32/16/8, FiLM, bf16 weights, fp32 norms,
@@ -65,11 +84,12 @@ batch 32, random weights from seed 0):
            autograd backward as the library yardstick;
   guidance_grad  the reconstruction-guidance gradient w.r.t. x_i through
            the whole UNet with the kernels against the plain versions;
-  sample   amortized inpainting over 1000 steps with encoder reuse K=3 and
-           K=1 (K=1 equal to the plain amortized sampler), reconstruction
-           guidance (gamma 10, every step guided) and outpainting
-           replacement on a 50-step chain (cut from 1000 to keep the run
-           short), and the rejected hyperresolution replacement; samples/s,
+  sample   amortized inpainting over 250 steps (cut from 1000) with
+           encoder reuse K=3 and K=1 (K=1 equal to the plain amortized
+           sampler), reconstruction guidance (gamma 10, every step guided)
+           and outpainting replacement on a 50-step chain (cut from 1000 to
+           keep the run short), and the rejected hyperresolution
+           replacement (cli.make_samplers' chains graphed); samples/s,
            MSE/PSNR/SSIM against the (synthetic) test images (random
            weights: no quality claim), outputs finite and in [-1, 1], and
            the flash kernels' launch counts equal to what the path implies.
@@ -181,7 +201,9 @@ and the CA-ProteinMPNN in fp32 on the card):
            Wasserstein fields; the C++ scan against numpy (1e-9); the
            seconds of main, the novelty scan and `eval_many` at n_jobs 1
            and -1, and a spawned worker's start.
-Then the kernel table line, the nvidia-smi line, and last
+Then the kernel table line (`launches`: the wrappers' calls on the paths,
+a graphed chain's at its warm-up and capture; `replayed_launches`: the
+launches replayed from graphs), the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Any failure exits nonzero before that line.
 Needs one CUDA card; imports nothing of JAX.
 
@@ -204,7 +226,7 @@ import time
 BATCH = 64
 STEPS = 100
 REUSE = 3
-REPEATS = 2  # timed chains per configuration (host time varies run to run)
+REPEATS = 1  # timed eager chains per configuration (graphed: phase graphs)
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
 BF16_FLOPS = 989e12           # dense bf16 tensor-core rate
@@ -689,7 +711,9 @@ def ddim_run(torch, unet, nn_mod, attention, groupnorm, card_info, samplers,
 
 
 COND_BATCH = 32
-COND_STEPS = 1000        # the amortized chains (config diffusion.num_steps)
+# the amortized chains (config diffusion.num_steps), cut from 1000 to keep
+# the run short; the graphed chains per step: phase graphs
+COND_STEPS = 250
 SHORT_STEPS = 50         # guidance and replacement chains, cut from 1000
 COND_REUSE = 3           # config testing.encoder_reuse
 
@@ -936,7 +960,7 @@ def conditional_phase(torch, F, card_info, dev):
     spec_g = "flowers,inpainting,reconstruction_guidance"
     cfg_a, parts_a, amort, amort_plain = cond_models(
         torch, cli, unet, config_mod, dev, spec_a,
-        **{"testing.lpips": "false"})
+        **{"testing.lpips": "false", "diffusion.num_steps": COND_STEPS})
     cfg_g, parts_g, uncond, uncond_plain = cond_models(
         torch, cli, unet, config_mod, dev, spec_g,
         **{"testing.lpips": "false", "diffusion.num_steps": SHORT_STEPS})
@@ -1033,7 +1057,8 @@ def conditional_phase(torch, F, card_info, dev):
     enc, dec = flash_blocks(amort)
     cond_sample_a, _ = cli.make_samplers(cfg_a, parts_a)
     cfg_k1 = config_mod.get_config(spec_a)
-    config_mod.apply_overrides(cfg_k1, ["testing.encoder_reuse=1"])
+    config_mod.apply_overrides(cfg_k1, ["testing.encoder_reuse=1",
+                                        f"diffusion.num_steps={COND_STEPS}"])
     plain_sample_a, _ = cli.make_samplers(cfg_k1, parts_a)
     ddpm_a = parts_a["ddpm"]
 
@@ -1075,14 +1100,17 @@ def conditional_phase(torch, F, card_info, dev):
         torch.cuda.synchronize()
         attention.flash_fwd_launches = 0
         attention.flash_bwd_launches = 0
+        r0 = ran()
         s0 = time.perf_counter()
         out = sampler(model, xT, condition, run_gen)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - s0
-        got_f = attention.flash_fwd_launches
-        got_b = attention.flash_bwd_launches
-        launches["flash_attention_fwd"] += got_f
-        launches["flash_attention_bwd"] += got_b
+        # what ran (graph replays included, warm-ups and captures not)
+        r1 = ran()
+        got_f = r1["flash_attention_fwd"] - r0["flash_attention_fwd"]
+        got_b = r1["flash_attention_bwd"] - r0["flash_attention_bwd"]
+        launches["flash_attention_fwd"] += attention.flash_fwd_launches
+        launches["flash_attention_bwd"] += attention.flash_bwd_launches
         outs[name] = out
         stats = {k: v.item() for k, v in eval_statistics(out, imgs).items()}
         emit(card_info, phase="sample", run=name, batch=COND_BATCH,
@@ -1092,10 +1120,16 @@ def conditional_phase(torch, F, card_info, dev):
              flash_fwd_launches=got_f, flash_fwd_expected=want_f,
              flash_bwd_launches=got_b, flash_bwd_expected=want_b,
              out_min=out.min().item(), out_max=out.max().item(), **stats,
-             note="random weights: the metrics make no quality claim"
-             + ("" if steps == COND_STEPS else
-                f"; chain cut from 1000 to {steps} steps to keep the run "
-                f"short"))
+             wrapper_calls=[attention.flash_fwd_launches,
+                            attention.flash_bwd_launches],
+             note="random weights: the metrics make no quality claim; "
+                  "amortized_k3, amortized_plain and "
+                  "outpainting_replacement are graphed chains "
+                  "(cli.make_samplers): seconds include their capture, "
+                  "*_launches what ran (replays included), wrapper_calls "
+                  "the wrappers' counts (warm-ups and captures)"
+             + f"; chain cut from 1000 to {steps} steps to keep the run "
+               f"short")
         check(bool(torch.isfinite(out).all()) and out.abs().max() <= 1.0
               and out.shape == imgs.shape, f"sample {name}: bad output")
         check((got_f, got_b) == (want_f, want_b),
@@ -1409,11 +1443,15 @@ def eval_metrics_phase(torch, card_info, dev):
             args += ["--override", o]
         torch.cuda.synchronize()
         attention.flash_fwd_launches = 0
+        r0 = ran()
         s0 = time.perf_counter()
         results = cli.main(args)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - s0
         launches = attention.flash_fwd_launches
+        # the graphed chain's: replays included, warm-ups and captures not
+        chain_launches = (ran()["flash_attention_fwd"]
+                          - r0["flash_attention_fwd"])
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     # the amortized K=3 chain: one encoder pass (2 flash blocks) per reuse
@@ -1461,7 +1499,8 @@ def eval_metrics_phase(torch, card_info, dev):
          fid_features=results.get("fid_features"),
          num_images=results.get("num_images"),
          mse_mean=results.get("mse_mean"),
-         flash_fwd_launches=launches, flash_fwd_expected=want,
+         flash_fwd_launches=chain_launches, flash_fwd_expected=want,
+         flash_fwd_wrapper_calls=launches,
          sampler_ms_per_batch=sampler_ms, **times,
          frechet_distance_seconds=frechet_seconds,
          self_lpips_max=self_lpips, self_fid=self_fid,
@@ -1479,8 +1518,8 @@ def eval_metrics_phase(torch, card_info, dev):
           and all(math.isfinite(results[k]) for k in ("lpips", "fid"))
           and results["fid_comparable_to_published"] is False,
           f"eval_metrics: results {results}")
-    check(launches == want, f"eval_metrics: flash launches {launches}, "
-                            f"want {want}")
+    check(chain_launches == want, f"eval_metrics: flash launches "
+                                  f"{chain_launches}, want {want}")
     check(self_lpips == 0.0, f"eval_metrics: LPIPS(x, x) = {self_lpips}")
     check(abs(self_fid) <= 1e-3, f"eval_metrics: FID(real, real) = "
                                  f"{self_fid}")
@@ -1696,6 +1735,7 @@ def cfm_cond_sr256_phase(torch, card_info, out):
         torch.cuda.reset_peak_memory_stats()
         attention.flash_fwd_launches = 0
         attention.flash_bwd_launches = 0
+        r0 = ran()
         t0 = time.perf_counter()
         res = cc.main(args)
         torch.cuda.synchronize()
@@ -1703,13 +1743,15 @@ def cfm_cond_sr256_phase(torch, card_info, out):
     peak = torch.cuda.max_memory_allocated() / 1e9
     launches = {"flash_attention_fwd": attention.flash_fwd_launches,
                 "flash_attention_bwd": attention.flash_bwd_launches}
+    # what ran: the eval's graph replays included, warm-ups and captures not
+    executed = delta(ran(), r0)
     first_ms, later = step_times(t0, trace)
     losses = [l for _, l, _, _ in trace]
     per_step = [(f1 - f0, b1 - b0) for (_, _, f0, b0), (_, _, f1, b1)
                 in zip([(0, 0, 0, 0)] + trace, trace)]
     train_f, train_b = trace[-1][2], trace[-1][3]
-    eval_f = launches["flash_attention_fwd"] - train_f
-    eval_b = launches["flash_attention_bwd"] - train_b
+    eval_f = executed.get("flash_attention_fwd", 0) - train_f
+    eval_b = executed.get("flash_attention_bwd", 0) - train_b
     results = res["results"]
     state = res["state"]
     # the checkpoint of the final eval, read back
@@ -1849,6 +1891,7 @@ def parallel_phase(torch, card_info, dev, out):
             sp.reset_sp_decisions()
             attention.flash_fwd_launches = 0
             attention.flash_bwd_launches = 0
+            r0 = ran()
             with TimedTrainer(cc) as trace:
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
@@ -1871,6 +1914,9 @@ def parallel_phase(torch, card_info, dev, out):
                 "flash_launches_per_step": per_step,
                 "flash_fwd_launches": attention.flash_fwd_launches,
                 "flash_bwd_launches": attention.flash_bwd_launches,
+                # what ran: the Euler-20 eval's graph replays included
+                "flash_fwd_executed": (ran()["flash_attention_fwd"]
+                                       - r0["flash_attention_fwd"]),
                 "eval": res["results"]})
             del res
             if dist.is_initialized():
@@ -1929,10 +1975,10 @@ def parallel_phase(torch, card_info, dev, out):
                   for run in runs),
           f"parallel: sp decisions {[r['sp_decisions'] for r in runs]}")
     check(all(d == (5, 5) for d in mesh["flash_launches_per_step"])
-          and mesh["flash_fwd_launches"] - 5 * PAR_STEPS
+          and mesh["flash_fwd_executed"] - 5 * PAR_STEPS
           == 5 * SR_EVAL_STEPS,
           f"parallel: flash launches {mesh['flash_launches_per_step']}, "
-          f"{mesh['flash_fwd_launches']} forward in all")
+          f"{mesh['flash_fwd_executed']} forward in all")
     launches = {"flash_attention_fwd": mesh["flash_fwd_launches"],
                 "flash_attention_bwd": mesh["flash_bwd_launches"]}
 
@@ -2194,8 +2240,11 @@ def forward_events(torch, model, events):
     """Record a CUDA event on the current stream whenever `model`'s forward
     starts: one per training or sampling step on these paths, so the
     deltas are the steps' times on the device's timeline (idle gaps
-    included)."""
+    included). A forward being captured into a CUDA graph records none
+    (`ReplayEvents` times the replays)."""
     def pre(_m, _inputs):
+        if torch.cuda.is_current_stream_capturing():
+            return
         e = torch.cuda.Event(enable_timing=True)
         e.record()
         events.append(e)
@@ -2220,6 +2269,29 @@ class ForwardEvents:
 
     def __exit__(self, *exc):
         self.module.build_model = self.real
+
+
+class ReplayEvents:
+    """Patch `module.GraphCache` so the graphed chains a CLI builds record
+    each replay's (start, end) CUDA events into one list."""
+
+    def __init__(self, module):
+        self.module, self.real = module, module.GraphCache
+        self.events = []
+
+    def __enter__(self):
+        events, real = self.events, self.real
+
+        class Timed(real):
+            def __init__(self, *a, **kw):
+                super().__init__(*a, **kw)
+                self.events = events
+
+        self.module.GraphCache = Timed
+        return self.events
+
+    def __exit__(self, *exc):
+        self.module.GraphCache = self.real
 
 
 def event_deltas(torch, events):
@@ -2411,7 +2483,8 @@ def protein_phase(torch, card_info, dev, out):
         str(b), "--seed", str(SEED), "--guidance_scale", str(PROTEIN_GS)])
     sampled = {}
     for name, extra in (("guided", []), ("unguided", ["--no_conditioner"])):
-        with ForwardEvents(torch, sample_protein) as events:
+        with ForwardEvents(torch, sample_protein) as events, \
+                ReplayEvents(sample_protein) as replays:
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
@@ -2419,8 +2492,12 @@ def protein_phase(torch, card_info, dev, out):
                 "--output_dir", os.path.join(out, f"protein_{name}")])
             torch.cuda.synchronize()
             seconds = time.perf_counter() - t0
-        deltas = event_deltas(torch, events)
-        # event k starts step 249 - k; delta k is that step's time
+        # the unguided chain is graphed: one replay a step, timed alone
+        deltas = (event_deltas(torch, events) if name == "guided" else
+                  [a.elapsed_time(b) for a, b in replays])
+        # event k starts step 249 - k; delta k is that step's time (the
+        # forward events miss the last step's end; the replays have it)
+        chain_ms = sum(deltas) + (deltas[-1] if name == "guided" else 0.0)
         cond_start = args.diffusion_steps // 2
         n_plain = args.diffusion_steps - cond_start
         pos_s, mask_s = res["pos"], res["mask"]
@@ -2430,11 +2507,12 @@ def protein_phase(torch, card_info, dev, out):
             / mask_s.sum(1)
         sampled[name] = {
             "seconds_main": seconds,
-            "chain_seconds": (sum(deltas) + deltas[-1]) / 1e3,
-            "seconds_per_sample": (sum(deltas) + deltas[-1]) / 1e3 / b,
+            "chain_seconds": chain_ms / 1e3,
+            "seconds_per_sample": chain_ms / 1e3 / b,
             "unguided_ms_per_step": quartiles(deltas[:n_plain]),
             "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
-            "forwards": len(events), "summary": res["summary"],
+            "forwards": len(events), "replays": len(replays),
+            "summary": res["summary"],
             "finite": bool(torch.isfinite(pos_s).all()),
             "max_abs_pos": pos_s.abs().max().item(),
             "max_abs_com": com.abs().max().item(),
@@ -2467,7 +2545,9 @@ def protein_phase(torch, card_info, dev, out):
               "guided: the conditioner at gs 1500 for steps < 125, whose "
               "forward with a graph to the positions also gives the "
               "step's eps_hat; ms per step: CUDA events at each step's "
-              "forward (device timeline, idle gaps included); "
+              "forward (device timeline, idle gaps included), and for "
+              "the unguided chain, a graphed chain, each replay's "
+              "events (device time of the step alone); "
               "chain_seconds: their sum plus the last step; the "
               "profiles: the guidance at step 10 and a plain forward; the "
               "guided samples' COM drifts as the JAX package's "
@@ -2475,9 +2555,10 @@ def protein_phase(torch, card_info, dev, out):
               "weights after 15 steps: no quality claim")
     g, u = sampled["guided"], sampled["unguided"]
     check(g["finite"] and u["finite"]
-          and g["forwards"] == u["forwards"] == args.diffusion_steps,
+          and g["forwards"] == u["replays"] == args.diffusion_steps
+          and g["replays"] == 0,
           f"protein_sample: finite {g['finite']} {u['finite']}, forwards "
-          f"{g['forwards']} {u['forwards']}")
+          f"{g['forwards']}, replays {g['replays']} {u['replays']}")
     check(math.isfinite(g["summary"]["cond_loss_mean"])
           and g["summary"]["num_samples"] == b
           and g["summary"]["ckpt_step"] == PROTEIN_RESUME_STEPS,
@@ -2786,6 +2867,344 @@ def protein_eval_phase(torch, card_info, dev, sample_dir, work):
     torch.cuda.empty_cache()
 
 
+# --- the graphed chains (sampling/graph.py): graph replay against the eager
+# chain on each fixed-length sampler of the port
+GRAPH_REPEATS = 5         # timed graphed chains per configuration
+GRAPH_COND_STEPS = 100    # the cached amortized 64px chain, cut from 1000
+GRAPH_SR_STEPS = 20       # the SR256 eval's Euler-20 (no cut)
+GRAPH_PROTEIN_STEPS = 50  # the unguided protein chain, cut from 250
+GRAPH_MPNN_LEN = 105      # residues of the designed chain (protein_eval's)
+
+
+def ran():
+    """{kernel: launches that ran on the card}: the wrappers' counts less
+    the graphs' warm-ups and captures, plus the graph replays'."""
+    from tpu_diffusion_torch.sampling.graph import executed_launches
+    return executed_launches()
+
+
+def delta(after, before):
+    return {k: after[k] - before.get(k, 0) for k in after
+            if after[k] != before.get(k, 0)}
+
+
+def graph_vs_eager(torch, card_info, name, eager, graphed, graphs,
+                   repeats=GRAPH_REPEATS, per=None, **fields):
+    """One eager chain (after an untimed one) and the graphed chain (its
+    first call captures), then
+    `repeats` timed graphed chains: the outputs bitwise equal (or, trap (d)
+    in ROADMAP, within the full forward's tolerance), the replays' kernel
+    launches equal to the eager chain's; wall ms of each, the graphed
+    chains' device ms (the sum of their replays' CUDA-event times) and
+    idle share, capture seconds and pool bytes. `per` divides the times
+    (steps of the chain). `graphs` is the chains' GraphCache, or a
+    function giving it after the first graphed call (a sampler that makes
+    its own). Returns the emitted fields."""
+    def tensors(out):
+        return out if isinstance(out, tuple) else (out,)
+
+    eager()  # warm-up, not timed: first uses of kernels and libraries
+    torch.cuda.synchronize()
+    r0, t0 = ran(), time.perf_counter()
+    want = eager()
+    torch.cuda.synchronize()
+    eager_s = time.perf_counter() - t0
+    r1 = ran()
+    before = set() if callable(graphs) else set(graphs.chains)
+    t0 = time.perf_counter()
+    got = graphed()
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    r2 = ran()
+    if callable(graphs):
+        graphs = graphs()
+    chains = [graphs.chains[s] for s in set(graphs.chains) - before]
+    eager_launches, graph_launches = delta(r1, r0), delta(r2, r1)
+    wall, device = [], []
+    for _ in range(repeats):
+        graphs.events = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        again = graphed()
+        torch.cuda.synchronize()
+        wall.append((time.perf_counter() - t0) * 1e3)
+        device.append(graphs.device_ms())
+    graphs.events = None
+    bitwise = all(torch.equal(a, b) for a, b in
+                  zip(tensors(got), tensors(want))) and all(
+        torch.equal(a, b) for a, b in zip(tensors(again), tensors(got)))
+    tol_ok, diff = True, None
+    if not bitwise:
+        g, w = tensors(got)[0].float(), tensors(want)[0].float()
+        d = (g - w).abs()
+        diff = {"max_abs_diff": d.max().item(),
+                "mean_abs_diff": d.mean().item(),
+                "max_abs_ref": w.abs().max().item(),
+                "mean_abs_ref": w.abs().mean().item()}
+        tol_ok = (d.max() <= 0.1 * w.abs().max()
+                  and d.mean() <= 0.03 * w.abs().mean())
+    k = per or 1
+    dev_q = quartiles(device)
+    out = dict(
+        phase="graphs", chain=name, **fields, bitwise_equal=bitwise,
+        difference=diff, eager_seconds=eager_s,
+        first_graphed_seconds=first_s,
+        capture_s=sum(sum(c.capture_s.values()) for c in chains),
+        pool_bytes=sum(sum(c.pool_bytes.values()) for c in chains),
+        bodies={str(len(sig)) if isinstance(sig, tuple) else str(sig):
+                {"launches_per_replay": c.launches.get(sig, {}),
+                 "replays": c.replays[sig],
+                 "capture_s": c.capture_s.get(sig, 0.0),
+                 "pool_bytes": c.pool_bytes.get(sig, 0)}
+                for c in chains for sig in c.bodies},
+        eager_launches=eager_launches, graph_launches=graph_launches,
+        wall_ms=quartiles(wall), device_ms=dev_q,
+        idle_share=quartiles([1 - d / w for d, w in zip(device, wall)]),
+        eager_idle_share=1 - dev_q["median"] / (eager_s * 1e3),
+        per=per, wall_ms_per=quartiles([w / k for w in wall]),
+        device_ms_per=quartiles([d / k for d in device]),
+        eager_ms_per=eager_s * 1e3 / k,
+        note="eager: one chain launched from Python; graphed: its body "
+             "captured once (first_graphed_seconds includes the warm-up and "
+             "capture), then replayed; device_ms: the sum of the replays' "
+             "CUDA-event times; idle_share: 1 - device / wall; "
+             "eager_idle_share: 1 - the graphed device median / the eager "
+             "wall time (the same work)")
+    emit(card_info, **out)
+    check(bitwise or tol_ok, f"graphs {name}: the graphed chain differs "
+                             f"from the eager one: {diff}")
+    check(graph_launches == eager_launches,
+          f"graphs {name}: replays launched {graph_launches}, the eager "
+          f"chain {eager_launches}")
+    return out
+
+
+def graphs_phase(torch, card_info, dev, mk):
+    """Each fixed-length sampler of the port as a graphed chain against its
+    eager loop: DDIM-100 K=3 and K=1 on the CIFAR bench UNet `mk` (the GN
+    kernel) through the engine and through the model, the cached amortized
+    64px chain of `cli.main`, Euler-Maruyama, the SR256 Euler-20, the MPNN
+    design and the unguided protein chain; then `python -m
+    tpu_diffusion_torch.bench`, and a capture that must fail."""
+    import numpy as np
+
+    from tpu_diffusion_torch import DDPM
+    from tpu_diffusion_torch.cli import main as cli
+    from tpu_diffusion_torch.cli import train_cfm_conditional as cc
+    from tpu_diffusion_torch.cli import train_protein
+    from tpu_diffusion_torch.core.analytic import marginal_score
+    from tpu_diffusion_torch.core.schedules import VPSDE
+    from tpu_diffusion_torch.models import unet
+    from tpu_diffusion_torch.models.unet_infer import make_fused_apply
+    from tpu_diffusion_torch.protein import mpnn
+    from tpu_diffusion_torch.protein.sde import HoogeboomGraphSDE
+    from tpu_diffusion_torch.sampling import ancestral, sde
+    from tpu_diffusion_torch.sampling.graph import GraphCache
+    from tpu_diffusion_torch.utils import config as config_mod
+
+    # --- DDIM-100 on the CIFAR bench UNet: the main path -----------------
+    ddpm = DDPM.create(1000)
+    gen = torch.Generator().manual_seed(SEED + 20)
+    xT = torch.randn((BATCH, 32, 32, 3), generator=gen).to(dev)
+
+    def ddim(fn, k, graphs):
+        def call(xi, i, **kw):
+            return fn(xi, i.float() / 1000.0, **kw)
+        if k == 1:
+            return ancestral.make_ddim_sampler(call, ddpm, num_steps=STEPS,
+                                               graphs=graphs)
+        return ancestral.make_cached_ddim_sampler(
+            lambda xi, i: call(xi, i, mode="encode"),
+            lambda xi, i, c: call(xi, i, mode="decode", cache=c), ddpm,
+            num_steps=STEPS, encoder_reuse=k, graphs=graphs)
+
+    engine = make_fused_apply(mk)
+    for path, fn in (("engine", engine), ("model", mk)):
+        graphs = GraphCache(mk)  # one pool for the path's two chains
+        for k in (REUSE, 1):
+            eager, graphed = ddim(fn, k, None), ddim(fn, k, graphs)
+            res = graph_vs_eager(
+                torch, card_info, f"ddim_{path}_k{k}", lambda: eager(xT),
+                lambda: graphed(xT), graphs, per=STEPS, batch=BATCH,
+                steps=STEPS, encoder_reuse=k)
+            emit(card_info, phase="graphs", chain=f"ddim_{path}_k{k}",
+                 samples_per_s_graphed=BATCH * 1e3
+                 / res["wall_ms"]["median"],
+                 samples_per_s_eager=BATCH / res["eager_seconds"],
+                 device_samples_per_s=BATCH * 1e3
+                 / max(res["device_ms"]["median"], 1e-9))
+            want = ({"flash_attention_fused", "fused_groupnorm_silu",
+                     "fused_resblock"} if path == "engine"
+                    else {"flash_attention_fused", "fused_groupnorm_silu"})
+            check(set(res["graph_launches"]) == want,
+                  f"graphs ddim_{path}_k{k}: kernels replayed "
+                  f"{res['graph_launches']}")
+        graphs.clear()
+    del engine
+    torch.cuda.empty_cache()
+
+    # --- the cached amortized 64px chain of cli.main ----------------------
+    config = config_mod.get_config("flowers,inpainting,amortized")
+    config_mod.apply_overrides(config, [
+        "testing.lpips=false", f"diffusion.num_steps={GRAPH_COND_STEPS}"])
+    parts = cli.build(config, dev)
+    model = unet.randomize_(parts["model"], torch.Generator().manual_seed(
+        SEED)).eval().requires_grad_(False)
+    graphed_sample, _ = cli.make_samplers(config, parts)
+    eager_sample, _ = cli.make_samplers(config, parts, graphed=False)
+    lik = parts["likelihood"]
+    cgen = torch.Generator(device=dev).manual_seed(SEED + 21)
+    imgs = torch.tanh(torch.randn((COND_BATCH, 64, 64, 3), generator=cgen,
+                                  device=dev))
+    cond = lik.sample(cgen, imgs)
+    xT64 = torch.randn(imgs.shape, generator=cgen, device=dev)
+
+    def cond_run(sample):
+        return lambda: sample(model, xT64, cond,
+                              torch.Generator(dev).manual_seed(SEED + 22))
+
+    graph_vs_eager(torch, card_info, "cached_amortized_64px_k3",
+                   cond_run(eager_sample), cond_run(graphed_sample),
+                   lambda: graphed_sample.built["graphs"],
+                   per=GRAPH_COND_STEPS,
+                   batch=COND_BATCH, steps=GRAPH_COND_STEPS,
+                   encoder_reuse=COND_REUSE,
+                   cut=f"chain cut from 1000 to {GRAPH_COND_STEPS} steps")
+    del model, parts, graphed_sample, eager_sample
+    torch.cuda.empty_cache()
+
+    # --- one SDE sampler: Euler-Maruyama over an exact Gaussian score -----
+    vp = VPSDE()
+
+    def score(x, t):
+        return marginal_score(vp, 0.8, 0.05**2, x, t[:, None])
+
+    xs = torch.randn((4096, 1), generator=torch.Generator(dev).manual_seed(
+        SEED + 23), device=dev)
+    sde_graphs = GraphCache()
+
+    def em(graphs):
+        return lambda: sde.euler_maruyama(
+            torch.Generator(dev).manual_seed(SEED + 24), score, vp, xs, 500,
+            return_nan_flag=True, graphs=graphs)
+
+    graph_vs_eager(torch, card_info, "euler_maruyama", em(None),
+                   em(sde_graphs), sde_graphs, per=500, samples=4096,
+                   steps=500)
+
+    # --- the SR256 eval's Euler-20 (the flash forward at [32,1024,64]) ----
+    sr, (h, w, c) = cc.build("superres", "synthetic256", device=dev)
+    unet.randomize_(sr, torch.Generator().manual_seed(SEED)).eval()
+    sr.requires_grad_(False)
+    sgen = torch.Generator(device=dev).manual_seed(SEED + 25)
+    low = torch.randn((SR_BATCH, h // 4, w // 4, c), generator=sgen,
+                      device=dev)
+    x0 = torch.randn((SR_BATCH, h, w, c), generator=sgen, device=dev)
+    graphed_sr = cc.make_conditional_sampler("euler", GRAPH_SR_STEPS)
+    eager_sr = cc.make_conditional_sampler("euler", GRAPH_SR_STEPS,
+                                           graphed=False)
+    res = graph_vs_eager(
+        torch, card_info, "sr256_euler20",
+        lambda: eager_sr(sr, None, x0.shape, low, x0=x0)[0],
+        lambda: graphed_sr(sr, None, x0.shape, low, x0=x0)[0],
+        lambda: graphed_sr.held["graphs"], per=GRAPH_SR_STEPS,
+        batch=SR_BATCH, steps=GRAPH_SR_STEPS)
+    check(res["graph_launches"] == {
+        "flash_attention_fwd": 5 * GRAPH_SR_STEPS},
+          f"graphs sr256_euler20: {res['graph_launches']}")
+    del sr, graphed_sr, eager_sr
+    torch.cuda.empty_cache()
+
+    # --- the MPNN's design at its published width -------------------------
+    net = mpnn.CAProteinMPNN(device=dev)
+    net.randomize_(torch.Generator(device=dev).manual_seed(SEED))
+    net.eval()
+    rng = np.random.default_rng(SEED + 26)
+    walk = rng.normal(size=(GRAPH_MPNN_LEN, 3))
+    coords = torch.as_tensor(np.cumsum(
+        3.8 * walk / np.linalg.norm(walk, axis=-1, keepdims=True), 0),
+        dtype=torch.float32, device=dev)
+    order = rng.permutation(GRAPH_MPNN_LEN)
+    mpnn_graphs = GraphCache(net)
+    _, loop = mpnn.make_mpnn_fns(net)
+    _, graphed_design = mpnn.make_mpnn_fns(net, mpnn_graphs)
+    args = (coords, order, coords.new_ones(GRAPH_MPNN_LEN),
+            torch.zeros(GRAPH_MPNN_LEN, dtype=torch.long),
+            torch.zeros(GRAPH_MPNN_LEN))
+
+    def design(fn):
+        return lambda: fn(*args, generator=torch.Generator(dev).manual_seed(
+            SEED + 27))
+
+    graph_vs_eager(torch, card_info, "mpnn_design", design(loop),
+                   design(graphed_design), mpnn_graphs, per=GRAPH_MPNN_LEN,
+                   residues=GRAPH_MPNN_LEN,
+                   note_per="per: decode steps of one design (*_per: ms "
+                            "per step)")
+    del net, loop, graphed_design
+    mpnn_graphs.clear()
+
+    # --- the unguided protein chain at the reference width ----------------
+    pargs = train_protein.parser().parse_args(protein_flags([]))
+    torch.manual_seed(SEED)
+    gvp = train_protein.build_model(pargs, dev).eval().requires_grad_(False)
+    diffuser = HoogeboomGraphSDE(num_steps=GRAPH_PROTEIN_STEPS, device=dev)
+    pgen = torch.Generator(device=dev).manual_seed(SEED + 28)
+    lengths = torch.as_tensor(rng.integers(
+        pargs.max_len // 2, pargs.max_len + 1, PROTEIN_SAMPLES), device=dev)
+    blob = diffuser.sample_blob(pgen, PROTEIN_SAMPLES, pargs.max_len,
+                                lengths=lengths)
+    protein_graphs = GraphCache(gvp)
+
+    def chain(graphs):
+        return lambda: diffuser.reverse_diffusion_sampling(
+            torch.Generator(dev).manual_seed(SEED + 29), blob, gvp,
+            graphs=graphs).pos
+
+    graph_vs_eager(torch, card_info, "protein_unguided", chain(None),
+                   chain(protein_graphs), protein_graphs,
+                   per=GRAPH_PROTEIN_STEPS, batch=PROTEIN_SAMPLES,
+                   steps=GRAPH_PROTEIN_STEPS,
+                   cut=f"chain cut from 250 to {GRAPH_PROTEIN_STEPS} steps")
+    del gvp, blob
+    protein_graphs.clear()
+    torch.cuda.empty_cache()
+
+    # --- the bench twin, in its own process --------------------------------
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "tpu_diffusion_torch.bench"],
+                          capture_output=True, text=True, timeout=300)
+    check(proc.returncode == 0, f"graphs: the bench failed:\n{proc.stderr}")
+    line = json.loads(proc.stdout.strip().splitlines()[-1])
+    emit(card_info, phase="graphs", chain="bench",
+         seconds=time.perf_counter() - t0, bench=line)
+    check(line["metric"] == "cifar10_ddim100_samples_per_sec_per_chip"
+          and line["value"] > 0 and line["samples_per_sec_k1"] > 0
+          and all(line["chains"][k]["finite"] and line["chains"][k]
+                  ["in_range"] for k in ("k3", "k1")),
+          f"graphs: bench line {line}")
+
+    # --- a capture that must fail (a host read in the body), in its own
+    # process, so no failed capture touches this one's card state
+    probe = (
+        "import torch\n"
+        "from tpu_diffusion_torch import DDPM, make_ddim_sampler\n"
+        "from tpu_diffusion_torch.sampling.graph import GraphCache\n"
+        "s = make_ddim_sampler(lambda x, i: x * float(i[0]), DDPM.create("
+        "1000), 4, graphs=GraphCache())\n"
+        "try:\n"
+        "    s(torch.zeros((2, 8, 8, 3), device='cuda'))\n"
+        "except RuntimeError as err:\n"
+        "    print('raised', type(err).__name__)\n")
+    proc = subprocess.run([sys.executable, "-c", probe],
+                          capture_output=True, text=True, timeout=120)
+    emit(card_info, phase="graphs", chain="failed_capture",
+         stdout=proc.stdout.strip(), returncode=proc.returncode)
+    check(proc.stdout.startswith("raised"),
+          f"graphs: a capture with a host read did not raise: "
+          f"{proc.stdout} {proc.stderr[-2000:]}")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2904,13 +3323,27 @@ def main():
     # --- the fused-inference engine on the same UNet ----------------------
     counts["fused_resblock"] = engine_phase(torch, card_info, models,
                                             samplers, x, t, xT)
+
+    # --- the graphed chains (sampling/graph.py) ----------------------------
+    from tpu_diffusion_torch.kernels import resblock
+    from tpu_diffusion_torch.sampling import graph
+    attention.launches = groupnorm.launches = resblock.launches = 0
+    attention.flash_fwd_launches = 0
+    graphs_phase(torch, card_info, dev, models["norm_fused"][0])
+    for name, n in (("flash_attention_fused", attention.launches),
+                    ("fused_groupnorm_silu", groupnorm.launches),
+                    ("fused_resblock", resblock.launches),
+                    ("flash_attention_fwd", attention.flash_fwd_launches)):
+        check(n > 0, f"{name} was not launched on the graphed path")
+        counts[name] = counts.get(name, 0) + n
     del models
     torch.cuda.empty_cache()
 
     # --- the conditional path of cli.main at 64px -------------------------
     cond_totals, cond_counts = conditional_phase(torch, F, card_info, dev)
     totals.update(cond_totals)
-    counts.update(cond_counts)
+    for name, n in cond_counts.items():
+        counts[name] = counts.get(name, 0) + n
 
     # --- DDPM training of cli.main at 64px ---------------------------------
     for name, n in train_phase(torch, card_info, dev).items():
@@ -2972,10 +3405,10 @@ def main():
     per = {
         "flash_attention_fused": "one full CIFAR UNet forward at batch 64 "
                                  "(sum over its call shapes); launches: the "
-                                 "four DDIM-100 runs",
+                                 "four DDIM-100 runs and the graphs phase",
         "fused_groupnorm_silu": "one full CIFAR UNet forward at batch 64 "
                                 "(sum over its call shapes); launches: the "
-                                "four DDIM-100 runs",
+                                "four DDIM-100 runs and the graphs phase",
         "flash_attention_fwd": "one full 64px UNet forward at batch 32 (5 "
                                "calls at [128,1024,64]) plus one SR256 "
                                "forward at batch 8 (5 at [32,1024,64]); "
@@ -2984,7 +3417,8 @@ def main():
                                "eval_metrics run, the cfm_cond_sr256 "
                                "run (20 steps and its Euler-20 eval) and "
                                "the parallel phase's first meshed run (10 "
-                               "steps and its Euler-20 eval)",
+                               "steps and its Euler-20 eval), and the "
+                               "graphs phase",
         "flash_attention_bwd": "one guidance gradient through the 64px UNet "
                                "at batch 32 (5 calls at [128,1024,64]) plus "
                                "one SR256 training step at batch 8 (5 at "
@@ -2996,7 +3430,8 @@ def main():
                                "gradient's largest entry",
         "fused_resblock": "one full CIFAR UNet forward through the engine "
                           "at batch 64 (its 5 calls); launches: the two "
-                          "engine DDIM-100 runs; library_ms: the port's "
+                          "engine DDIM-100 runs and the graphs phase; "
+                          "library_ms: the port's "
                           "ResBlock module, cuDNN convs with the eager norm "
                           "chain (library_gn_kernel_ms: with the GN kernel)",
     }
@@ -3006,6 +3441,7 @@ def main():
         table.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": counts[name],
+            "replayed_launches": graph.REPLAYED.get(name, 0),
             "max_abs_err": tot["max_abs_err"],
             **{k: tot[k] for k in ("max_rel_err", "library_gn_kernel_ms",
                                    "library_with_layout_ms") if k in tot},
@@ -3017,7 +3453,12 @@ def main():
             "plain_eager_ms": tot["plain_eager_ms"],
             "library_eager_ms": tot["library_eager_ms"],
             "per": per[name] + "; ms: device time (CUDA-graph replay), "
-                               "eager_ms: launched from Python"})
+                               "eager_ms: launched from Python; launches: "
+                               "the wrapper's calls (a graphed chain's at "
+                               "its warm-up and capture, the graphs phase "
+                               "included); replayed_launches: the launches "
+                               "replayed from the graphed chains of the "
+                               "whole run"})
     print(json.dumps({"kernels": table}), flush=True)
     print(card_info["nvidia_smi"], flush=True)
     print(json.dumps({"ok": True, "device": {

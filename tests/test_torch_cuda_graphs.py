@@ -1,0 +1,165 @@
+"""The graphed chains (`tpu_diffusion_torch/sampling/graph.py`) on the card:
+graph replay against the eager chain, at a small size.
+
+These tests need a CUDA card and skip without one (a capture has no CPU
+mode). The file imports nothing of JAX, so on a machine with a card and
+without JAX it runs as
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda_graphs.py
+"""
+
+import pytest
+import torch
+
+from tpu_diffusion_torch.core.schedules import DDPM
+from tpu_diffusion_torch.models.unet import (UNetModelWrapper, create_model,
+                                             randomize_)
+from tpu_diffusion_torch.models.unet_infer import make_fused_apply
+from tpu_diffusion_torch.protein import mpnn
+from tpu_diffusion_torch.sampling import ancestral, ode
+from tpu_diffusion_torch.sampling.graph import GraphCache, launch_counts
+
+STEPS = 12
+
+
+@pytest.fixture(scope="module")
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: a CUDA graph has no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.fixture(scope="module")
+def cifar(cuda):
+    """The bench UNet (128 channels, (1,2,2,2), attention at 16x16 with 4
+    heads, FiLM, bf16) with the GN kernel, random weights, and its
+    fused-inference engine."""
+    model = create_model(image_size=32, num_channels=128, num_res_blocks=2,
+                         in_channels=3, channel_mult=(1, 2, 2, 2),
+                         num_heads=4, attention_resolutions="16",
+                         use_scale_shift_norm=True, dtype=torch.bfloat16,
+                         attention_impl="fused", norm_impl="fused",
+                         device=cuda)
+    randomize_(model, torch.Generator().manual_seed(0))
+    return model.eval(), make_fused_apply(model.eval())
+
+
+def _samplers(fn, k, eta, graphs):
+    def call(x, i, **kw):
+        return fn(x, i.float() / 1000.0, **kw)
+    ddpm = DDPM.create(1000)
+    if k == 1:
+        return ancestral.make_ddim_sampler(call, ddpm, STEPS, eta,
+                                           graphs=graphs)
+    return ancestral.make_cached_ddim_sampler(
+        lambda x, i: call(x, i, mode="encode"),
+        lambda x, i, c: call(x, i, mode="decode", cache=c), ddpm, STEPS, eta,
+        k, graphs=graphs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("eta", [0.0, 0.5])
+@pytest.mark.parametrize("k", [1, 3])
+@pytest.mark.parametrize("path", ["engine", "model"])
+def test_cuda_graphed_ddim_equals_eager(cifar, cuda, path, k, eta):
+    """DDIM at batch 8: the graphed chain equals the eager one bitwise (no
+    kernel on the path sums with atomics), and the replays launch what the
+    eager chain launches."""
+    model, engine = cifar
+    fn = engine if path == "engine" else model
+    xT = torch.randn((8, 32, 32, 3), generator=torch.Generator()
+                     .manual_seed(1)).to(cuda)
+    graphs = GraphCache(model)
+    _samplers(fn, k, eta, None)(xT, torch.Generator(cuda).manual_seed(2))
+    before = launch_counts()
+    want = _samplers(fn, k, eta, None)(
+        xT, torch.Generator(cuda).manual_seed(2))
+    eager = {name: n - before[name] for name, n in launch_counts().items()
+             if n != before[name]}
+    got = _samplers(fn, k, eta, graphs)(
+        xT, torch.Generator(cuda).manual_seed(2))
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert graphs.replayed_launches() == eager
+    assert eager["flash_attention_fused"] > 0
+    assert eager["fused_groupnorm_silu"] > 0
+    if path == "engine":
+        assert eager["fused_resblock"] > 0
+
+
+@pytest.mark.cuda
+def test_cuda_graph_cache_recaptures_after_an_update(cifar, cuda):
+    """A parameter changed in place reallocates the model's bf16 cast
+    copies: the chain is captured again and samples the new weights."""
+    model, _ = cifar
+    xT = torch.randn((4, 32, 32, 3), generator=torch.Generator()
+                     .manual_seed(3)).to(cuda)
+    graphs = GraphCache(model)
+    sample = _samplers(model, 3, 0.0, graphs)
+    first = sample(xT)
+    assert torch.equal(sample(xT), first) and graphs.captures == 1
+    with torch.no_grad():
+        model.conv_out.weight.mul_(1.5)
+    try:
+        got = sample(xT)
+        assert graphs.captures == 2
+        assert torch.equal(got, _samplers(model, 3, 0.0, None)(xT))
+    finally:
+        with torch.no_grad():
+            model.conv_out.weight.div_(1.5)
+
+
+@pytest.mark.cuda
+def test_cuda_graphed_euler_equals_eager(cuda):
+    """Euler-20 over a small CFM UNet (the flash kernels at T=1024)."""
+    v = UNetModelWrapper((32, 32, 3), num_channels=64, num_res_blocks=1,
+                         channel_mult=(1, 2), num_heads=1,
+                         attention_resolutions="32", attention_impl="flash",
+                         dtype=torch.bfloat16, device=cuda)
+    randomize_(v, torch.Generator().manual_seed(4)).eval()
+    x0 = torch.randn((2, 32, 32, 3), generator=torch.Generator()
+                     .manual_seed(5)).to(cuda)
+    with torch.no_grad():
+        want = ode.odeint(v, x0, "euler", num_steps=20)
+        got = ode.odeint(v, x0, "euler", num_steps=20, graphs=GraphCache(v))
+    assert got[1] == want[1] and torch.equal(got[0], want[0])
+
+
+@pytest.mark.cuda
+def test_cuda_graphed_mpnn_decode_equals_the_loop(cuda):
+    """The published-width MPNN at random weights on a 60-residue chain:
+    the graphed design is the loop's, token for token, for two orders."""
+    model = mpnn.CAProteinMPNN(device=cuda)
+    model.randomize_(torch.Generator(cuda).manual_seed(0))
+    model.eval()
+    g = torch.Generator().manual_seed(6)
+    steps = torch.randn((60, 3), generator=g)
+    coords = (3.8 * torch.cumsum(steps / steps.norm(dim=-1, keepdim=True),
+                                 0)).to(cuda)
+    graphs = GraphCache(model)
+    _, loop = mpnn.make_mpnn_fns(model)
+    _, graphed = mpnn.make_mpnn_fns(model, graphs)
+    for seed in (1, 2):
+        order = torch.randperm(60, generator=torch.Generator()
+                               .manual_seed(seed))
+        args = (coords, order, coords.new_ones(60),
+                torch.zeros(60, dtype=torch.long), torch.zeros(60))
+        want = loop(*args, generator=torch.Generator(cuda).manual_seed(seed))
+        got = graphed(*args,
+                      generator=torch.Generator(cuda).manual_seed(seed))
+        assert torch.equal(got, want)
+    assert graphs.captures == 1
+
+
+@pytest.mark.cuda
+def test_cuda_failed_capture_raises(cuda):
+    """A body that reads the card on the host cannot be captured: the
+    sampler raises, and does not fall back to the eager loop. (Last in the
+    file: the failed capture is the process's last use of the card.)"""
+    def eps(x, i):
+        return x * float(i[0])  # a host read inside the body
+
+    sample = ancestral.make_ddim_sampler(eps, DDPM.create(1000), 4,
+                                         graphs=GraphCache())
+    with pytest.raises(RuntimeError):
+        sample(torch.zeros((2, 8, 8, 3), device=cuda))

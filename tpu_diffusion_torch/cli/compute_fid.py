@@ -35,6 +35,7 @@ from tpu_diffusion_torch.cli.train_cifar10 import build_model
 from tpu_diffusion_torch.data.registry import epoch_batches, get_dataset
 from tpu_diffusion_torch.eval.fid import FID, fid_caveat, make_feature_fn
 from tpu_diffusion_torch.models.unet import resolve_device
+from tpu_diffusion_torch.sampling.graph import GraphCache
 from tpu_diffusion_torch.sampling.ode import dopri5_truncated, odeint
 from tpu_diffusion_torch.train.checkpoint import CheckpointManager
 
@@ -101,6 +102,8 @@ def main(argv=None) -> dict:
     print(f"[compute_fid] restored step {step} from {ckpt_dir}", flush=True)
 
     generator = torch.Generator(device=device).manual_seed(args.seed)
+    # the fixed-step integrators replay one captured step (sampling/graph.py)
+    graphs = GraphCache(model)
 
     @torch.no_grad()
     def gen_batch():
@@ -111,7 +114,7 @@ def main(argv=None) -> dict:
                              atol=args.tol, max_steps=DOPRI5_MAX_STEPS)
         else:
             x1, nfe = odeint(model, noise, method=args.integration_method,
-                             num_steps=args.integration_steps)
+                             num_steps=args.integration_steps, graphs=graphs)
         return quantize_roundtrip(torch.clamp(x1, -1, 1)), nfe
 
     fid = FID(make_feature_fn(args.features, channels=c, device=device))

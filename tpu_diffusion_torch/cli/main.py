@@ -59,6 +59,7 @@ from tpu_diffusion_torch.parallel.tp import full_tensor
 from tpu_diffusion_torch.sampling.ancestral import (
     make_cached_amortized_sampler, make_conditional_sampler,
     make_prior_sampler)
+from tpu_diffusion_torch.sampling.graph import GraphCache
 from tpu_diffusion_torch.train.actions import PeriodicCallback
 from tpu_diffusion_torch.train.checkpoint import (CheckpointManager,
                                                   load_matching_params,
@@ -173,16 +174,25 @@ def make_loss(parts):
     return loss_fn
 
 
-def make_samplers(config, parts):
+def make_samplers(config, parts, graphed: bool = True):
     """The samplers of the JAX `make_losses_and_samplers`:
     `cond_sample(model, xT, condition, generator=None)` and
     `prior_sample(model, xT, generator=None)`. Amortized conditioning with
-    `testing.encoder_reuse` > 1 takes the encoder-reuse sampler."""
+    `testing.encoder_reuse` > 1 takes the encoder-reuse sampler.
+
+    As `jax.jit` keeps its compiled program, the samplers of the last model
+    sampled are kept across calls with their graphed chains
+    (`sampling/graph.py`; one `GraphCache`, so one memory pool, for the
+    model): a chain is captured on its first call and replayed after, and
+    captured again when the model's parameters changed (the periodic
+    evals' `set_params`). The guidance sampler stays eager; `graphed=False`
+    gives the eager loops throughout."""
     ddpm = parts["ddpm"]
     cond, lik = parts["conditioning"], parts["likelihood"]
     reuse = int(config.testing.get("encoder_reuse", 1))
+    built = {}
 
-    def cond_sample(model, xT, condition, generator=None):
+    def build_cond(model, eps, graphs):
         if reuse > 1 and isinstance(cond, Amortized):
             # the i -> t adapter of losses.ddpm.make_eps_model
             def encode_fn(xi, i):
@@ -192,17 +202,32 @@ def make_samplers(config, parts):
                 return model(xi, i.float() / ddpm.num_steps, mode="decode",
                              cache=cache)
 
-            sampler = make_cached_amortized_sampler(
-                encode_fn, decode_fn, ddpm, cond, lik, encoder_reuse=reuse)
-        else:
-            _, eps = get_loss_function(model, ddpm, cond, lik)
-            sampler = make_conditional_sampler(eps, ddpm, cond, lik)
-        return sampler(xT, condition, generator)
+            return make_cached_amortized_sampler(
+                encode_fn, decode_fn, ddpm, cond, lik, encoder_reuse=reuse,
+                graphs=graphs)
+        return make_conditional_sampler(eps, ddpm, cond, lik, graphs=graphs)
+
+    def build_prior(model, eps, graphs):
+        return make_prior_sampler(eps, ddpm, cond, lik, graphs=graphs)
+
+    def sampler(kind, build_fn, model):
+        """The model's `kind` sampler, built on first use."""
+        if built.get("model") is not model:
+            built.clear()
+            built.update(model=model,
+                         graphs=GraphCache(model) if graphed else None,
+                         eps=get_loss_function(model, ddpm, cond, lik)[1])
+        if kind not in built:
+            built[kind] = build_fn(model, built["eps"], built["graphs"])
+        return built[kind]
+
+    def cond_sample(model, xT, condition, generator=None):
+        return sampler("cond", build_cond, model)(xT, condition, generator)
 
     def prior_sample(model, xT, generator=None):
-        _, eps = get_loss_function(model, ddpm, cond, lik)
-        return make_prior_sampler(eps, ddpm, cond, lik)(xT, generator)
+        return sampler("prior", build_prior, model)(xT, generator)
 
+    cond_sample.built = prior_sample.built = built
     return cond_sample, prior_sample
 
 
@@ -239,7 +264,8 @@ def run_eval(config, parts, model, logdir: str, writer=None, step: int = 0,
             json.dump(results, f, indent=2)
         return results
     if cond_sample is None:
-        cond_sample, _ = make_samplers(config, parts)
+        cond_sample, _ = make_samplers(
+            config, parts, graphed=config.mesh.model_axis == 1)
     device = next(model.parameters()).device
     lpips_fn = _get_lpips(device) if config.testing.lpips else None
     test = get_dataset(dsc.name)(dsc.root, train=False)
@@ -344,7 +370,9 @@ def main(argv: Optional[list] = None):
         config.training.num_steps = num_steps
 
     state, warm_started = init_state(config, parts, mesh)
-    cond_sample, prior_sample = make_samplers(config, parts)
+    # graphed unless the forward gathers sharded weights (model axis > 1)
+    cond_sample, prior_sample = make_samplers(
+        config, parts, graphed=config.mesh.model_axis == 1)
     train_step = make_train_step(
         make_loss(parts), ema_decay=config.training.ema_decay,
         ema_update_every=config.training.ema_update_every)

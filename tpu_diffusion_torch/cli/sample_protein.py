@@ -30,6 +30,7 @@ from tpu_diffusion_torch.protein.data import (COORD_SCALE, get_protein_data,
                                               synthetic_ca_chains)
 from tpu_diffusion_torch.protein.pdb import write_ca_pdb
 from tpu_diffusion_torch.protein.sde import HoogeboomGraphSDE
+from tpu_diffusion_torch.sampling.graph import GraphCache
 from tpu_diffusion_torch.train.checkpoint import CheckpointManager
 
 
@@ -121,6 +122,10 @@ def main(argv=None) -> dict:
     def score_model(batch, t):
         return model(batch, t)
 
+    # the unguided chain replays one captured step (sampling/graph.py); the
+    # guided one stays eager (its SVD reads the card on the host)
+    graphs = GraphCache(model)
+
     generator = torch.Generator(device=device).manual_seed(args.seed)
     rng = np.random.default_rng(args.seed)
     saved = 0
@@ -134,7 +139,8 @@ def main(argv=None) -> dict:
         plots = args.save_plots and first_batch
         out = diffuser.reverse_diffusion_sampling(
             generator, blob, score_model, conditioner=conditioner,
-            cond_start_step=args.cond_start_step, save_trajectory=plots)
+            cond_start_step=args.cond_start_step, save_trajectory=plots,
+            graphs=None if plots else graphs)
         if plots:
             traj, out = out
             from tpu_diffusion_torch.eval.plotting import trajectory_gif

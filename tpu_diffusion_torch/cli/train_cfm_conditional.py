@@ -53,6 +53,7 @@ from tpu_diffusion_torch.models.unet import (InPaintModelWrapper,
                                              resolve_device)
 from tpu_diffusion_torch.parallel.distributed import initialize_distributed
 from tpu_diffusion_torch.parallel.mesh import make_mesh
+from tpu_diffusion_torch.sampling.graph import GraphCache
 from tpu_diffusion_torch.sampling.ode import odeint
 from tpu_diffusion_torch.train.actions import PeriodicCallback
 from tpu_diffusion_torch.train.checkpoint import CheckpointManager
@@ -131,11 +132,29 @@ def make_loss_fn(matcher, condition_fn, task: str, weighted: bool,
     return loss_fn
 
 
-def make_conditional_sampler(method: str = "dopri5", num_steps: int = 100):
+def make_conditional_sampler(method: str = "dopri5", num_steps: int = 100,
+                             graphed: bool = True):
     """sample(model, generator, shape, cond, x0=None) -> (x1, nfe): the ODE
     of v(t, x; cond) from noise (or `x0`) to t=1 with the condition held
     fixed (utils_mnist.py:90-110); dopri5 at rtol = atol = 1e-5, the other
-    integrators over `num_steps` fixed steps."""
+    integrators over `num_steps` fixed steps. Those replay one captured
+    step (`sampling/graph.py`) unless `graphed=False`: the condition goes
+    into a static buffer per shape, the last model sampled keeps its
+    graphs, and a changed parameter captures again."""
+    held: dict = {}
+
+    def graphed_field(model, cond):
+        """(v, graphs): v reads the condition from its static buffer."""
+        if held.get("model") is not model:
+            held.clear()
+            held.update(model=model, graphs=GraphCache(model), fields={})
+        key = (tuple(cond.shape), cond.dtype, str(cond.device))
+        if key not in held["fields"]:
+            buf = torch.empty_like(cond)
+            held["fields"][key] = (buf, lambda t, x: model(t, x, buf))
+        buf, v = held["fields"][key]
+        buf.copy_(cond)
+        return v, held["graphs"]
 
     @torch.no_grad()
     def sample(model, generator, shape, cond, x0=None):
@@ -147,8 +166,13 @@ def make_conditional_sampler(method: str = "dopri5", num_steps: int = 100):
 
         if method == "dopri5":
             return odeint(v, x0, method="dopri5", rtol=1e-5, atol=1e-5)
+        if graphed:
+            v, graphs = graphed_field(model, cond)
+            return odeint(v, x0, method=method, num_steps=num_steps,
+                          graphs=graphs)
         return odeint(v, x0, method=method, num_steps=num_steps)
 
+    sample.held = held
     return sample
 
 
@@ -274,7 +298,9 @@ def main(argv=None) -> dict:
     train_step = make_train_step(
         make_loss_fn(matcher, condition_fn, args.task, args.weighted_loss,
                      args.pad_value), ema_decay=args.ema_decay)
-    sampler = make_conditional_sampler(args.eval_method, args.eval_ode_steps)
+    # graphed unless the forward gathers sharded weights (model axis > 1)
+    sampler = make_conditional_sampler(args.eval_method, args.eval_ode_steps,
+                                       graphed=args.model_axis == 1)
     ckpt = CheckpointManager(os.path.join(savedir, "ckpt"), maximum=3)
     ema_model = copy.deepcopy(model).eval().requires_grad_(False)
     results_per_step = []

@@ -273,7 +273,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor,
     q, k, v: [B, H, T, d] or [BH, T, d]."""
     if q.ndim == 4:
         b, h, t, d = q.shape
-        o = _FlashAttention.apply(*(x.reshape(b * h, t, d)
+        # one head's strided view reshapes without a copy: the kernels take
+        # contiguous [BH, T, d] tensors
+        o = _FlashAttention.apply(*(x.reshape(b * h, t, d).contiguous()
                                     for x in (q, k, v)))
         return o.reshape(b, h, t, d)
     return _FlashAttention.apply(q, k, v)

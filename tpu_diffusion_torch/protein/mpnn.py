@@ -43,6 +43,7 @@ from torch import nn
 
 from tpu_diffusion_torch.protein.self_consistency import (ALPHABET,
                                                           ProteinMPNNScorer)
+from tpu_diffusion_torch.sampling.graph import GraphCache, row_at, scan
 
 Tensor = torch.Tensor
 
@@ -316,7 +317,8 @@ def gumbel_noise(shape, generator: Optional[torch.Generator],
         u, min=torch.finfo(u.dtype).tiny)))
 
 
-def make_mpnn_fns(model: CAProteinMPNN):
+def make_mpnn_fns(model: CAProteinMPNN,
+                  graphs: Optional[GraphCache] = None):
     """(score, sample) over `model`, as the JAX closures.
 
     score(coords, tokens, order, mask) -> [L, vocab] log-probs.
@@ -327,6 +329,12 @@ def make_mpnn_fns(model: CAProteinMPNN):
     once. Step t draws argmax(lp[order[t]] / temperature + noise[t]), noise
     [L, vocab] standard Gumbel (drawn from `generator` when not given); a
     position with fixed_mask > 0 keeps its token from `init_tokens`.
+
+    With `graphs`, the decode loop is a graphed chain, one graph per
+    length L: the encoder's outputs, the order, the Gumbel noise, the
+    tokens and the fixed mask are static buffers, and step t reads its
+    position on the device (order[t]), so one graph serves every design of
+    length L whatever its order; bitwise equal to the loop.
     """
 
     @torch.no_grad()
@@ -347,6 +355,11 @@ def make_mpnn_fns(model: CAProteinMPNN):
         noise = noise.to(dev, torch.float32)
         fixed = fixed_mask.to(dev) > 0
         tokens = init_tokens.to(dev, torch.long).clone()
+        if graphs is not None:
+            return _graphed_decode(graphs, model, temperature, tokens, dict(
+                h_v=h_v, h_e=h_e, e_idx=e_idx, mask=mask,
+                mask_attend=mask_attend, order=order_d, noise=noise,
+                fixed=fixed))
         for t, p in enumerate(steps):
             lp = model.decode(h_v, h_e, e_idx, mask, mask_attend, tokens,
                               order_d)
@@ -358,6 +371,28 @@ def make_mpnn_fns(model: CAProteinMPNN):
     return score, sample
 
 
+def _graphed_decode(graphs: GraphCache, model: CAProteinMPNN,
+                    temperature: float, tokens: Tensor, inputs: dict
+                    ) -> Tensor:
+    """The decode loop through `graph.scan`: one step a replay."""
+    def make_step(buf):
+        def step(scratch, tokens, t, j, sig, noise):
+            p = buf["order"].index_select(0, t.view(1))
+            lp = model.decode(buf["h_v"], buf["h_e"], buf["e_idx"],
+                              buf["mask"], buf["mask_attend"], tokens,
+                              buf["order"])
+            tok = torch.argmax(lp.index_select(0, p)[0] / temperature
+                               + row_at(buf["noise"], t))
+            keep = torch.where(buf["fixed"].index_select(0, p),
+                               tokens.index_select(0, p), tok.view(1))
+            return tokens.index_copy(0, p, keep)
+        return step
+
+    return scan(graphs, ("mpnn_decode", temperature), model, tokens,
+                [[t] for t in range(tokens.shape[0])], make_step,
+                inputs=inputs)
+
+
 class MPNNScorer(ProteinMPNNScorer):
     """`ProteinMPNNScorer` adapter: numpy in and out, seed -> decoding order
     and Gumbel generator, the model on its device. Drop-in for the
@@ -367,7 +402,9 @@ class MPNNScorer(ProteinMPNNScorer):
         self.model = model.eval()
         self.device = next(model.parameters()).device
         self.temperature = float(temperature)
-        self._score, self._sample = make_mpnn_fns(self.model)
+        # the decode loop graphed, one graph per chain length
+        self.graphs = GraphCache(self.model)
+        self._score, self._sample = make_mpnn_fns(self.model, self.graphs)
 
     def _order(self, length: int, seed: int,
                fixed_mask: Optional[np.ndarray] = None) -> np.ndarray:

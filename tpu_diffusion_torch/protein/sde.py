@@ -11,7 +11,14 @@ as jnp makes them, on the SDE's device. The reverse chain is a Python loop
 over steps num_steps-1 ... 0 that reads its coefficients from those fp32
 tables on the device (no host read), in the JAX package's order: eps_hat
 from the positions before the conditioner's update, then the DDPM step with
-that eps_hat on the updated positions.
+that eps_hat on the updated positions. Given a
+`sampling/graph.py:GraphCache` (`graphs=`), the unguided chain runs
+graphed: its step captured once as a CUDA graph and replayed on a CUDA
+tensor (the same body in a Python loop on the CPU), the coefficients read
+at the chain's counter, each step's COM-free noise drawn before its replay
+as the eager loop draws it; bitwise equal to the eager loop. The guided
+chain stays eager: the conditioner's `torch.linalg.svd` synchronises with
+the host, which a capture refuses.
 """
 
 from __future__ import annotations
@@ -22,6 +29,8 @@ from typing import Callable, NamedTuple, Optional
 import torch
 
 from tpu_diffusion_torch.protein.geometry import center, masked_mean
+from tpu_diffusion_torch.sampling.graph import (GraphCache, row_at, rows_at,
+                                                scan)
 
 Tensor = torch.Tensor
 
@@ -146,7 +155,8 @@ class HoogeboomGraphSDE:
             self, generator: Optional[torch.Generator], batch: ProteinBatch,
             score_model: Callable[[ProteinBatch, Tensor], Tensor],
             conditioner=None, cond_start_step: int = 125,
-            no_noise_steps: int = 3, save_trajectory: bool = False):
+            no_noise_steps: int = 3, save_trajectory: bool = False, *,
+            graphs: Optional[GraphCache] = None):
         """The ancestral reverse chain over steps num_steps-1 ... 0.
 
         score_model(batch, t_normalized[B]) -> eps_hat [B, N, 3]. The
@@ -155,7 +165,13 @@ class HoogeboomGraphSDE:
         the plain forward of the same positions and t. The last
         `no_noise_steps` steps add no noise, though every step draws it.
         Returns the final batch, or ([steps, B, N, 3] trajectory, batch).
+        With `graphs` and no conditioner, the graphed chain (no trajectory).
         """
+        if graphs is not None and conditioner is None:
+            if save_trajectory:
+                raise ValueError("the graphed chain keeps no trajectory")
+            return self._graphed_reverse(graphs, generator, batch,
+                                         score_model, no_noise_steps)
         b = batch.num_graphs
         pos = batch.pos
         mask = batch.mask[..., None].to(pos.dtype)
@@ -183,6 +199,43 @@ class HoogeboomGraphSDE:
         if save_trajectory:
             return torch.stack(traj), result
         return result
+
+    @torch.no_grad()
+    def _graphed_reverse(self, graphs: GraphCache, generator, batch,
+                         score_model, no_noise_steps: int) -> ProteinBatch:
+        """The unguided reverse chain through `graph.scan`."""
+        n = self.num_steps
+
+        def make_step(buf):
+            pos = batch.pos
+            steps = torch.arange(n - 1, -1, -1, device=pos.device)
+            t_of = (steps.to(pos.dtype) / n).contiguous()
+            eps_coef = self._eps_coef.flip(0).contiguous()
+            sqrt_alphas = self._sqrt_alphas.flip(0).contiguous()
+            sigmas = self._sigmas.flip(0).contiguous()
+
+            def step(scratch, x, k, j, noisy, noise):
+                cur = ProteinBatch(pos=x, mask=buf["mask"],
+                                   node_order=buf["node_order"])
+                eps_hat = score_model(cur, rows_at(t_of, k, x.shape[0]))
+                x = (x - row_at(eps_coef, k) * eps_hat) / row_at(
+                    sqrt_alphas, k)
+                if noisy:
+                    x = x + row_at(sigmas, k) * noise[0]
+                return x * buf["mask"][..., None].to(x.dtype)
+
+            return step
+
+        def draw(like, kind, step, j):
+            return com_free_noise(generator, like, batch.mask)
+
+        pos = scan(graphs, ("reverse", n, no_noise_steps), score_model,
+                   batch.pos, [[s] for s in range(n - 1, -1, -1)], make_step,
+                   inputs={"mask": batch.mask,
+                           "node_order": batch.node_order},
+                   sig_of=lambda s: s > no_noise_steps - 1,
+                   draws_of=lambda noisy: (("com_free", 0, "x"),), draw=draw)
+        return batch._replace(pos=pos)
 
 
 @dataclass

@@ -1,7 +1,13 @@
 """Ancestral DDPM samplers (prior and three conditioning modes) and DDIM.
 
 Counterpart of `tpu_diffusion/sampling/ancestral.py`. The JAX package runs
-each chain as one `lax.scan`; here it is a Python loop over the steps.
+each chain as one jitted `lax.scan`. Here a sampler factory given a
+`sampling/graph.py:GraphCache` (`graphs=`) returns the graphed chain: its
+step (or K-step group) captured once as a CUDA graph and replayed, with the
+per-step values in device tables, on a CUDA tensor, and the same bodies in a
+Python loop on a CPU tensor; without one it returns the eager Python loop
+over the steps. The two are bitwise equal from the same generator. The
+guidance sampler stays eager (its step differentiates through the model).
 `eps_fn(x, i)` predicts noise for discrete steps `i` ([B] integers); an
 amortized model also receives the condition as extra channels.
 
@@ -29,6 +35,8 @@ from tpu_diffusion_torch.conditioning.guidance import (Amortized,
                                                        Replacement)
 from tpu_diffusion_torch.conditioning.likelihoods import Likelihood, Painting
 from tpu_diffusion_torch.core.schedules import DDPM
+from tpu_diffusion_torch.sampling.graph import (GraphCache, row_at, rows_at,
+                                                scan)
 
 EpsFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
 NoiseFn = Callable[..., torch.Tensor]
@@ -68,25 +76,90 @@ def _batched(i: int, like: torch.Tensor) -> torch.Tensor:
                       device=like.device)
 
 
+def _posterior_update(ddpm: DDPM, x0_pred: torch.Tensor, xi: torch.Tensor,
+                      ib: torch.Tensor, noise: torch.Tensor | None):
+    """Posterior mean + sigma * noise (the mean alone without noise)."""
+    mean, _, logvar = ddpm.p_mean_variance(x0_pred, xi, ib)
+    if noise is None:
+        return mean
+    return mean + torch.exp(0.5 * logvar) * noise
+
+
 def _posterior_step(draw: NoiseFn, ddpm: DDPM, x0_pred: torch.Tensor,
                     xi: torch.Tensor, ib: torch.Tensor, i: int):
     """One ancestral step: posterior mean + sigma * noise (none at i == 0)."""
-    mean, _, logvar = ddpm.p_mean_variance(x0_pred, xi, ib)
-    if i == 0:
-        return mean
-    return mean + torch.exp(0.5 * logvar) * draw(xi, "posterior", i)
+    return _posterior_update(ddpm, x0_pred, xi, ib,
+                             draw(xi, "posterior", i) if i else None)
+
+
+def _corrector_update(x0_model, ddpm: DDPM, xi: torch.Tensor,
+                      ib: torch.Tensor, noise: torch.Tensor,
+                      delta: float) -> torch.Tensor:
+    """One Langevin corrector step."""
+    dt = (ddpm.tmax - ddpm.tmin) / ddpm.num_steps
+    score = ddpm.score_from_x0(x0_model(xi, ib), ib)
+    return xi + 0.5 * dt * delta * score + math.sqrt(dt * delta) * noise
 
 
 def _corrector_steps(draw: NoiseFn, x0_model, ddpm: DDPM, xi: torch.Tensor,
                      ib: torch.Tensor, i: int, n_corrector: int,
                      delta: float) -> torch.Tensor:
     """`n_corrector` Langevin corrector steps."""
-    dt = (ddpm.tmax - ddpm.tmin) / ddpm.num_steps
     for j in range(n_corrector):
-        score = ddpm.score_from_x0(x0_model(xi, ib), ib)
-        xi = (xi + 0.5 * dt * delta * score
-              + math.sqrt(dt * delta) * draw(xi, "corrector", i, j))
+        xi = _corrector_update(x0_model, ddpm, xi, ib,
+                               draw(xi, "corrector", i, j), delta)
     return xi
+
+
+def _ancestral_draws(n_corrector: int, replace_noise: bool = False):
+    """draws_of for `graph.scan`: a step's signature is (replace, noisy);
+    the eager chain draws the replacement's noise, the posterior's (not at
+    step 0) and the correctors', in that order."""
+    def draws_of(sig):
+        replace, noisy = sig
+        return ((("replace", 0, "cond"),) if replace and replace_noise
+                else ()) + ((("posterior", 0, "x"),) if noisy else ()) + tuple(
+            ("corrector", j, "x") for j in range(n_corrector))
+    return draws_of
+
+
+def _graphed_ancestral(graphs: GraphCache, slot, fn, ddpm: DDPM,
+                       xT: torch.Tensor, groups, make_models, draw: NoiseFn,
+                       inputs=None, n_corrector: int = 0, delta: float = 0.0,
+                       replace_from: int = -1, replace_noise: bool = False):
+    """An ancestral chain through `graph.scan`, steps `groups` (lists of
+    steps i, descending). `make_models(buf, dd, scratch, xi, ib, j)`
+    returns the step's (posterior x0 model, corrector x0 model); a step with
+    i < replace_from first replaces the observed pixels (the mask buffer
+    "observed") by the condition, noised to step i with `replace_noise`."""
+    def make_step(buf):
+        dd = ddpm.to(xT.device)
+        steps = torch.arange(dd.num_steps - 1, -1, -1, device=xT.device)
+
+        def step(scratch, xi, t, j, sig, noise):
+            ib = rows_at(steps, t, xi.shape[0])
+            replace, noisy = sig
+            noise = list(noise)
+            if replace:
+                noised = buf["cond"]
+                if replace_noise:
+                    noised = dd.q_sample_with_noise(buf["cond"],
+                                                    noise.pop(0), ib)
+                xi = torch.where(buf["observed"], noised, xi)
+            x0_post, x0_corr = make_models(buf, dd, scratch, xi, ib, j)
+            xi = _posterior_update(dd, x0_post(xi, ib), xi, ib,
+                                   noise.pop(0) if noisy else None)
+            for z in noise:
+                xi = _corrector_update(x0_corr, dd, xi, ib, z, delta)
+            return xi
+
+        return step
+
+    out = scan(graphs, slot, fn, xT, groups, make_step, inputs=inputs,
+               sig_of=lambda i: (i < replace_from, i != 0),
+               draws_of=_ancestral_draws(n_corrector, replace_noise),
+               draw=draw)
+    return process_x0(out)
 
 
 def _reverse_scan(xT: torch.Tensor, step_fn, num_steps: int) -> torch.Tensor:
@@ -115,21 +188,38 @@ def guidance_gradient(x0_model, likelihood: Likelihood,
 # ---------------------------------------------------------------------------
 
 
+def _one_step_groups(ddpm: DDPM) -> list:
+    return [[i] for i in range(ddpm.num_steps - 1, -1, -1)]
+
+
 def make_prior_sampler(eps_fn: EpsFn, ddpm: DDPM,
                        conditioning: Optional[Conditioning] = None,
-                       likelihood: Optional[Likelihood] = None) -> Callable:
+                       likelihood: Optional[Likelihood] = None,
+                       graphs: GraphCache | None = None) -> Callable:
     """Unconditional ancestral sampling, `sample(xT, generator=None, *,
     noise=None) -> x0`. For an amortized model the "none" condition rides
-    along as pad channels."""
+    along as pad channels. With `graphs`, the graphed chain."""
     amortized = isinstance(conditioning, Amortized)
     if amortized and likelihood is None:
         raise ValueError("an amortized prior sampler needs the likelihood "
                          "(its none_like pad channels)")
+    tag = object()
 
     @torch.no_grad()
     def sample(xT: torch.Tensor, generator: torch.Generator | None = None,
                *, noise: NoiseFn | None = None) -> torch.Tensor:
         draw = noise or randn_noise(generator)
+        if graphs is not None:
+            def models(buf, dd, scratch, xi, ib, j):
+                fn = (amortized_eps_fn(eps_fn, buf["none"]) if amortized
+                      else eps_fn)
+                return make_x0_model(fn, dd), None
+
+            return _graphed_ancestral(
+                graphs, (tag, "prior"), eps_fn, ddpm, xT,
+                _one_step_groups(ddpm), models, draw,
+                inputs=({"none": likelihood.none_like(xT)} if amortized
+                        else None))
         dd = ddpm.to(xT.device)
         fn = (amortized_eps_fn(eps_fn, likelihood.none_like(xT)) if amortized
               else eps_fn)
@@ -151,22 +241,42 @@ def make_prior_sampler(eps_fn: EpsFn, ddpm: DDPM,
 
 def make_conditional_sampler(eps_fn: EpsFn, ddpm: DDPM,
                              conditioning: Conditioning,
-                             likelihood: Likelihood) -> Callable:
-    """`sample(xT, condition, generator=None, *, noise=None) -> x0`."""
+                             likelihood: Likelihood,
+                             graphs: GraphCache | None = None) -> Callable:
+    """`sample(xT, condition, generator=None, *, noise=None) -> x0`. With
+    `graphs`, the amortized and replacement samplers are graphed; the
+    guidance sampler stays eager."""
     if isinstance(conditioning, Amortized):
-        return _make_amortized_sampler(eps_fn, ddpm, conditioning, likelihood)
+        return _make_amortized_sampler(eps_fn, ddpm, conditioning, likelihood,
+                                       graphs)
     if isinstance(conditioning, ReconstructionGuidance):
         return _make_guidance_sampler(eps_fn, ddpm, conditioning, likelihood)
     if isinstance(conditioning, Replacement):
         return _make_replacement_sampler(eps_fn, ddpm, conditioning,
-                                         likelihood)
+                                         likelihood, graphs)
     raise NotImplementedError(type(conditioning))
 
 
-def _make_amortized_sampler(eps_fn, ddpm, cond: Amortized, likelihood):
+def _make_amortized_sampler(eps_fn, ddpm, cond: Amortized, likelihood,
+                            graphs=None):
+    tag = object()
+
     @torch.no_grad()
     def sample(xT, condition, generator=None, *, noise=None):
         draw = noise or randn_noise(generator)
+        if graphs is not None:
+            def models(buf, dd, scratch, xi, ib, j):
+                return (make_x0_model(amortized_eps_fn(eps_fn, buf["cond"]),
+                                      dd),
+                        make_x0_model(amortized_eps_fn(eps_fn, buf["none"]),
+                                      dd))
+
+            return _graphed_ancestral(
+                graphs, (tag, "amortized"), eps_fn, ddpm, xT,
+                _one_step_groups(ddpm), models, draw,
+                inputs={"cond": condition,
+                        "none": likelihood.none_like(condition)},
+                n_corrector=cond.n_corrector, delta=cond.delta)
         dd = ddpm.to(xT.device)
         x0_model = make_x0_model(amortized_eps_fn(eps_fn, condition), dd)
         # the corrector runs unconditioned, on none_like pad channels, as in
@@ -201,7 +311,9 @@ def reuse_groups(steps, encoder_reuse: int) -> list:
 def make_cached_amortized_sampler(encode_fn: Callable, decode_fn: Callable,
                                   ddpm: DDPM, cond: Amortized,
                                   likelihood: Likelihood,
-                                  encoder_reuse: int = 2) -> Callable:
+                                  encoder_reuse: int = 2,
+                                  graphs: GraphCache | None = None
+                                  ) -> Callable:
     """Amortized ancestral sampling with encoder-feature reuse
     (arXiv:2312.09608): `encode_fn(x_cat, i) -> cache` refreshes the UNet
     encoder cache on the first step of each group of `encoder_reuse` steps;
@@ -210,13 +322,33 @@ def make_cached_amortized_sampler(encode_fn: Callable, decode_fn: Callable,
     `n_corrector=0` is exactly `_make_amortized_sampler`.
 
     As in the JAX package, the corrector here decodes from the conditioned
-    cache, where the plain sampler's corrector runs unconditioned."""
+    cache, where the plain sampler's corrector runs unconditioned. With
+    `graphs`, the graphed chain: one body per K-step group."""
     del likelihood  # the cached corrector is conditioned
     groups = reuse_groups(range(ddpm.num_steps - 1, -1, -1), encoder_reuse)
+    tag = object()
 
     @torch.no_grad()
     def sample(xT, condition, generator=None, *, noise=None):
         draw = noise or randn_noise(generator)
+        if graphs is not None:
+            def models(buf, dd, scratch, xi, ib, j):
+                def cat(x):
+                    return torch.cat([x, buf["cond"]], dim=-1)
+                if j == 0:
+                    scratch["cache"] = encode_fn(cat(xi), ib)
+                cache = scratch["cache"]
+
+                def x0_model(x, ib):
+                    return process_x0(dd.predict_start_from_noise(
+                        x, ib, decode_fn(cat(x), ib, cache)))
+                return x0_model, x0_model
+
+            return _graphed_ancestral(
+                graphs, (tag, "cached_amortized"), encode_fn, ddpm, xT,
+                [list(g) for g in groups], models, draw,
+                inputs={"cond": condition}, n_corrector=cond.n_corrector,
+                delta=cond.delta)
         dd = ddpm.to(xT.device)
 
         def cat(x):
@@ -277,16 +409,30 @@ def _make_guidance_sampler(eps_fn, ddpm, cond: ReconstructionGuidance,
     return sample
 
 
-def _make_replacement_sampler(eps_fn, ddpm, cond: Replacement, likelihood):
+def _make_replacement_sampler(eps_fn, ddpm, cond: Replacement, likelihood,
+                              graphs=None):
     if not isinstance(likelihood, Painting):
         raise NotImplementedError(
             "Replacement conditioning requires a Painting likelihood with a "
             "pad_value mask (reference sampling.py:225-232)")
     start_step = int(ddpm.num_steps * cond.start_fraction)
+    tag = object()
 
     @torch.no_grad()
     def sample(xT, condition, generator=None, *, noise=None):
         draw = noise or randn_noise(generator)
+        if graphs is not None:
+            def models(buf, dd, scratch, xi, ib, j):
+                x0_model = make_x0_model(eps_fn, dd)
+                return x0_model, x0_model
+
+            return _graphed_ancestral(
+                graphs, (tag, "replacement"), eps_fn, ddpm, xT,
+                _one_step_groups(ddpm), models, draw,
+                inputs={"cond": condition,
+                        "observed": likelihood.observed_mask(condition)},
+                n_corrector=cond.n_corrector, delta=cond.delta,
+                replace_from=start_step, replace_noise=cond.noise)
         dd = ddpm.to(xT.device)
         x0_model = make_x0_model(eps_fn, dd)
         observed = likelihood.observed_mask(condition)
@@ -338,17 +484,23 @@ def _ddim_per_step(ddpm: DDPM, num_steps: int, eta: float) -> np.ndarray:
                      sigma, sr, srm1], axis=-1)[::-1].astype(np.float32)
 
 
-def _ddim_update(xi: torch.Tensor, eps: torch.Tensor, row: np.ndarray,
-                 eta: float, generator: torch.Generator | None):
-    """One DDIM update from a coefficient row."""
-    _, cx0, cdir, sab, sig, sr, srm1 = (float(v) for v in row)
+def _ddim_step(xi: torch.Tensor, eps: torch.Tensor, c,
+               noise: torch.Tensor | None) -> torch.Tensor:
+    """One DDIM update from a coefficient row `c` (host floats, or the
+    graphed chain's 0-d device tensors: the same fp32 values)."""
+    _, cx0, cdir, sab, sig, sr, srm1 = (c[k] for k in range(7))
     x0 = process_x0(sr * xi - srm1 * eps)
     xi_next = cx0 * x0 + cdir * (xi - sab * x0)
-    if eta != 0.0:
-        noise = torch.randn(xi.shape, generator=generator, dtype=xi.dtype,
-                            device=xi.device)
+    if noise is not None:
         xi_next = xi_next + sig * noise
     return xi_next
+
+
+def _ddim_update(xi: torch.Tensor, eps: torch.Tensor, row: np.ndarray,
+                 eta: float, draw: NoiseFn, k: int):
+    """DDIM update `k` of the chain from its coefficient row."""
+    noise = draw(xi, "eta", k) if eta != 0.0 else None
+    return _ddim_step(xi, eps, [float(v) for v in row], noise)
 
 
 def _step_index(xi: torch.Tensor, row: np.ndarray) -> torch.Tensor:
@@ -356,22 +508,62 @@ def _step_index(xi: torch.Tensor, row: np.ndarray) -> torch.Tensor:
                       device=xi.device)
 
 
+def _graphed_ddim(graphs: GraphCache, slot, fn, per_step: np.ndarray,
+                  eta: float, groups, xT: torch.Tensor, draw: NoiseFn,
+                  eps_fn=None, encode_fn=None,
+                  decode_fn=None) -> torch.Tensor:
+    """The DDIM chain through `graph.scan`: the coefficient rows and step
+    indices in device tables read at the counter, one body per group
+    length; eta > 0 draws each step's noise before the replay, as the
+    eager chain draws it."""
+    def make_step(buf):
+        rows = torch.from_numpy(np.ascontiguousarray(per_step)).to(xT.device)
+        steps = rows[:, 0].to(torch.int32)
+
+        def step(scratch, xi, t, j, sig, noise):
+            ib = rows_at(steps, t, xi.shape[0])
+            if encode_fn is None:
+                eps = eps_fn(xi, ib)
+            else:
+                if j == 0:
+                    scratch["cache"] = encode_fn(xi, ib)
+                eps = decode_fn(xi, ib, scratch["cache"])
+            return _ddim_step(xi, eps, row_at(rows, t),
+                              noise[0] if noise else None)
+
+        return step
+
+    out = scan(graphs, slot, fn, xT, groups, make_step,
+               draws_of=lambda sig: (("eta", 0, "x"),) if eta != 0.0 else (),
+               draw=draw)
+    return process_x0(out)
+
+
 def make_ddim_sampler(eps_fn: EpsFn, ddpm: DDPM, num_steps: int = 100,
-                      eta: float = 0.0) -> Callable:
+                      eta: float = 0.0,
+                      graphs: GraphCache | None = None) -> Callable:
     """Deterministic (eta=0) or stochastic DDIM over a strided step grid.
 
-    Returns `sample(xT, generator=None) -> x0`; `generator` draws the eta>0
-    noise on xT's device.
+    Returns `sample(xT, generator=None, *, noise=None) -> x0`; the eta>0
+    noise of update k is `noise(xi, "eta", k)`, by default `torch.randn` on
+    `generator` (on xT's device). With `graphs`, the graphed chain (one
+    body: a step).
     """
     per_step = _ddim_per_step(ddpm, num_steps, eta)
+    tag = object()
 
     @torch.no_grad()
-    def sample(xT: torch.Tensor,
-               generator: torch.Generator | None = None) -> torch.Tensor:
+    def sample(xT: torch.Tensor, generator: torch.Generator | None = None,
+               *, noise: NoiseFn | None = None) -> torch.Tensor:
+        draw = noise or randn_noise(generator)
+        if graphs is not None:
+            return _graphed_ddim(graphs, (tag, "ddim"), eps_fn, per_step,
+                                 eta, [[k] for k in range(num_steps)], xT,
+                                 draw, eps_fn=eps_fn)
         xi = xT
-        for row in per_step:
+        for k, row in enumerate(per_step):
             eps = eps_fn(xi, _step_index(xi, row))
-            xi = _ddim_update(xi, eps, row, eta, generator)
+            xi = _ddim_update(xi, eps, row, eta, draw, k)
         return process_x0(xi)
 
     return sample
@@ -380,7 +572,8 @@ def make_ddim_sampler(eps_fn: EpsFn, ddpm: DDPM, num_steps: int = 100,
 def make_cached_ddim_sampler(encode_fn: Callable, decode_fn: Callable,
                              ddpm: DDPM, num_steps: int = 100,
                              eta: float = 0.0,
-                             encoder_reuse: int = 2) -> Callable:
+                             encoder_reuse: int = 2,
+                             graphs: GraphCache | None = None) -> Callable:
     """DDIM with encoder-feature reuse across adjacent steps ("Faster
     Diffusion", arXiv:2312.09608).
 
@@ -389,23 +582,30 @@ def make_cached_ddim_sampler(encode_fn: Callable, decode_fn: Callable,
     `decode_fn(x, i, cache) -> eps` runs middle and decoder on every step.
     A non-dividing `encoder_reuse` runs the remainder as a shorter first
     group at the high-noise end. `encoder_reuse=1` is exactly the plain
-    DDIM sampler.
+    DDIM sampler. With `graphs`, the graphed chain: one body per K-step
+    group (and one for a shorter first group).
     """
-    groups = reuse_groups(_ddim_per_step(ddpm, num_steps, eta),
-                          encoder_reuse)
+    per_step = _ddim_per_step(ddpm, num_steps, eta)
+    groups = reuse_groups(list(range(num_steps)), encoder_reuse)
+    tag = object()
 
     @torch.no_grad()
-    def sample(xT: torch.Tensor,
-               generator: torch.Generator | None = None) -> torch.Tensor:
+    def sample(xT: torch.Tensor, generator: torch.Generator | None = None,
+               *, noise: NoiseFn | None = None) -> torch.Tensor:
+        draw = noise or randn_noise(generator)
+        if graphs is not None:
+            return _graphed_ddim(graphs, (tag, "cached_ddim"), encode_fn,
+                                 per_step, eta, groups, xT, draw,
+                                 encode_fn=encode_fn, decode_fn=decode_fn)
         xi = xT
-        for rows in groups:
+        for group in groups:
             cache = None
-            for j, row in enumerate(rows):
-                ib = _step_index(xi, row)
+            for j, k in enumerate(group):
+                ib = _step_index(xi, per_step[k])
                 if j == 0:
                     cache = encode_fn(xi, ib)
                 eps = decode_fn(xi, ib, cache)
-                xi = _ddim_update(xi, eps, row, eta, generator)
+                xi = _ddim_update(xi, eps, per_step[k], eta, draw, k)
         return process_x0(xi)
 
     return sample

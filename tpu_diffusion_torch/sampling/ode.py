@@ -3,7 +3,11 @@
 Counterpart of `tpu_diffusion/sampling/ode.py` (the reference's torchdyn
 `NeuralODE` and `torchdiffeq.odeint` dopri5 loops):
 
-  * fixed-step Euler / Midpoint / Heun(2) / RK4 over a time grid;
+  * fixed-step Euler / Midpoint / Heun(2) / RK4 over a time grid; given a
+    `sampling/graph.py:GraphCache` (`graphs=`) the step is captured once as
+    a CUDA graph and replayed on a CUDA tensor, the grid's times read from
+    a device table at the chain's counter (the same bodies in a Python loop
+    on a CPU tensor), bitwise equal to the eager loop;
   * adaptive Dormand–Prince 5(4) with FSAL and the 0.9-safety step
     controller of the JAX `_dopri5_body`, as a Python loop with early exit.
     It reads one device scalar per trip (whether t reached t1), the loop's
@@ -18,9 +22,11 @@ that cannot run dynamic loops; they have no counterpart here.
 
 from __future__ import annotations
 
-from typing import Callable, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
+
+from tpu_diffusion_torch.sampling.graph import GraphCache, row_at, scan
 
 VField = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
 
@@ -29,52 +35,82 @@ def _time_grid(num_steps: int, t0: float, t1: float, device) -> torch.Tensor:
     return torch.linspace(t0, t1, num_steps + 1, device=device)
 
 
-def odeint_euler(v: VField, x0: torch.Tensor, num_steps: int = 100,
-                 t0: float = 0.0, t1: float = 1.0) -> Tuple[torch.Tensor, int]:
+def _euler_step(v: VField, t, tn, x):
+    return x + (tn - t) * v(t, x)
+
+
+def _midpoint_step(v: VField, t, tn, x):
+    dt = tn - t
+    k1 = v(t, x)
+    return x + dt * v(t + dt / 2, x + dt / 2 * k1)
+
+
+def _heun_step(v: VField, t, tn, x):
+    dt = tn - t
+    k1 = v(t, x)
+    k2 = v(tn, x + dt * k1)
+    return x + dt / 2 * (k1 + k2)
+
+
+def _rk4_step(v: VField, t, tn, x):
+    dt = tn - t
+    k1 = v(t, x)
+    k2 = v(t + dt / 2, x + dt / 2 * k1)
+    k3 = v(t + dt / 2, x + dt / 2 * k2)
+    k4 = v(t + dt, x + dt * k3)
+    return x + dt / 6 * (k1 + 2 * k2 + 2 * k3 + k4)
+
+
+def _fixed_step(step, nfe_per_step: int, v: VField, x0: torch.Tensor,
+                num_steps: int, t0: float, t1: float,
+                graphs: Optional[GraphCache]) -> Tuple[torch.Tensor, int]:
+    """`num_steps` steps of `step(v, t_k, t_k+1, x)` over the grid: a Python
+    loop, or with `graphs` the graphed chain (t_k and t_k+1 read from the
+    grid at the chain's counter)."""
     ts = _time_grid(num_steps, t0, t1, x0.device)
+    if graphs is not None:
+        def make_step(buf):
+            grid, grid_next = ts[:-1].contiguous(), ts[1:].contiguous()
+
+            def body(scratch, x, t, j, sig, noise):
+                return step(v, row_at(grid, t), row_at(grid_next, t), x)
+            return body
+
+        x = scan(graphs, (step, num_steps, t0, t1), v, x0,
+                 [[k] for k in range(num_steps)], make_step)
+        return x, nfe_per_step * num_steps
     x = x0
     for k in range(num_steps):
-        x = x + (ts[k + 1] - ts[k]) * v(ts[k], x)
-    return x, num_steps
+        x = step(v, ts[k], ts[k + 1], x)
+    return x, nfe_per_step * num_steps
+
+
+def odeint_euler(v: VField, x0: torch.Tensor, num_steps: int = 100,
+                 t0: float = 0.0, t1: float = 1.0, *,
+                 graphs: Optional[GraphCache] = None
+                 ) -> Tuple[torch.Tensor, int]:
+    return _fixed_step(_euler_step, 1, v, x0, num_steps, t0, t1, graphs)
 
 
 def odeint_midpoint(v: VField, x0: torch.Tensor, num_steps: int = 50,
-                    t0: float = 0.0, t1: float = 1.0
+                    t0: float = 0.0, t1: float = 1.0, *,
+                    graphs: Optional[GraphCache] = None
                     ) -> Tuple[torch.Tensor, int]:
-    ts = _time_grid(num_steps, t0, t1, x0.device)
-    x = x0
-    for k in range(num_steps):
-        t, dt = ts[k], ts[k + 1] - ts[k]
-        k1 = v(t, x)
-        x = x + dt * v(t + dt / 2, x + dt / 2 * k1)
-    return x, 2 * num_steps
+    return _fixed_step(_midpoint_step, 2, v, x0, num_steps, t0, t1, graphs)
 
 
 def odeint_heun(v: VField, x0: torch.Tensor, num_steps: int = 50,
-                t0: float = 0.0, t1: float = 1.0) -> Tuple[torch.Tensor, int]:
-    ts = _time_grid(num_steps, t0, t1, x0.device)
-    x = x0
-    for k in range(num_steps):
-        t, tn = ts[k], ts[k + 1]
-        dt = tn - t
-        k1 = v(t, x)
-        k2 = v(tn, x + dt * k1)
-        x = x + dt / 2 * (k1 + k2)
-    return x, 2 * num_steps
+                t0: float = 0.0, t1: float = 1.0, *,
+                graphs: Optional[GraphCache] = None
+                ) -> Tuple[torch.Tensor, int]:
+    return _fixed_step(_heun_step, 2, v, x0, num_steps, t0, t1, graphs)
 
 
 def odeint_rk4(v: VField, x0: torch.Tensor, num_steps: int = 25,
-               t0: float = 0.0, t1: float = 1.0) -> Tuple[torch.Tensor, int]:
-    ts = _time_grid(num_steps, t0, t1, x0.device)
-    x = x0
-    for k in range(num_steps):
-        t, dt = ts[k], ts[k + 1] - ts[k]
-        k1 = v(t, x)
-        k2 = v(t + dt / 2, x + dt / 2 * k1)
-        k3 = v(t + dt / 2, x + dt / 2 * k2)
-        k4 = v(t + dt, x + dt * k3)
-        x = x + dt / 6 * (k1 + 2 * k2 + 2 * k3 + k4)
-    return x, 4 * num_steps
+               t0: float = 0.0, t1: float = 1.0, *,
+               graphs: Optional[GraphCache] = None
+               ) -> Tuple[torch.Tensor, int]:
+    return _fixed_step(_rk4_step, 4, v, x0, num_steps, t0, t1, graphs)
 
 
 # ---------------------------------------------------------------------------
@@ -110,12 +146,16 @@ def _dopri5_step(v: VField, t, x, dt, k1):
 
 def odeint_dopri5(v: VField, x0: torch.Tensor, t0: float = 0.0,
                   t1: float = 1.0, rtol: float = 1e-5, atol: float = 1e-5,
-                  max_steps: int = 1000) -> Tuple[torch.Tensor, int]:
+                  max_steps: int = 1000, *, graphs: Optional[GraphCache] = None
+                  ) -> Tuple[torch.Tensor, int]:
     """Adaptive RK45 with FSAL: one step size for the whole batch, the RMS
     error norm scaled by atol + rtol * max(|x|, |x_new|), accept at norm
     <= 1, the next step scaled by clip(0.9 * err^-0.2, 0.2, 10). At most
     `max_steps` trips (1 + 6 * trips NFE); `dopri5_truncated` tells a run
-    that used them all."""
+    that used them all. Always eager, `graphs` or not: the early exit reads
+    the card once a trip (the JAX `lax.while_loop`; a graph of it would
+    need conditional nodes)."""
+    del graphs
     t = torch.tensor(t0, dtype=torch.float32, device=x0.device)
     dt = torch.tensor((t1 - t0) / 100.0, dtype=torch.float32,
                       device=x0.device)

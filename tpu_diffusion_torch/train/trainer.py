@@ -352,9 +352,17 @@ class Trainer:
         return self.state
 
 
+_MASK64 = (1 << 64) - 1
+
+
 def step_seed(base_seed: int, step: int) -> int:
-    """The seed of global step `step`'s batch generator: base_seed in the
-    high 32 bits, the step in the low 32."""
+    """The seed of global step `step`'s batch generator: splitmix64 of
+    base_seed in the high 32 bits and the step in the low 32, so every bit
+    of the seed depends on both (the CPU generator reads only the low 32
+    bits of a seed, the card's philox all 64)."""
     if not (0 <= base_seed < 2**31 and 0 <= step < 2**32):
         raise ValueError(f"base_seed {base_seed} or step {step} out of range")
-    return (base_seed << 32) | step
+    z = (((base_seed << 32) | step) + 0x9E3779B97F4A7C15) & _MASK64
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _MASK64
+    return z ^ (z >> 31)
