@@ -51,7 +51,14 @@ captured once as a CUDA graph and replayed), each against its eager loop:
            `cli.main` (K=3, cut to GRAPH_COND_STEPS); Euler-Maruyama over
            an exact Gaussian score; the SR256 eval's Euler-20 (the flash
            forward at [32,1024,64]); the MPNN's design at its published
-           width; the unguided protein chain (cut to GRAPH_PROTEIN_STEPS):
+           width; the unguided protein chain (cut to GRAPH_PROTEIN_STEPS);
+           the reconstruction-guidance 64px chain of `cli.make_samplers`
+           (gamma 10, batch 32) at start_fraction 0.5 and 1.0 in bf16 (50
+           steps) and at 0.5 in fp32 (22 steps; GUIDED_RUNS: its guided
+           body differentiates inside the capture, the flash backward
+           replayed; fp32 bitwise with cuDNN's deterministic algorithms,
+           the one check that vouches for the guided body; bf16's mean
+           |difference| within twice that of two eager chains):
            the outputs bitwise equal (or within the full forward's
            tolerance, ROADMAP trap (d)), the replays' kernel launches equal
            to the eager chain's, capture seconds and pool bytes per body,
@@ -120,8 +127,18 @@ CIFAR-10 conditional flow matching (`cli/train_cifar10.py`,
            Euler-100 grid finite in [-1, 1]; then 5 I-CFM steps (the
            unpaired path);
   cfm_fid  `compute_fid.main` on that checkpoint, random_conv features,
-           1024 images in batches of 512, by Euler-100 and by dopri5: FID,
-           NFE, dopri5_truncated and the seconds taken.
+           1024 images in batches of 512, by Euler-100 and by dopri5 (the
+           early exit, graphed), and 512 by the calibrated fixed-trip
+           dopri5 in segments of 8 trips (`--dopri5_fixed_trip true
+           --dopri5_chunk 8`, `Dopri5Chunked`): FID, NFE,
+           dopri5_truncated, the trip budget and the seconds taken;
+  graphs (dopri5_cifar)  dopri5's early exit on compute_fid's field (the
+           checkpoint's live parameters), batch DOPRI5_BATCH (cut from
+           1024), tol 1e-5, graphed against the eager loop: x bitwise
+           and the NFE equal, wall and device ms, idle shares; then the
+           fixed-trip scan (graphed) and
+           `Dopri5Chunked` at the calibrated budget, x bitwise and the NFE
+           equal to the early exit's.
 The CFM conditional CLIs (`cli/train_cfm_conditional.py`,
 `cli/train_conditional_mnist.py`; synthetic data) and the SDE samplers:
   cfm_cond_sr256  4x super-resolution on synthetic256 at full width (128
@@ -148,7 +165,8 @@ The CFM conditional CLIs (`cli/train_cfm_conditional.py`,
            and its time as a simulated one-card figure;
   cfm_cond_64  weighted inpainting on flowers at its defaults (64px, 128
            channels, attention at 16x16: dense, no kernel), batch 32, 10
-           steps, one eval batch of 8 by dopri5: ms per step, NFE, whether
+           steps, one eval batch of 8 by dopri5 (its graphed early exit:
+           the replays counted against the NFE): ms per step, NFE, whether
            dopri5 finished;
   cond_mnist  `train_conditional_mnist.main` for cfm, otcfm and sf2m at 32
            channels and batch 128, 20 steps each, then the 10x8 class grid
@@ -1123,7 +1141,7 @@ def conditional_phase(torch, F, card_info, dev):
              wrapper_calls=[attention.flash_fwd_launches,
                             attention.flash_bwd_launches],
              note="random weights: the metrics make no quality claim; "
-                  "amortized_k3, amortized_plain and "
+                  "amortized_k3, amortized_plain, guidance and "
                   "outpainting_replacement are graphed chains "
                   "(cli.make_samplers): seconds include their capture, "
                   "*_launches what ran (replays included), wrapper_calls "
@@ -1628,19 +1646,30 @@ def cfm_train_phase(torch, card_info, out):
 
 def cfm_fid_phase(torch, card_info, out):
     """`cli.compute_fid.main` on the cfm_train checkpoint: random_conv
-    features, 1024 images in batches of 512, by Euler-100 and by dopri5."""
+    features, 1024 images in batches of 512, by Euler-100 and by dopri5
+    (the early exit, graphed), and 512 by the calibrated fixed-trip dopri5
+    in segments of 8 trips (`Dopri5Chunked`)."""
     from tpu_diffusion_torch.cli import compute_fid
     common = ["--model", "otcfm", "--input_dir", out, "--features",
               "random_conv", "--num_gen", "1024", "--batch_size_fid", "512"]
-    for method in ("euler", "dopri5"):  # dopri5 at the default tol 1e-5
+    runs = {"euler": [], "dopri5": [],  # dopri5 at the default tol 1e-5
+            # the calibrated fixed-trip budget in segments of 8 trips, one
+            # batch (cut from 1024 images)
+            "dopri5_chunked": ["--dopri5_fixed_trip", "true",
+                               "--dopri5_chunk", "8", "--num_gen", "512"]}
+    for run, extra in runs.items():
+        method = run.split("_")[0]
         torch.cuda.synchronize()
         s0 = time.perf_counter()
-        res = compute_fid.main(common + ["--integration_method", method])
+        res = compute_fid.main(common + ["--integration_method", method]
+                               + extra)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - s0
-        emit(card_info, phase="cfm_fid", method=method, seconds=seconds,
-             fid=res["fid"], mean_nfe=res["mean_nfe"],
+        emit(card_info, phase="cfm_fid", run=run, method=method,
+             seconds=seconds, fid=res["fid"], mean_nfe=res["mean_nfe"],
              dopri5_truncated=res.get("dopri5_truncated"),
+             dopri5_trip_budget=res.get("dopri5_trip_budget"),
+             dopri5_chunk=res.get("dopri5_chunk"),
              tol=res.get("tol"), step=res["step"], num_gen=res["num_gen"],
              peak_memory_gb=res["peak_memory_gb"],
              fid_comparable_to_published=res[
@@ -1650,13 +1679,104 @@ def cfm_fid_phase(torch, card_info, out):
                   "main() call (the first computes the real-set "
                   "statistics, the second reads them from its cache)")
         check(math.isfinite(res["fid"]) and res["step"] == CFM_TRAIN_STEPS
-              and res["num_gen"] == 1024,
-              f"cfm_fid {method}: {res}")
+              and res["num_gen"] == (512 if extra else 1024),
+              f"cfm_fid {run}: {res}")
         if method == "euler":
             check(res["mean_nfe"] == 100, f"cfm_fid euler: NFE {res}")
         else:
             check(res["mean_nfe"] > 6 and not res["dopri5_truncated"],
-                  f"cfm_fid dopri5: {res}")
+                  f"cfm_fid {run}: {res}")
+        if extra:
+            check(res["dopri5_chunk"] == 8
+                  and res["dopri5_trip_budget"] >= 16,
+                  f"cfm_fid {run}: {res}")
+
+
+# --- dopri5 as a graphed chain on compute_fid's field ---------------------
+DOPRI5_BATCH = 128        # the FID protocol's batch 1024, cut
+DOPRI5_TOL = 1e-5         # the protocol's rtol = atol
+DOPRI5_CHUNK = 8          # Dopri5Chunked's segment, as in the cfm_fid run
+
+
+def dopri5_graphs_phase(torch, card_info, dev, out):
+    """dopri5's early exit on `compute_fid`'s field (the CIFAR CFM UNet at
+    width 128, the live parameters of the cfm_train checkpoint under
+    `out`), batch DOPRI5_BATCH: the graphed chain against the eager loop
+    (x bitwise and the NFE; wall and device ms, idle shares); then the
+    fixed-trip-count scan (graphed) and `Dopri5Chunked` at the calibrated
+    budget, x bitwise and the NFE equal to the early exit's."""
+    import os
+
+    from tpu_diffusion_torch.cli.main import set_params
+    from tpu_diffusion_torch.cli.train_cifar10 import build_model
+    from tpu_diffusion_torch.sampling import ode
+    from tpu_diffusion_torch.sampling.graph import GraphCache
+    from tpu_diffusion_torch.train.checkpoint import CheckpointManager
+
+    torch.manual_seed(0)
+    model = build_model(num_channels=128, device=dev)
+    own = {k: v.detach() for k, v in model.named_parameters()}
+    assets, _ = CheckpointManager(os.path.join(out, "otcfm", "ckpt")).load(
+        {"params": own, "ema": own, "step": 0})
+    set_params(model, assets["params"])
+    model.eval().requires_grad_(False)
+    x0 = torch.randn((DOPRI5_BATCH, 32, 32, 3), device=dev,
+                     generator=torch.Generator(dev).manual_seed(SEED + 30))
+    tol = dict(rtol=DOPRI5_TOL, atol=DOPRI5_TOL)
+
+    def run(graphs=None, **kw):
+        def go():
+            with torch.no_grad():
+                x, nfe = ode.odeint_dopri5(model, x0, graphs=graphs, **tol,
+                                           **kw)
+            return x, torch.tensor(nfe)
+        return go
+
+    want, nfe = run()()
+    nfe = int(nfe)
+    graphs = GraphCache(model)
+    res = graph_vs_eager(
+        torch, card_info, "dopri5_cifar", run(), run(graphs), graphs,
+        repeats=1, per=nfe, batch=DOPRI5_BATCH, tol=DOPRI5_TOL, nfe=nfe,
+        trips=(nfe - 1) // 6,
+        note_per="per: the chain's NFE (*_per: ms per UNet evaluation)")
+    check(res["bitwise_equal"], f"graphs dopri5: the graphed chain "
+                                f"differs from the eager loop: "
+                                f"{res['difference']}")
+    graphs.clear()
+
+    with torch.no_grad():
+        budget = ode.calibrate_dopri5_steps(model, x0, **tol)
+    graphs = GraphCache(model)
+    variants = {"fixed_trip_graphed": run(graphs, max_steps=budget,
+                                          fixed_trip_count=True)}
+    chunked = ode.Dopri5Chunked(model, max_steps=budget,
+                                chunk_steps=DOPRI5_CHUNK, graphs=graphs, **tol)
+
+    def chunked_run():
+        with torch.no_grad():
+            x, n = chunked(x0)
+        return x, torch.tensor(n)
+
+    variants["chunked"] = chunked_run
+    for name, fn in variants.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        x, n = fn()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        equal = torch.equal(x, want)
+        emit(card_info, phase="graphs", chain=f"dopri5_cifar_{name}",
+             budget=budget, chunk=DOPRI5_CHUNK if name == "chunked" else None,
+             nfe=int(n), early_exit_nfe=nfe, x_bitwise_equal=equal,
+             wall_ms=ms, note="wall_ms: one call, its capture included "
+                              "where graphed")
+        check(equal and int(n) == nfe,
+              f"graphs dopri5 {name}: nfe {int(n)} (early exit {nfe}), "
+              f"x equal {equal}")
+    graphs.clear()
+    del model, graphs, chunked
+    torch.cuda.empty_cache()
 
 
 SR_BATCH = 8
@@ -2072,14 +2192,29 @@ def cfm_cond_64_phase(torch, card_info, out):
             "--eval_batches", "1", "--eval_batch_size", "8",
             "--eval_method", "dopri5", "--eval_every_div", "0",
             "--output_dir", out]
-    with TimedTrainer(cc) as trace:
-        torch.cuda.synchronize()
-        attention.flash_fwd_launches = 0
-        attention.flash_bwd_launches = 0
-        t0 = time.perf_counter()
-        res = cc.main(args)
-        torch.cuda.synchronize()
-        seconds = time.perf_counter() - t0
+    samplers = []
+    make_sampler = cc.make_conditional_sampler
+
+    def keep(*a, **kw):
+        samplers.append(make_sampler(*a, **kw))
+        return samplers[-1]
+
+    cc.make_conditional_sampler = keep
+    try:
+        with TimedTrainer(cc) as trace:
+            torch.cuda.synchronize()
+            attention.flash_fwd_launches = 0
+            attention.flash_bwd_launches = 0
+            t0 = time.perf_counter()
+            res = cc.main(args)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+    finally:
+        cc.make_conditional_sampler = make_sampler
+    # the eval's dopri5 went through the graphed early exit
+    chains = [c for smp in samplers for c in smp.held["graphs"].chains
+              .values()] if samplers and "graphs" in samplers[0].held else []
+    replays = {str(sig): n for c in chains for sig, n in c.replays.items()}
     first_ms, later = step_times(t0, trace)
     results = res["results"]
     truncated = dopri5_truncated(int(results["nfe"]), 1000)
@@ -2091,6 +2226,7 @@ def cfm_cond_64_phase(torch, card_info, out):
          n_params=res["n_params"], losses=[l for _, l, _, _ in trace],
          eval=results, eval_method="dopri5 (rtol = atol = 1e-5)",
          dopri5_finished=not truncated, flash_launches=list(launches),
+         dopri5_graph_replays=replays,
          kernels_on_path="none: attention only at 16x16 (T=256), dense; "
                          "GroupNorm plain",
          note="ms per step: host clock between the per-step metric reads "
@@ -2104,6 +2240,9 @@ def cfm_cond_64_phase(torch, card_info, out):
           and results["nfe"] > 6 and not truncated,
           f"cfm_cond_64: eval {results}")
     check(launches == (0, 0), f"cfm_cond_64: flash launches {launches}")
+    # one-trip bodies replayed: the trips the NFE needs
+    check(replays == {"init": 1, "1": (int(results["nfe"]) - 1) // 6},
+          f"cfm_cond_64: the dopri5 eval's graph replays {replays}")
     del res
     torch.cuda.empty_cache()
 
@@ -2874,6 +3013,13 @@ GRAPH_COND_STEPS = 100    # the cached amortized 64px chain, cut from 1000
 GRAPH_SR_STEPS = 20       # the SR256 eval's Euler-20 (no cut)
 GRAPH_PROTEIN_STEPS = 50  # the unguided protein chain, cut from 250
 GRAPH_MPNN_LEN = 105      # residues of the designed chain (protein_eval's)
+# the reconstruction-guidance chain, cut from 1000 steps: (network.dtype,
+# conditioning.start_fraction, steps, timed graphed chains); at 0.5 the
+# plain and the guided bodies, at 1.0 (the config's) only the guided ones;
+# fp32 (five times bf16's time a step) cut furthest, to the 21 steps the
+# VP-SDE's schedule needs at least (`core/schedules.py:DDPM.create`)
+GUIDED_RUNS = (("bfloat16", 0.5, 50, 2), ("bfloat16", 1.0, 50, 2),
+               ("float32", 0.5, 22, 1))
 
 
 def ran():
@@ -2889,7 +3035,7 @@ def delta(after, before):
 
 
 def graph_vs_eager(torch, card_info, name, eager, graphed, graphs,
-                   repeats=GRAPH_REPEATS, per=None, **fields):
+                   repeats=GRAPH_REPEATS, per=None, spread=False, **fields):
     """One eager chain (after an untimed one) and the graphed chain (its
     first call captures), then
     `repeats` timed graphed chains: the outputs bitwise equal (or, trap (d)
@@ -2899,11 +3045,16 @@ def graph_vs_eager(torch, card_info, name, eager, graphed, graphs,
     idle share, capture seconds and pool bytes. `per` divides the times
     (steps of the chain). `graphs` is the chains' GraphCache, or a
     function giving it after the first graphed call (a sampler that makes
-    its own). Returns the emitted fields."""
+    its own). With `spread`, the untimed eager chain's output is held
+    against the timed one's too (a chain whose kernels sum with atomics
+    differs from itself), and an output that is not bitwise must differ
+    from the eager chain's by at most twice as much in mean |difference|,
+    in place of trap (d)'s tolerance. Returns the emitted fields."""
     def tensors(out):
         return out if isinstance(out, tuple) else (out,)
 
-    eager()  # warm-up, not timed: first uses of kernels and libraries
+    # warm-up, not timed: first uses of kernels and libraries
+    first = eager()
     torch.cuda.synchronize()
     r0, t0 = ran(), time.perf_counter()
     want = eager()
@@ -2933,7 +3084,11 @@ def graph_vs_eager(torch, card_info, name, eager, graphed, graphs,
     bitwise = all(torch.equal(a, b) for a, b in
                   zip(tensors(got), tensors(want))) and all(
         torch.equal(a, b) for a, b in zip(tensors(again), tensors(got)))
-    tol_ok, diff = True, None
+    tol_ok, diff, eager_spread = True, None, None
+    if spread:
+        d = (tensors(first)[0].float() - tensors(want)[0].float()).abs()
+        eager_spread = {"max_abs_diff": d.max().item(),
+                        "mean_abs_diff": d.mean().item()}
     if not bitwise:
         g, w = tensors(got)[0].float(), tensors(want)[0].float()
         d = (g - w).abs()
@@ -2941,17 +3096,24 @@ def graph_vs_eager(torch, card_info, name, eager, graphed, graphs,
                 "mean_abs_diff": d.mean().item(),
                 "max_abs_ref": w.abs().max().item(),
                 "mean_abs_ref": w.abs().mean().item()}
-        tol_ok = (d.max() <= 0.1 * w.abs().max()
-                  and d.mean() <= 0.03 * w.abs().mean())
+        if spread:
+            # the mean alone: where the chain diverges from its own last
+            # bits, both maxima saturate at the range (2 in [-1, 1])
+            tol_ok = (d.mean().item()
+                      <= 2 * eager_spread["mean_abs_diff"])
+        else:
+            tol_ok = (d.max() <= 0.1 * w.abs().max()
+                      and d.mean() <= 0.03 * w.abs().mean())
     k = per or 1
     dev_q = quartiles(device)
     out = dict(
         phase="graphs", chain=name, **fields, bitwise_equal=bitwise,
-        difference=diff, eager_seconds=eager_s,
+        difference=diff, eager_vs_eager=eager_spread, eager_seconds=eager_s,
         first_graphed_seconds=first_s,
         capture_s=sum(sum(c.capture_s.values()) for c in chains),
         pool_bytes=sum(sum(c.pool_bytes.values()) for c in chains),
-        bodies={str(len(sig)) if isinstance(sig, tuple) else str(sig):
+        bodies={str(len(sig)) if isinstance(sig, tuple) and not any(sig)
+                else str(sig):
                 {"launches_per_replay": c.launches.get(sig, {}),
                  "replays": c.replays[sig],
                  "capture_s": c.capture_s.get(sig, 0.0),
@@ -2977,6 +3139,77 @@ def graph_vs_eager(torch, card_info, name, eager, graphed, graphs,
           f"graphs {name}: replays launched {graph_launches}, the eager "
           f"chain {eager_launches}")
     return out
+
+
+def guidance_graphs(torch, card_info, dev):
+    """The reconstruction-guidance 64px chain of `cli.make_samplers` at the
+    `flowers,inpainting,reconstruction_guidance` config (full width, batch
+    COND_BATCH, gamma 10, cut in depth) for each of GUIDED_RUNS,
+    graphed against eager: the guided body differentiates inside its
+    capture, so the flash backward is replayed from a graph. fp32, with
+    cuDNN's deterministic algorithms, is held bitwise: the check that
+    vouches for the guided body. bf16's mean |difference| is held to twice
+    that of two eager chains (the flash backward's atomic dq sums, and
+    cuDNN's default backward-data algorithms'), which gamma 10 amplifies
+    until the chains part: a loose check."""
+    from tpu_diffusion_torch.cli import main as cli
+    from tpu_diffusion_torch.models import unet
+    from tpu_diffusion_torch.utils import config as config_mod
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 31)
+    imgs = torch.tanh(torch.randn((COND_BATCH, 64, 64, 3), generator=gen,
+                                  device=dev))
+    xT = torch.randn(imgs.shape, generator=gen, device=dev)
+    for dtype, fraction, steps, repeats in GUIDED_RUNS:
+        config = config_mod.get_config(
+            "flowers,inpainting,reconstruction_guidance")
+        config_mod.apply_overrides(config, [
+            "testing.lpips=false", f"diffusion.num_steps={steps}",
+            f"conditioning.start_fraction={fraction}",
+            f"network.dtype={dtype}"])
+        parts = cli.build(config, dev)
+        model = unet.randomize_(parts["model"], torch.Generator().manual_seed(
+            SEED)).eval().requires_grad_(False)
+        graphed_sample, _ = cli.make_samplers(config, parts)
+        eager_sample, _ = cli.make_samplers(config, parts, graphed=False)
+        cond = parts["likelihood"].sample(
+            torch.Generator(device=dev).manual_seed(SEED + 32), imgs)
+
+        def chain(sample):
+            return lambda: sample(model, xT, cond, torch.Generator(
+                dev).manual_seed(SEED + 33))
+
+        guided = int(steps * fraction)  # steps i < start_step
+        name = f"guidance_64px_{dtype}_sf{fraction}"
+        # fp32: cuDNN's deterministic backward-data algorithms (its
+        # default ones sum with atomics; ROADMAP "Traps")
+        deterministic = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = dtype == "float32"
+        try:
+            res = graph_vs_eager(
+                torch, card_info, name, chain(eager_sample),
+                chain(graphed_sample),
+                lambda: graphed_sample.built["graphs"], repeats=repeats,
+                per=steps, spread=True, batch=COND_BATCH, steps=steps,
+                guided_steps=guided,
+                gamma=config.conditioning.gamma, start_fraction=fraction,
+                dtype=dtype, cudnn_deterministic=dtype == "float32",
+                cut=f"chain cut from 1000 to {steps} steps",
+                note_per="per: steps of the chain (*_per: ms per step; at "
+                         "start_fraction 1.0 every step is guided)")
+        finally:
+            torch.backends.cudnn.deterministic = deterministic
+        launched = res["graph_launches"]
+        check(launched.get("flash_attention_bwd", 0) == 5 * guided
+              and launched.get("flash_attention_fwd", 0)
+              == 5 * (steps + guided),
+              f"graphs {name}: replayed {launched}")
+        if dtype == "float32":
+            check(res["bitwise_equal"],
+                  f"graphs {name}: fp32 graphed chain not bitwise equal "
+                  f"to the eager one: {res['difference']}")
+        del model, parts, graphed_sample, eager_sample
+        torch.cuda.empty_cache()
 
 
 def graphs_phase(torch, card_info, dev, mk):
@@ -3072,6 +3305,8 @@ def graphs_phase(torch, card_info, dev, mk):
                    cut=f"chain cut from 1000 to {GRAPH_COND_STEPS} steps")
     del model, parts, graphed_sample, eager_sample
     torch.cuda.empty_cache()
+
+    guidance_graphs(torch, card_info, dev)
 
     # --- one SDE sampler: Euler-Maruyama over an exact Gaussian score -----
     vp = VPSDE()
@@ -3328,12 +3563,13 @@ def main():
     from tpu_diffusion_torch.kernels import resblock
     from tpu_diffusion_torch.sampling import graph
     attention.launches = groupnorm.launches = resblock.launches = 0
-    attention.flash_fwd_launches = 0
+    attention.flash_fwd_launches = attention.flash_bwd_launches = 0
     graphs_phase(torch, card_info, dev, models["norm_fused"][0])
     for name, n in (("flash_attention_fused", attention.launches),
                     ("fused_groupnorm_silu", groupnorm.launches),
                     ("fused_resblock", resblock.launches),
-                    ("flash_attention_fwd", attention.flash_fwd_launches)):
+                    ("flash_attention_fwd", attention.flash_fwd_launches),
+                    ("flash_attention_bwd", attention.flash_bwd_launches)):
         check(n > 0, f"{name} was not launched on the graphed path")
         counts[name] = counts.get(name, 0) + n
     del models
@@ -3362,6 +3598,7 @@ def main():
     try:
         cfm_train_phase(torch, card_info, out)
         cfm_fid_phase(torch, card_info, out)
+        dopri5_graphs_phase(torch, card_info, dev, out)
         torch.cuda.empty_cache()
         # --- the CFM conditional CLIs and the SDE samplers ------------------
         for name, n in cfm_cond_sr256_phase(torch, card_info, out).items():
@@ -3422,7 +3659,9 @@ def main():
         "flash_attention_bwd": "one guidance gradient through the 64px UNet "
                                "at batch 32 (5 calls at [128,1024,64]) plus "
                                "one SR256 training step at batch 8 (5 at "
-                               "[32,1024,64]); launches: the guidance run, "
+                               "[32,1024,64]); launches: the guidance run "
+                               "and the graphs phase's guided chains "
+                               "(their warm-ups and captures), "
                                "the 20 DDPM training steps, the 20 "
                                "cfm_cond_sr256 steps and the parallel "
                                "phase's 10 meshed steps; max_rel_err: the "

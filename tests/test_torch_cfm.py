@@ -441,7 +441,8 @@ def test_train_cifar10_unpaired_paths(tmp_path, model, ot):
 
 def test_train_cifar10_then_compute_fid(tmp_path, monkeypatch):
     """otcfm with host OT pairs (tuple batches through the trainer), its
-    checkpoints, then compute_fid on them by Euler and by dopri5."""
+    checkpoints, then compute_fid on them by Euler, by dopri5 and by the
+    fixed-trip dopri5 in chunks."""
     out = str(tmp_path)
     last = cli.main(["--model", "otcfm", "--output_dir", out] + TRAIN_ARGS)
     ckpts = sorted(os.listdir(tmp_path / "otcfm" / "ckpt"))
@@ -465,12 +466,16 @@ def test_train_cifar10_then_compute_fid(tmp_path, monkeypatch):
     monkeypatch.setattr(compute_fid, "make_feature_fn", _small_features)
     euler = compute_fid.main(fid_args + ["--integration_method", "euler",
                                          "--integration_steps", "2"])
+    # the calibrated fixed-trip budget through Dopri5Chunked
+    # (tests/test_cli_fid.py:test_compute_fid_cli_chunked_dopri5)
+    chunked = compute_fid.main(fid_args + [
+        "--integration_method", "dopri5", "--tol", "1e-2",
+        "--dopri5_fixed_trip", "true", "--dopri5_chunk", "8"])
+    assert chunked["dopri5_chunk"] == 8
+    assert chunked["dopri5_trip_budget"] >= 16
+    assert chunked["mean_nfe"] > 6 and np.isfinite(chunked["fid"])
     dopri = compute_fid.main(fid_args + ["--integration_method", "dopri5",
                                          "--tol", "1e-2"])
-    for flag, value in (("--dopri5_fixed_trip", "true"),
-                        ("--dopri5_chunk", "8")):
-        with pytest.raises(ValueError, match="TPU runtime"):
-            compute_fid.main(fid_args + [flag, value])
     assert euler["mean_nfe"] == 2 and euler["step"] == 2
     assert np.isfinite(euler["fid"]) and np.isfinite(dopri["fid"])
     assert dopri["mean_nfe"] > 6 and dopri["dopri5_truncated"] is False

@@ -11,6 +11,8 @@ without JAX it runs as
 import pytest
 import torch
 
+from tpu_diffusion_torch.conditioning.guidance import ReconstructionGuidance
+from tpu_diffusion_torch.conditioning.likelihoods import InPainting
 from tpu_diffusion_torch.core.schedules import DDPM
 from tpu_diffusion_torch.models.unet import (UNetModelWrapper, create_model,
                                              randomize_)
@@ -148,6 +150,79 @@ def test_cuda_graphed_mpnn_decode_equals_the_loop(cuda):
         got = graphed(*args,
                       generator=torch.Generator(cuda).manual_seed(seed))
         assert torch.equal(got, want)
+    assert graphs.captures == 1
+
+
+@pytest.mark.cuda
+def test_cuda_graphed_guidance_equals_eager(cuda):
+    """The reconstruction-guidance chain (25 steps, half guided, one
+    corrector) over a small fp32 UNet with flash attention at T=1024: the
+    guided body differentiates inside its capture, the chain equals the
+    eager one bitwise, and the replays launch the flash backward as often
+    as the eager chain. The fp32 flash backward sums with no atomics;
+    cuDNN's default backward-data algorithms do (two eager gradients
+    differ by ~7e-7, which gamma 10 amplifies), so the test takes its
+    deterministic ones."""
+    model = create_model(image_size=32, num_channels=32, num_res_blocks=1,
+                         in_channels=3, channel_mult=(1, 2), num_heads=1,
+                         attention_resolutions="32", dtype=torch.float32,
+                         attention_impl="flash", device=cuda)
+    randomize_(model, torch.Generator().manual_seed(7))
+    model.eval().requires_grad_(False)
+
+    def eps(x, i):
+        return model(x, i.float() / 25)
+
+    ddpm = DDPM.create(25)
+    lik = InPainting(patch_size=12, pad_value=-2.0)
+    g = torch.Generator().manual_seed(8)
+    xT = torch.randn((4, 32, 32, 3), generator=g).to(cuda)
+    cond = lik.sample(g, torch.tanh(xT).cpu()).to(cuda)
+    guidance = ReconstructionGuidance(gamma=10.0, start_fraction=0.5,
+                                      n_corrector=1, delta=0.1)
+    graphs = GraphCache(model)
+
+    def run(graphs):
+        return ancestral.make_conditional_sampler(
+            eps, ddpm, guidance, lik, graphs=graphs)(
+                xT, cond, torch.Generator(cuda).manual_seed(9))
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        first = run(None)
+        before = launch_counts()
+        want = run(None)
+        eager = {name: n - before[name]
+                 for name, n in launch_counts().items() if n != before[name]}
+        got = run(graphs)
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    assert torch.equal(got, want) and torch.equal(want, first)
+    assert graphs.replayed_launches() == eager
+    assert eager["flash_attention_bwd"] > 0
+
+
+@pytest.mark.cuda
+def test_cuda_graphed_dopri5_equals_the_eager_loop(cuda):
+    """dopri5's early exit over a small CFM UNet: the graphed chain (a
+    one-trip body replayed, `done` read after each replay) ends with the
+    eager loop's x, bitwise, and NFE."""
+    v = UNetModelWrapper((32, 32, 3), num_channels=32, num_res_blocks=1,
+                         channel_mult=(1, 2), num_heads=1,
+                         attention_resolutions="16", dtype=torch.float32,
+                         device=cuda)
+    randomize_(v, torch.Generator().manual_seed(10)).eval()
+    v.requires_grad_(False)
+    x0 = torch.randn((4, 32, 32, 3), generator=torch.Generator()
+                     .manual_seed(11)).to(cuda)
+    with torch.no_grad():
+        want = ode.odeint_dopri5(v, x0, rtol=1e-3, atol=1e-3, max_steps=60)
+        graphs = GraphCache(v)
+        got = ode.odeint_dopri5(v, x0, rtol=1e-3, atol=1e-3, max_steps=60,
+                                graphs=graphs)
+    assert got[1] == want[1] and torch.equal(got[0], want[0])
     assert graphs.captures == 1
 
 

@@ -16,9 +16,14 @@ with `--features` (`eval/fid.py`; the result carries its caveat fields).
 The train split's statistics are cached in
 `<input_dir>/real_stats_torch_<dataset>_<features>_<H>x<W>x<C>.npz` (the
 port's features are not the JAX package's, hence a file of its own). Runs
-on the CUDA card unless `--device cpu`. `--dopri5_fixed_trip` and
-`--dopri5_chunk` select workarounds for a TPU runtime that the port does
-not carry: any value but `auto` raises.
+on the CUDA card unless `--device cpu`.
+
+dopri5 runs the early-exit controller (`--dopri5_fixed_trip auto`, the
+platform's kwargs, or `false`) as a graphed chain with a budget of
+`DOPRI5_MAX_STEPS` trips; `--dopri5_fixed_trip true` calibrates a trip
+budget on a batch-2 probe of `--seed + 1` noise and integrates every batch
+by `Dopri5Chunked` in segments of `--dopri5_chunk` trips, and the result
+then carries `dopri5_trip_budget` and `dopri5_chunk`.
 """
 
 from __future__ import annotations
@@ -36,10 +41,13 @@ from tpu_diffusion_torch.data.registry import epoch_batches, get_dataset
 from tpu_diffusion_torch.eval.fid import FID, fid_caveat, make_feature_fn
 from tpu_diffusion_torch.models.unet import resolve_device
 from tpu_diffusion_torch.sampling.graph import GraphCache
-from tpu_diffusion_torch.sampling.ode import dopri5_truncated, odeint
+from tpu_diffusion_torch.sampling.ode import (Dopri5Chunked,
+                                               calibrate_dopri5_steps,
+                                               dopri5_platform_kwargs,
+                                               dopri5_truncated, odeint)
 from tpu_diffusion_torch.train.checkpoint import CheckpointManager
 
-DOPRI5_MAX_STEPS = 1000  # `odeint_dopri5`'s default trip budget
+DOPRI5_MAX_STEPS = 1000  # the early exit's trip budget (`odeint_dopri5`'s)
 
 
 def quantize_roundtrip(x: torch.Tensor) -> torch.Tensor:
@@ -65,12 +73,13 @@ def main(argv=None) -> dict:
                    choices=["random_conv", "inception"])
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--dopri5_fixed_trip", default="auto",
-                   help="a TPU workaround in the JAX package; the port's "
-                        "dopri5 always exits early, so only 'auto' is "
-                        "accepted")
-    p.add_argument("--dopri5_chunk", default="auto",
-                   help="a TPU workaround in the JAX package (trips per "
-                        "device execution); only 'auto' is accepted")
+                   choices=["auto", "true", "false"],
+                   help="true: a calibrated fixed trip budget integrated "
+                        "by Dopri5Chunked; auto (the platform's choice) "
+                        "and false: the early-exit controller")
+    p.add_argument("--dopri5_chunk", type=int, default=16,
+                   help="trips per segment of the fixed-trip dopri5 (one "
+                        "replay of a captured body on the card)")
     p.add_argument("--use_ema", default="true", choices=["true", "false"],
                    help="sample with the EMA weights (reference protocol); "
                         "'false' uses the live params (useful for short "
@@ -79,13 +88,6 @@ def main(argv=None) -> dict:
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu")
     args = p.parse_args(argv)
-    for flag in ("dopri5_fixed_trip", "dopri5_chunk"):
-        if getattr(args, flag) != "auto":
-            raise ValueError(
-                f"--{flag} {getattr(args, flag)!r}: the fixed-trip and "
-                f"chunked dopri5 drivers work around a TPU runtime and are "
-                f"not part of the PyTorch port, whose dopri5 is an "
-                f"early-exit loop; leave --{flag} at 'auto'")
     device = resolve_device(args.device)
 
     ds = get_dataset(args.dataset)(args.data_root, train=True)
@@ -101,17 +103,44 @@ def main(argv=None) -> dict:
     model.eval().requires_grad_(False)
     print(f"[compute_fid] restored step {step} from {ckpt_dir}", flush=True)
 
-    generator = torch.Generator(device=device).manual_seed(args.seed)
-    # the fixed-step integrators replay one captured step (sampling/graph.py)
+    # the integrators replay captured bodies (sampling/graph.py)
     graphs = GraphCache(model)
+    dopri5_kwargs = {}
+    if args.integration_method == "dopri5":
+        dopri5_kwargs = {"max_steps": DOPRI5_MAX_STEPS}
+        if args.dopri5_fixed_trip == "auto":
+            dopri5_kwargs.update(dopri5_platform_kwargs())
+        elif args.dopri5_fixed_trip == "true":
+            # the fixed trips are all paid: size the budget from one probe
+            # of the early-exit controller, on the device of the run
+            probe = torch.randn((2, h, w, c), device=device,
+                                generator=torch.Generator(device).manual_seed(
+                                    args.seed + 1))
+            with torch.no_grad():
+                budget = calibrate_dopri5_steps(model, probe, rtol=args.tol,
+                                                atol=args.tol)
+            dopri5_kwargs = {"fixed_trip_count": True, "max_steps": budget}
+            print(f"[compute_fid] dopri5 trip budget calibrated to {budget}",
+                  flush=True)
+    budget = dopri5_kwargs.get("max_steps")
+    if dopri5_kwargs.get("fixed_trip_count"):
+        chunked = Dopri5Chunked(model, rtol=args.tol, atol=args.tol,
+                                max_steps=budget,
+                                chunk_steps=args.dopri5_chunk, graphs=graphs)
+        print(f"[compute_fid] {chunked.n_segments} segments x "
+              f"{chunked.chunk_steps} trips per batch", flush=True)
+
+    generator = torch.Generator(device=device).manual_seed(args.seed)
 
     @torch.no_grad()
     def gen_batch():
         noise = torch.randn((args.batch_size_fid, h, w, c),
                             generator=generator, device=device)
-        if args.integration_method == "dopri5":
+        if dopri5_kwargs.get("fixed_trip_count"):
+            x1, nfe = chunked(noise)
+        elif args.integration_method == "dopri5":
             x1, nfe = odeint(model, noise, method="dopri5", rtol=args.tol,
-                             atol=args.tol, max_steps=DOPRI5_MAX_STEPS)
+                             atol=args.tol, graphs=graphs, **dopri5_kwargs)
         else:
             x1, nfe = odeint(model, noise, method=args.integration_method,
                              num_steps=args.integration_steps, graphs=graphs)
@@ -139,11 +168,10 @@ def main(argv=None) -> dict:
     for i in range(n_batches):
         imgs, nfe = gen_batch()
         nfes.append(nfe)
-        if (args.integration_method == "dopri5"
-                and dopri5_truncated(nfe, DOPRI5_MAX_STEPS)):
+        if budget and dopri5_truncated(nfe, budget):
             print(f"[compute_fid] WARNING: dopri5 exhausted its "
-                  f"{DOPRI5_MAX_STEPS}-trip budget (nfe={nfe}): the "
-                  f"trajectory may be unconverged")
+                  f"{budget}-trip budget (nfe={nfe}): the trajectory may "
+                  f"be unconverged")
         fid.update(imgs, real=False)
         if i % 5 == 0:
             print(f"[compute_fid] generated "
@@ -159,7 +187,10 @@ def main(argv=None) -> dict:
     if args.integration_method == "dopri5":
         result["tol"] = args.tol
         result["dopri5_truncated"] = any(
-            dopri5_truncated(n, DOPRI5_MAX_STEPS) for n in nfes)
+            dopri5_truncated(n, budget) for n in nfes)
+    if dopri5_kwargs.get("fixed_trip_count"):
+        result["dopri5_trip_budget"] = budget
+        result["dopri5_chunk"] = args.dopri5_chunk
     result.update(fid_caveat(args.features,
                              synthetic_data=getattr(ds, "synthetic", False)))
     print(json.dumps(result))

@@ -185,8 +185,8 @@ def make_samplers(config, parts, graphed: bool = True):
     (`sampling/graph.py`; one `GraphCache`, so one memory pool, for the
     model): a chain is captured on its first call and replayed after, and
     captured again when the model's parameters changed (the periodic
-    evals' `set_params`). The guidance sampler stays eager; `graphed=False`
-    gives the eager loops throughout."""
+    evals' `set_params`). `graphed=False` gives the eager loops
+    throughout."""
     ddpm = parts["ddpm"]
     cond, lik = parts["conditioning"], parts["likelihood"]
     reuse = int(config.testing.get("encoder_reuse", 1))

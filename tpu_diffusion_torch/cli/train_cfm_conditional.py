@@ -54,7 +54,7 @@ from tpu_diffusion_torch.models.unet import (InPaintModelWrapper,
 from tpu_diffusion_torch.parallel.distributed import initialize_distributed
 from tpu_diffusion_torch.parallel.mesh import make_mesh
 from tpu_diffusion_torch.sampling.graph import GraphCache
-from tpu_diffusion_torch.sampling.ode import odeint
+from tpu_diffusion_torch.sampling.ode import dopri5_platform_kwargs, odeint
 from tpu_diffusion_torch.train.actions import PeriodicCallback
 from tpu_diffusion_torch.train.checkpoint import CheckpointManager
 from tpu_diffusion_torch.train.trainer import (TrainState, Trainer,
@@ -136,11 +136,12 @@ def make_conditional_sampler(method: str = "dopri5", num_steps: int = 100,
                              graphed: bool = True):
     """sample(model, generator, shape, cond, x0=None) -> (x1, nfe): the ODE
     of v(t, x; cond) from noise (or `x0`) to t=1 with the condition held
-    fixed (utils_mnist.py:90-110); dopri5 at rtol = atol = 1e-5, the other
-    integrators over `num_steps` fixed steps. Those replay one captured
-    step (`sampling/graph.py`) unless `graphed=False`: the condition goes
-    into a static buffer per shape, the last model sampled keeps its
-    graphs, and a changed parameter captures again."""
+    fixed (utils_mnist.py:90-110); dopri5 at rtol = atol = 1e-5 with the
+    platform's kwargs, the other integrators over `num_steps` fixed steps.
+    Each replays captured bodies (`sampling/graph.py`; dopri5 its early
+    exit's) unless `graphed=False`: the condition goes into a static
+    buffer per shape, the last model sampled keeps its graphs, and a
+    changed parameter captures again."""
     held: dict = {}
 
     def graphed_field(model, cond):
@@ -164,13 +165,12 @@ def make_conditional_sampler(method: str = "dopri5", num_steps: int = 100,
         def v(t, x):
             return model(t, x, cond)
 
-        if method == "dopri5":
-            return odeint(v, x0, method="dopri5", rtol=1e-5, atol=1e-5)
+        kw = ({"rtol": 1e-5, "atol": 1e-5, **dopri5_platform_kwargs()}
+              if method == "dopri5" else {"num_steps": num_steps})
         if graphed:
             v, graphs = graphed_field(model, cond)
-            return odeint(v, x0, method=method, num_steps=num_steps,
-                          graphs=graphs)
-        return odeint(v, x0, method=method, num_steps=num_steps)
+            return odeint(v, x0, method=method, graphs=graphs, **kw)
+        return odeint(v, x0, method=method, **kw)
 
     sample.held = held
     return sample

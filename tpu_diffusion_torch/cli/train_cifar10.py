@@ -37,12 +37,13 @@ from tpu_diffusion_torch.losses.cfm import cfm_loss, get_matcher, host_ot_pairs
 from tpu_diffusion_torch.models.unet import UNetModelWrapper, resolve_device
 from tpu_diffusion_torch.parallel.distributed import initialize_distributed
 from tpu_diffusion_torch.parallel.mesh import make_mesh
+from tpu_diffusion_torch.sampling.graph import GraphCache
 from tpu_diffusion_torch.sampling.ode import odeint
 from tpu_diffusion_torch.train.actions import PeriodicCallback
 from tpu_diffusion_torch.train.checkpoint import CheckpointManager
 from tpu_diffusion_torch.train.trainer import (TrainState, Trainer,
                                                make_optimizer,
-                                               make_train_step)
+                                               make_train_step, step_seed)
 from tpu_diffusion_torch.train.writers import LocalWriter
 
 # the JAX package's --attention_impl values, in the port's names
@@ -86,13 +87,16 @@ def make_cfm_loss_fn(matcher, paired: bool = False):
 @torch.no_grad()
 def generate_samples(model, generator: torch.Generator, n: int = 64,
                      image_size: int = 32, channels: int = 3,
-                     steps: int = 100, method: str = "euler"):
+                     steps: int = 100, method: str = "euler",
+                     graphs: GraphCache | None = None):
     """(images clipped to [-1, 1], NFE): the ODE from noise over a fixed
-    grid (utils_cifar.py:13-41). `model` in eval mode."""
+    grid (utils_cifar.py:13-41), with `graphs` its graphed chain. `model`
+    in eval mode."""
     device = next(model.parameters()).device
     x0 = torch.randn((n, image_size, image_size, channels),
                      generator=generator, device=device)
-    x1, nfe = odeint(model, x0, method=method, num_steps=steps)
+    x1, nfe = odeint(model, x0, method=method, num_steps=steps,
+                     graphs=graphs)
     return x1.clamp(-1, 1), nfe
 
 
@@ -170,6 +174,8 @@ def main(argv=None) -> dict:
                                  ema_decay=args.ema_decay)
     ckpt = CheckpointManager(os.path.join(savedir, "ckpt"), maximum=3)
     ema_model = copy.deepcopy(model).eval().requires_grad_(False)
+    # the grid's chain, captured again after each set_params
+    grid_graphs = GraphCache(ema_model)
     last: dict = {"output_dir": savedir}
 
     def save_and_sample(step, state, **kw):
@@ -178,9 +184,10 @@ def main(argv=None) -> dict:
         set_params(ema_model, state.ema.params)
         # the grid's noise is a function of (seed, step)
         gen = torch.Generator(device=device).manual_seed(
-            (args.seed << 32) + step)
+            step_seed(args.seed, step))
         grid, nfe = generate_samples(ema_model, gen, n=args.sample_grid,
-                                     steps=args.sample_steps)
+                                     steps=args.sample_steps,
+                                     graphs=grid_graphs)
         grid = grid.cpu()
         writer.write_images(step, {f"{args.model}_generated": grid.numpy()})
         last.update(grid=grid, nfe=nfe, step=step)

@@ -47,12 +47,13 @@ from tpu_diffusion_torch.models.unet import UNetModelWrapper, resolve_device
 from tpu_diffusion_torch.parallel.distributed import initialize_distributed
 from tpu_diffusion_torch.parallel.mesh import make_mesh
 from tpu_diffusion_torch.sampling.ancestral import NoiseFn, randn_noise
+from tpu_diffusion_torch.sampling.graph import GraphCache
 from tpu_diffusion_torch.sampling.ode import odeint
 from tpu_diffusion_torch.train.actions import PeriodicCallback
 from tpu_diffusion_torch.train.checkpoint import CheckpointManager
 from tpu_diffusion_torch.train.trainer import (TrainState, Trainer,
                                                make_optimizer,
-                                               make_train_step)
+                                               make_train_step, step_seed)
 from tpu_diffusion_torch.train.writers import LocalWriter
 
 NUM_CLASSES = 10
@@ -211,15 +212,21 @@ def main(argv=None) -> dict:
     templates = class_templates(ds)
     ema_model = copy.deepcopy(model).eval().requires_grad_(False)
     last: dict = {"output_dir": savedir, "class_trend": []}
+    n = args.sample_grid_per_class
+    y = torch.arange(NUM_CLASSES, device=device).repeat_interleave(n)
+    # the Euler grid's chain over one field, captured again after each
+    # set_params
+    grid_graphs = GraphCache(ema_model)
+
+    def grid_field(t, x):
+        return ema_model["flow"](t, x, y)
 
     @torch.no_grad()
     def sample_grid(step, state, **kw):
         set_params(ema_model, state.ema.params)
-        n = args.sample_grid_per_class
-        y = torch.arange(NUM_CLASSES, device=device).repeat_interleave(n)
         # the grid's noise is a function of (seed, step)
         gen = torch.Generator(device=device).manual_seed(
-            (args.seed << 32) + step)
+            step_seed(args.seed, step))
         x0 = torch.randn((NUM_CLASSES * n, 28, 28, 1), generator=gen,
                          device=device)
         if sf2m:
@@ -227,8 +234,8 @@ def main(argv=None) -> dict:
                                        gen, x0, y, args.sigma,
                                        args.sample_steps)
         else:
-            imgs, _ = odeint(lambda t, x: ema_model["flow"](t, x, y), x0,
-                             method="euler", num_steps=args.sample_steps)
+            imgs, _ = odeint(grid_field, x0, method="euler",
+                             num_steps=args.sample_steps, graphs=grid_graphs)
             imgs = imgs.clamp(-1, 1)
         imgs = imgs.cpu()
         imgs_np = imgs.numpy()

@@ -7,9 +7,10 @@ step (or K-step group) captured once as a CUDA graph and replayed, with the
 per-step values in device tables, on a CUDA tensor, and the same bodies in a
 Python loop on a CPU tensor; without one it returns the eager Python loop
 over the steps. The two are bitwise equal from the same generator. The
-guidance sampler stays eager (its step differentiates through the model).
-`eps_fn(x, i)` predicts noise for discrete steps `i` ([B] integers); an
-amortized model also receives the condition as extra channels.
+guidance sampler's guided step differentiates through the model inside its
+captured body. `eps_fn(x, i)` predicts noise for discrete steps `i` ([B]
+integers); an amortized model also receives the condition as extra
+channels.
 
 Noise: the ancestral samplers draw every random tensor through one noise
 source, `noise(like, kind, i, j)` -> standard normal noise of `like`'s shape,
@@ -112,11 +113,12 @@ def _corrector_steps(draw: NoiseFn, x0_model, ddpm: DDPM, xi: torch.Tensor,
 
 
 def _ancestral_draws(n_corrector: int, replace_noise: bool = False):
-    """draws_of for `graph.scan`: a step's signature is (replace, noisy);
-    the eager chain draws the replacement's noise, the posterior's (not at
-    step 0) and the correctors', in that order."""
+    """draws_of for `graph.scan`: a step's signature is (replace, noisy,
+    guided); the eager chain draws the replacement's noise, the
+    posterior's (not at step 0) and the correctors', in that order (the
+    guidance gradient draws none)."""
     def draws_of(sig):
-        replace, noisy = sig
+        replace, noisy, _ = sig
         return ((("replace", 0, "cond"),) if replace and replace_noise
                 else ()) + ((("posterior", 0, "x"),) if noisy else ()) + tuple(
             ("corrector", j, "x") for j in range(n_corrector))
@@ -126,19 +128,24 @@ def _ancestral_draws(n_corrector: int, replace_noise: bool = False):
 def _graphed_ancestral(graphs: GraphCache, slot, fn, ddpm: DDPM,
                        xT: torch.Tensor, groups, make_models, draw: NoiseFn,
                        inputs=None, n_corrector: int = 0, delta: float = 0.0,
-                       replace_from: int = -1, replace_noise: bool = False):
+                       replace_from: int = -1, replace_noise: bool = False,
+                       guide_from: int = -1, guide=None,
+                       update_rule: str = "before"):
     """An ancestral chain through `graph.scan`, steps `groups` (lists of
     steps i, descending). `make_models(buf, dd, scratch, xi, ib, j)`
     returns the step's (posterior x0 model, corrector x0 model); a step with
     i < replace_from first replaces the observed pixels (the mask buffer
-    "observed") by the condition, noised to step i with `replace_noise`."""
+    "observed") by the condition, noised to step i with `replace_noise`; a
+    step with i < guide_from adds `guide(buf, dd, x0_model, xi, ib)` (the
+    guidance update, which differentiates through the model) to the iterate
+    before the posterior step or to its result, by `update_rule`."""
     def make_step(buf):
         dd = ddpm.to(xT.device)
         steps = torch.arange(dd.num_steps - 1, -1, -1, device=xT.device)
 
         def step(scratch, xi, t, j, sig, noise):
             ib = rows_at(steps, t, xi.shape[0])
-            replace, noisy = sig
+            replace, noisy, guided = sig
             noise = list(noise)
             if replace:
                 noised = buf["cond"]
@@ -147,8 +154,14 @@ def _graphed_ancestral(graphs: GraphCache, slot, fn, ddpm: DDPM,
                                                     noise.pop(0), ib)
                 xi = torch.where(buf["observed"], noised, xi)
             x0_post, x0_corr = make_models(buf, dd, scratch, xi, ib, j)
+            if guided:
+                x_update = guide(buf, dd, x0_post, xi, ib)
+                if update_rule == "before":
+                    xi = xi + x_update
             xi = _posterior_update(dd, x0_post(xi, ib), xi, ib,
                                    noise.pop(0) if noisy else None)
+            if guided and update_rule == "after":
+                xi = xi + x_update
             for z in noise:
                 xi = _corrector_update(x0_corr, dd, xi, ib, z, delta)
             return xi
@@ -156,7 +169,7 @@ def _graphed_ancestral(graphs: GraphCache, slot, fn, ddpm: DDPM,
         return step
 
     out = scan(graphs, slot, fn, xT, groups, make_step, inputs=inputs,
-               sig_of=lambda i: (i < replace_from, i != 0),
+               sig_of=lambda i: (i < replace_from, i != 0, i < guide_from),
                draws_of=_ancestral_draws(n_corrector, replace_noise),
                draw=draw)
     return process_x0(out)
@@ -244,13 +257,13 @@ def make_conditional_sampler(eps_fn: EpsFn, ddpm: DDPM,
                              likelihood: Likelihood,
                              graphs: GraphCache | None = None) -> Callable:
     """`sample(xT, condition, generator=None, *, noise=None) -> x0`. With
-    `graphs`, the amortized and replacement samplers are graphed; the
-    guidance sampler stays eager."""
+    `graphs`, the graphed chain."""
     if isinstance(conditioning, Amortized):
         return _make_amortized_sampler(eps_fn, ddpm, conditioning, likelihood,
                                        graphs)
     if isinstance(conditioning, ReconstructionGuidance):
-        return _make_guidance_sampler(eps_fn, ddpm, conditioning, likelihood)
+        return _make_guidance_sampler(eps_fn, ddpm, conditioning, likelihood,
+                                      graphs)
     if isinstance(conditioning, Replacement):
         return _make_replacement_sampler(eps_fn, ddpm, conditioning,
                                          likelihood, graphs)
@@ -374,13 +387,43 @@ def make_cached_amortized_sampler(encode_fn: Callable, decode_fn: Callable,
     return sample
 
 
+def _guidance_update(cond: ReconstructionGuidance, x_grad: torch.Tensor,
+                     alpha_i: torch.Tensor) -> torch.Tensor:
+    return -(cond.gamma * alpha_i * (1.0 - alpha_i)) * x_grad
+
+
 def _make_guidance_sampler(eps_fn, ddpm, cond: ReconstructionGuidance,
-                           likelihood):
+                           likelihood, graphs=None):
+    """Steps i >= start_step plain (one model evaluation), the others
+    guided: the gradient of the likelihood loss of x0(xi) through the
+    model, scaled by gamma * alpha_i * (1 - alpha_i), added before or after
+    the posterior step. With `graphs`, the graphed chain: one body for the
+    plain steps and one for the guided ones (and each for the noise-free
+    step 0), the guided body differentiating inside its capture."""
     start_step = int(ddpm.num_steps * cond.start_fraction)
+    tag = object()
 
     @torch.no_grad()
     def sample(xT, condition, generator=None, *, noise=None):
         draw = noise or randn_noise(generator)
+        if graphs is not None:
+            def models(buf, dd, scratch, xi, ib, j):
+                x0_model = make_x0_model(eps_fn, dd)
+                return x0_model, x0_model
+
+            def guide(buf, dd, x0_model, xi, ib):
+                x_grad = guidance_gradient(x0_model, likelihood, buf["cond"],
+                                           xi, ib)
+                # alphas[i] read at the step index on the device
+                return _guidance_update(cond, x_grad,
+                                        row_at(dd.alphas, ib[0]))
+
+            return _graphed_ancestral(
+                graphs, (tag, "guidance"), eps_fn, ddpm, xT,
+                _one_step_groups(ddpm), models, draw,
+                inputs={"cond": condition}, n_corrector=cond.n_corrector,
+                delta=cond.delta, guide_from=start_step, guide=guide,
+                update_rule=cond.update_rule)
         dd = ddpm.to(xT.device)
         x0_model = make_x0_model(eps_fn, dd)
 
@@ -393,8 +436,7 @@ def _make_guidance_sampler(eps_fn, ddpm, cond: ReconstructionGuidance,
             else:
                 x_grad = guidance_gradient(x0_model, likelihood, condition,
                                            xi, ib)
-                alpha_i = dd.alphas[i]
-                x_update = -(cond.gamma * alpha_i * (1.0 - alpha_i)) * x_grad
+                x_update = _guidance_update(cond, x_grad, dd.alphas[i])
                 if cond.update_rule == "before":
                     xi = xi + x_update
                 xi_next = _posterior_step(draw, dd, x0_model(xi, ib), xi, ib,

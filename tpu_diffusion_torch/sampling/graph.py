@@ -1,5 +1,5 @@
-"""Fixed-length chains as captured CUDA graphs: the port's `jax.jit` over a
-`lax.scan`.
+"""Sampler chains as captured CUDA graphs: the port's `jax.jit` over a
+`lax.scan` (or a `lax.while_loop`).
 
 The JAX package compiles each fixed-length sampler as one program whose
 body is a `lax.scan` step, fed its per-step scalars as stacked inputs
@@ -22,6 +22,14 @@ and the models' lazy casts happen outside the capture), as a
 `torch.cuda.CUDAGraph` in the memory pool of its `GraphCache`; a capture or
 replay that fails raises. On a CPU tensor the same bodies run in a Python
 loop: the plain version, which the tests hold against the eager samplers.
+
+A body may differentiate: the guided step of the reconstruction-guidance
+chain takes `torch.autograd.grad` of the likelihood loss with respect to a
+detached leaf of the iterate buffer, under its own `torch.enable_grad()`,
+in its warm-ups and in its capture alike. The backward runs on the
+forward's stream, the capture's side stream, and autograd's saved tensors
+live in the cache's pool; the sampling models' parameters need no gradient,
+so no weight-gradient product is captured.
 
 Noise is drawn outside the graph, before each replay, by the same calls in
 the same order as the eager chain, and copied into the static buffers: the

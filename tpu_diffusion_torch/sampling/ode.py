@@ -9,19 +9,21 @@ Counterpart of `tpu_diffusion/sampling/ode.py` (the reference's torchdyn
     a device table at the chain's counter (the same bodies in a Python loop
     on a CPU tensor), bitwise equal to the eager loop;
   * adaptive Dormand–Prince 5(4) with FSAL and the 0.9-safety step
-    controller of the JAX `_dopri5_body`, as a Python loop with early exit.
-    It reads one device scalar per trip (whether t reached t1), the loop's
-    only synchronisation, and stops at 6 * max_steps NFE.
+    controller of the JAX `_dopri5_body`: the early-exit loop (which reads
+    one device scalar a trip, whether t reached t1, and stops after
+    `max_steps` trips), the fixed-trip-count masked scan and the chunked
+    integrator `Dopri5Chunked`, with `dopri5_platform_kwargs` and
+    `calibrate_dopri5_steps`. Given `graphs`, the early exit replays a
+    captured one-trip body and reads `done` on the host after each replay,
+    as the eager loop reads it after each trip (`_graphed_dopri5`).
 
 Velocity signature: `v(t, x) -> dx/dt` with `t` a 0-d tensor on x's device.
-Every integrator returns `(x1, nfe)`, nfe a Python int. The JAX package's
-fixed-trip and chunked dopri5 drivers (`Dopri5Chunked`,
-`dopri5_platform_kwargs`, `calibrate_dopri5_steps`) exist for a TPU runtime
-that cannot run dynamic loops; they have no counterpart here.
+Every integrator returns `(x1, nfe)`, nfe a Python int.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Callable, Optional, Tuple
 
 import torch
@@ -144,23 +146,21 @@ def _dopri5_step(v: VField, t, x, dt, k1):
     return x5, x4, ks[-1]
 
 
-def odeint_dopri5(v: VField, x0: torch.Tensor, t0: float = 0.0,
-                  t1: float = 1.0, rtol: float = 1e-5, atol: float = 1e-5,
-                  max_steps: int = 1000, *, graphs: Optional[GraphCache] = None
-                  ) -> Tuple[torch.Tensor, int]:
-    """Adaptive RK45 with FSAL: one step size for the whole batch, the RMS
+_STATE = ("t", "x", "dt", "k1", "nfe", "done")
+
+
+def _dopri5_body(v: VField, t1: float, rtol: float, atol: float):
+    """One accepted-or-rejected Dormand–Prince trip on the state
+    `(t, x, dt, k1, nfe, done)`: one step size for the whole batch, the RMS
     error norm scaled by atol + rtol * max(|x|, |x_new|), accept at norm
-    <= 1, the next step scaled by clip(0.9 * err^-0.2, 0.2, 10). At most
-    `max_steps` trips (1 + 6 * trips NFE); `dopri5_truncated` tells a run
-    that used them all. Always eager, `graphs` or not: the early exit reads
-    the card once a trip (the JAX `lax.while_loop`; a graph of it would
-    need conditional nodes)."""
-    del graphs
-    t = torch.tensor(t0, dtype=torch.float32, device=x0.device)
-    dt = torch.tensor((t1 - t0) / 100.0, dtype=torch.float32,
-                      device=x0.device)
-    x, k1, nfe = x0, v(t, x0), 1
-    while nfe < 6 * max_steps:
+    <= 1, the next step scaled by clip(0.9 * err^-0.2, 0.2, 10). Every
+    scalar is a 0-d tensor on x's device (nfe int32), so a trip reads
+    nothing on the host; the early-exit loop, the masked scan, the chunked
+    integrator and the graphed chains share it, as the JAX integrators
+    share theirs."""
+
+    def body(state):
+        t, x, dt, k1, nfe, done = state
         dt = torch.minimum(dt, t1 - t)
         x5, x4, k7 = _dopri5_step(v, t, x, dt, k1)
         scale = atol + rtol * torch.maximum(x.abs(), x5.abs())
@@ -170,11 +170,169 @@ def odeint_dopri5(v: VField, x0: torch.Tensor, t0: float = 0.0,
         t = torch.where(accept, t + dt, t)
         x = torch.where(accept, x5, x)
         k1 = torch.where(accept, k7, k1)
-        dt = dt * factor
-        nfe += 6
-        if bool(t >= t1 - 1e-8):  # the loop's one device read
+        return (t, x, dt * factor, k1, nfe + 6, t >= t1 - 1e-8)
+
+    return body
+
+
+def _dopri5_init(v: VField, x0: torch.Tensor, t0: float, t1: float):
+    """The state before the first trip: k1 = v(t0, x0), one NFE."""
+    t = torch.tensor(t0, dtype=torch.float32, device=x0.device)
+    return (t, x0, torch.tensor((t1 - t0) / 100.0, dtype=torch.float32,
+                                device=x0.device), v(t, x0),
+            torch.tensor(1, dtype=torch.int32, device=x0.device),
+            torch.tensor(False, device=x0.device))
+
+
+def _dopri5_masked_scan_body(body):
+    """A trip that leaves a finished state as it is, nfe included."""
+    def scan_body(state):
+        done = state[5]
+        return tuple(torch.where(done, a, b)
+                     for a, b in zip(state, body(state)))
+    return scan_body
+
+
+def _dopri5_chain(graphs: GraphCache, slot, v: VField, x0: torch.Tensor,
+                  t0: float, t1: float, rtol: float, atol: float, trips):
+    """The dopri5 chain of `graphs` for x0's shape: static buffers for the
+    state and the input, a body "init" (the state from the input) and one
+    body of n masked trips for each n in `trips`."""
+    def build():
+        buf = {"t": torch.zeros((), device=x0.device),
+               "x": torch.zeros_like(x0),
+               "dt": torch.zeros((), device=x0.device),
+               "k1": torch.zeros_like(x0),
+               "nfe": torch.zeros((), dtype=torch.int32, device=x0.device),
+               "done": torch.zeros((), dtype=torch.bool, device=x0.device)}
+        trip = _dopri5_masked_scan_body(_dopri5_body(v, t1, rtol, atol))
+
+        def init():
+            # fills, not new tensors: a capture takes no host-to-device copy
+            buf["t"].fill_(t0)
+            buf["dt"].fill_((t1 - t0) / 100.0)
+            buf["nfe"].fill_(1)
+            buf["done"].fill_(False)
+            buf["k1"].copy_(v(buf["t"], buf["x"]))
+
+        def run(n):
+            def body():
+                state = tuple(buf[k] for k in _STATE)
+                for _ in range(n):
+                    state = trip(state)
+                for k, value in zip(_STATE, state):
+                    buf[k].copy_(value)
+            return body
+
+        return buf, {"init": init, **{n: run(n) for n in trips}}
+
+    chain = graphs.chain((slot, tuple(x0.shape), x0.dtype, str(x0.device),
+                          t0, t1, rtol, atol, tuple(trips)), v, build)
+    chain.buffers["x"].copy_(x0)
+    chain.replay("init")
+    return chain
+
+
+def _graphed_dopri5(v: VField, x0: torch.Tensor, t0: float, t1: float,
+                    rtol: float, atol: float, max_steps: int,
+                    fixed_trip_count: bool, graphs: GraphCache
+                    ) -> Tuple[torch.Tensor, int]:
+    """`max_steps` replays of a one-trip masked body. Unless
+    `fixed_trip_count`, the host reads `done` after each replay and the
+    chain ends at the first: x and nfe are the early-exit loop's. (A body
+    of several trips, or letting the card run a body past the last read,
+    ran slower on the card: PERF.md.)"""
+    chain = _dopri5_chain(graphs, "dopri5", v, x0, t0, t1, rtol, atol, (1,))
+    for _ in range(max_steps):
+        chain.replay(1)
+        if not fixed_trip_count and bool(chain.buffers["done"]):
             break
-    return x, nfe
+    buf = chain.buffers
+    return buf["x"].clone(), int(buf["nfe"])
+
+
+def odeint_dopri5(v: VField, x0: torch.Tensor, t0: float = 0.0,
+                  t1: float = 1.0, rtol: float = 1e-5, atol: float = 1e-5,
+                  max_steps: int = 1000, fixed_trip_count: bool = False, *,
+                  graphs: Optional[GraphCache] = None
+                  ) -> Tuple[torch.Tensor, int]:
+    """Adaptive RK45 with FSAL and the 0.9-safety step controller of
+    `_dopri5_body`, at most `max_steps` trips (1 + 6 * trips NFE);
+    `dopri5_truncated` tells a run that used them all.
+
+    By default the early-exit loop, which reads `done` on the host after
+    every trip. `fixed_trip_count=True` runs exactly `max_steps` masked
+    trips with no host read before the end, equal to the early exit in x
+    and nfe (the JAX package's mode for a TPU runtime that hangs on
+    dynamic loops). With `graphs`, either as a graphed chain
+    (`_graphed_dopri5`; on a CPU tensor its bodies in a loop), x bitwise
+    and nfe the eager loop's."""
+    if graphs is not None:
+        return _graphed_dopri5(v, x0, t0, t1, rtol, atol, max_steps,
+                               fixed_trip_count, graphs)
+    body = _dopri5_body(v, t1, rtol, atol)
+    state = _dopri5_init(v, x0, t0, t1)
+    if fixed_trip_count:
+        trip = _dopri5_masked_scan_body(body)
+        for _ in range(max_steps):
+            state = trip(state)
+    else:
+        for _ in range(max_steps):
+            state = body(state)
+            if bool(state[5]):  # the loop's one device read a trip
+                break
+    return state[1], int(state[4])
+
+
+class Dopri5Chunked:
+    """Fixed-trip-count dopri5 in segments of `chunk_steps` masked trips,
+    bitwise equal to one masked scan of `n_segments * chunk_steps` trips
+    (`max_steps` rounded up to whole segments: a trajectory unconverged at
+    the requested budget gets up to `chunk_steps - 1` trips more). Every
+    segment runs, as in the JAX package; the masked trip freezes a
+    finished state, so where the segments end cannot change the result.
+
+    On a CUDA tensor a segment is one replay of a captured body of
+    `chunk_steps` trips (`sampling/graph.py`), in `graphs` when given or
+    else in a `GraphCache(v)` of its own; a cache that follows the field's
+    module recaptures after its parameters change. On a CPU tensor the
+    same bodies run in a loop. `sync=True` reads the state's time on the
+    host after each segment, as the JAX integrator does.
+
+        sampler = Dopri5Chunked(velocity, max_steps=92, chunk_steps=16)
+        x1, nfe = sampler(noise)
+    """
+
+    def __init__(self, v: VField, t0: float = 0.0, t1: float = 1.0,
+                 rtol: float = 1e-5, atol: float = 1e-5,
+                 max_steps: int = 128, chunk_steps: int = 16, *,
+                 graphs: Optional[GraphCache] = None):
+        self.n_segments = -(-max_steps // chunk_steps)
+        self.chunk_steps = chunk_steps
+        # rounded up to whole segments; >= the requested budget
+        self.total_steps = self.n_segments * chunk_steps
+        self._args = (v, t0, t1, rtol, atol)
+        self.graphs = graphs if graphs is not None else GraphCache(v)
+
+    def __call__(self, x0: torch.Tensor, sync: bool = True
+                 ) -> Tuple[torch.Tensor, int]:
+        v, t0, t1, rtol, atol = self._args
+        chain = _dopri5_chain(self.graphs, "dopri5_chunked", v, x0, t0, t1,
+                              rtol, atol, (self.chunk_steps,))
+        for _ in range(self.n_segments):
+            chain.replay(self.chunk_steps)
+            if sync:
+                float(chain.buffers["t"])
+        buf = chain.buffers
+        return buf["x"].clone(), int(buf["nfe"])
+
+
+def dopri5_platform_kwargs(max_steps_fixed: int = 128) -> dict:
+    """The dopri5 arguments for the platform: the JAX package's
+    fixed-trip-count masked scan on a TPU, the early exit elsewhere. The
+    port runs on no TPU, so always the early exit: {}."""
+    del max_steps_fixed
+    return {}
 
 
 def dopri5_truncated(nfe: int, max_steps: int) -> bool:
@@ -182,6 +340,20 @@ def dopri5_truncated(nfe: int, max_steps: int) -> bool:
     trajectory MAY be unconverged. Conservative: a run that converges on
     its last budgeted trip is flagged too."""
     return nfe >= 6 * max_steps
+
+
+def calibrate_dopri5_steps(v: VField, x0: torch.Tensor,
+                           rtol: float = 1e-5, atol: float = 1e-5,
+                           t0: float = 0.0, t1: float = 1.0,
+                           margin: float = 1.5, min_steps: int = 16,
+                           max_steps: int = 2000) -> int:
+    """A fixed-trip `max_steps` budget for `x0`'s field: the early-exit
+    controller's trips in one run, times `margin`, at least `min_steps`.
+    The probe runs where x0 lives (the JAX package runs it on the host CPU
+    because its TPU runtime hangs on dynamic loops)."""
+    _, nfe = odeint_dopri5(v, x0, t0=t0, t1=t1, rtol=rtol, atol=atol,
+                           max_steps=max_steps)
+    return max(min_steps, math.ceil((nfe // 6 + 1) * margin))
 
 
 INTEGRATORS = {
