@@ -104,11 +104,13 @@ DDPM training of `tpu_diffusion_torch.cli.main --mode train` on the same
 64px configuration (flowers,inpainting,amortized; fp32 parameters, bf16
 forward, batch 32, synthetic images):
   train    20 steps through the cli's own functions (`build`, `init_state`,
-           `make_loss`, the trainer): ms per step after the first, loss and
-           gradient norm finite at every step, parameters and EMA
+           `make_loss`, the trainer; graphed: two eager warm-up steps, a
+           capture, one replay a step): ms per step after the first, loss
+           and gradient norm finite at every step, parameters and EMA
            parameters moved, 5 flash forward and 5 flash backward launches
-           per step, a checkpoint written and read back equal, then
-           `cli.main --mode eval` from that checkpoint on a 50-step chain.
+           per step that ran (replays included), each replay's device
+           time, a checkpoint written and read back equal, then `cli.main
+           --mode eval` from that checkpoint on a 50-step chain.
   eval_metrics  `cli.main --mode eval` on the same 64px model (random
            weights from seed 0, one batch of 32, a 50-step chain) with
            testing.lpips, testing.fid and random_conv features: LPIPS, FID
@@ -127,9 +129,9 @@ CIFAR-10 conditional flow matching (`cli/train_cifar10.py`,
            Euler-100 grid finite in [-1, 1]; then 5 I-CFM steps (the
            unpaired path);
   cfm_fid  `compute_fid.main` on that checkpoint, random_conv features,
-           1024 images in batches of 512, by Euler-100 and by dopri5 (the
-           early exit, graphed), and 512 by the calibrated fixed-trip
-           dopri5 in segments of 8 trips (`--dopri5_fixed_trip true
+           one batch of 512 images each by Euler-100, by dopri5 (the early
+           exit, graphed) and by the calibrated fixed-trip dopri5 in
+           segments of 8 trips (`--dopri5_fixed_trip true
            --dopri5_chunk 8`, `Dopri5Chunked`): FID, NFE,
            dopri5_truncated, the trip budget and the seconds taken;
   graphs (dopri5_cifar)  dopri5's early exit on compute_fid's field (the
@@ -185,11 +187,10 @@ elementwise work):
            CPU (same weights), its device time beside its fp32 bound (the
            Linear layers' FLOPs counted from their shapes, at 67 TFLOP/s);
   protein_train  `train_protein.main` at batch 32 for 10 steps, then again
-           to 15 (resumed from its checkpoint), then the same 10 steps
-           through `Trainer.fit_scanned` from `make_protein_sampler` at
-           chunk 10 and chunk 5: ms per step (median and quartiles, device
-           and wall), peak memory, whether the chunkings agree bitwise, and
-           a step's device time by kernel class;
+           to 15 (resumed from its checkpoint), graphed: ms per step
+           (median and quartiles, the replays' device time and wall), peak
+           memory, and an eager step's device time by kernel class
+           (`fit_scanned`: phase train_graphs);
   protein_sample  `sample_protein.main` from that checkpoint, 20 chains of
            250 steps, guided (gs 1500 for steps < 125) and unguided:
            seconds per chain, ms per guided and unguided step, peak memory,
@@ -219,6 +220,32 @@ and the CA-ProteinMPNN in fp32 on the card):
            Wasserstein fields; the C++ scan against numpy (1e-9); the
            seconds of main, the novelty scan and `eval_many` at n_jobs 1
            and -1, and a spawned worker's start.
+The training step as a captured CUDA graph (`train/graph.py`), against the
+eager loop, through the training CLIs' own build functions at their
+widths:
+  train_graphs  per configuration, eager and graphed runs from one seed in
+           turns: `cli.main` flowers,inpainting,amortized (batch 32, bf16,
+           the flash kernels at [128,1024,64]), the SR256 CFM CLI (batch
+           8, [32,1024,64]), `train_cifar10` OT-CFM with exact host pairs
+           (batch 128), `train_conditional_mnist` cfm and otcfm (sinkhorn
+           inside the graph), each eager, graphed, eager, graphed, eager
+           (TG_STEPS steps; graphed within twice the eager runs' spread);
+           fp32 under cuDNN's deterministic algorithms, bitwise (loss and
+           gradient-norm traces, parameters, Adam moments, EMA): the 64px
+           config at reduced depth (num_res_blocks 1, batch TG_FP32_BATCH)
+           with its amortized chain sampled from the live model before and
+           after the steps (captured again, equal after graphed and eager
+           steps), and the protein config at batch 32 through `fit` and
+           through `fit_scanned` eager at chunk 10 and graphed at chunks
+           10 and 5; the in-step exact OT loss declared eager; C6 (the
+           fused-QKV attention's gradient against the plain version's in
+           bf16 and fp32, and the CIFAR CFM UNet with attention_impl
+           "fused" trained graphed at batch 64, its qkv weights moved);
+           the EMA body against the eager blend bitwise. Each line: wall
+           ms per step (median, quartiles; steady steps), each replay's
+           device ms, the card's idle share graphed and eager, capture
+           seconds, pool bytes, launches per replay against an eager
+           step's, and the route with its reason.
 Then the kernel table line (`launches`: the wrappers' calls on the paths,
 a graphed chain's at its warm-up and capture; `replayed_launches`: the
 launches replayed from graphs), the nvidia-smi line, and last
@@ -298,8 +325,14 @@ def card():
     return {"torch_name": torch.cuda.get_device_name(0), "nvidia_smi": smi}
 
 
+T0 = time.perf_counter()
+
+
 def emit(card_info, **fields):
-    print(json.dumps({**fields, "card": card_info}), flush=True)
+    """One JSON line: the fields, the card, and the seconds since the
+    script started (`elapsed_s`, which places each phase in the run)."""
+    print(json.dumps({**fields, "card": card_info,
+                      "elapsed_s": time.perf_counter() - T0}), flush=True)
 
 
 def check(cond, msg):
@@ -1264,6 +1297,7 @@ def train_phase(torch, card_info, dev):
     from tpu_diffusion_torch.data.registry import (get_dataset,
                                                    infinite_batches)
     from tpu_diffusion_torch.kernels import attention
+    from tpu_diffusion_torch.sampling.graph import WARMUP
     from tpu_diffusion_torch.train.checkpoint import CheckpointManager
     from tpu_diffusion_torch.train.trainer import Trainer, make_train_step
     from tpu_diffusion_torch.utils import config as config_mod
@@ -1292,12 +1326,18 @@ def train_phase(torch, card_info, dev):
     torch.cuda.reset_peak_memory_stats()
     attention.flash_fwd_launches = 0
     attention.flash_bwd_launches = 0
+    r0 = ran()
+    trainer = Trainer(step_fn, state, batches)  # graphed: the default
+    trainer.graphs.events = []
     t0 = time.perf_counter()
-    state = Trainer(step_fn, state, batches).fit(TRAIN_STEPS,
-                                                 metrics_hook=hook)
+    state = trainer.fit(TRAIN_STEPS, metrics_hook=hook)
     torch.cuda.synchronize()
     launches = {"flash_attention_fwd": attention.flash_fwd_launches,
                 "flash_attention_bwd": attention.flash_bwd_launches}
+    executed = delta(ran(), r0)
+    replays = [a.elapsed_time(b) for a, b in trainer.graphs.events]
+    entry, = trainer.graphs.captured().values()
+    del trainer
     stamps = [t0] + [s for s, _, _ in trace]
     step_ms = [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])]
     later = sorted(step_ms[1:])
@@ -1333,11 +1373,20 @@ def train_phase(torch, card_info, dev):
              peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
              flash_fwd_launches=launches["flash_attention_fwd"],
              flash_bwd_launches=launches["flash_attention_bwd"],
+             flash_executed=executed, graphed=True,
+             replay_device_ms=quartiles(replays),
+             launches_per_replay=entry.launches,
+             capture_s=entry.capture_s, pool_gb=entry.pool_bytes / 1e9,
              checkpoint_equal=same,
-             note="ms per step: host clock between the per-step metric "
-                  "reads (each a device synchronisation), after the first "
-                  "step; synthetic images; the model's own initialisation "
-                  "from the seed")
+             note="graphed steps (train/graph.py): 2 eager warm-ups, a "
+                  "capture, one replay a step after (the eager twin: "
+                  "phase train_graphs); ms per step: host clock between "
+                  "the per-step metric reads (each a device "
+                  "synchronisation), after the first step; "
+                  "flash_fwd/bwd_launches: the wrappers' calls (warm-ups "
+                  "and capture); flash_executed: what ran (replays "
+                  "included); synthetic images; the model's own "
+                  "initialisation from the seed")
         check(all(math.isfinite(v) for v in losses + gnorms),
               f"train: loss {losses} grad_norm {gnorms}")
         check(dtypes == ["torch.float32"]
@@ -1350,9 +1399,13 @@ def train_phase(torch, card_info, dev):
               and "conv_out.weight" not in still,
               f"train: {moved} parameters and {ema_moved} EMA parameters of "
               f"{len(before)} moved")
-        check(launches == {"flash_attention_fwd": 5 * TRAIN_STEPS,
-                           "flash_attention_bwd": 5 * TRAIN_STEPS},
-              f"train: flash launches {launches}")
+        check(executed == {"flash_attention_fwd": 5 * TRAIN_STEPS,
+                           "flash_attention_bwd": 5 * TRAIN_STEPS}
+              and entry.launches == {"flash_attention_fwd": 5,
+                                     "flash_attention_bwd": 5}
+              and entry.replays == TRAIN_STEPS - WARMUP,
+              f"train: flash launches {executed}, per replay "
+              f"{entry.launches}, {entry.replays} replays")
         check(same, "train: the checkpoint read back differs")
         del loaded, before, ema_before
         ema = {k: v.clone() for k, v in state.ema.params.items()}
@@ -1549,23 +1602,45 @@ def eval_metrics_phase(torch, card_info, dev):
 CFM_TRAIN_STEPS = 20
 
 
+class Trace(list):
+    """(seconds, loss, flash forward launches, flash backward launches) per
+    step, and `replays`: the (start, end) CUDA events of every graph
+    replay of the steps."""
+
+    def __init__(self):
+        super().__init__()
+        self.replays = []
+
+
 class TimedTrainer:
     """Swap `module.Trainer` for a subclass whose `fit` reads the metrics
     after every step (a device synchronisation) and stamps the host clock
-    and the flash kernels' launch counts; `trace` holds (seconds, loss,
-    flash forward launches, flash backward launches) per step."""
+    and the flash kernels' launches that ran since the Trainer was built
+    (`ran()`: the graphed steps' replays counted, their captures not),
+    and whose graphed
+    steps time their replays; the `Trace` of (seconds, loss, flash forward
+    launches, flash backward launches) per step."""
 
     def __init__(self, module):
-        from tpu_diffusion_torch.kernels import attention
-        self.module, self.real, self.trace = module, module.Trainer, []
+        self.module, self.real, self.trace = module, module.Trainer, Trace()
         trace = self.trace
+        r0 = {}
 
         class Timed(module.Trainer):
+            def __init__(self, *a, **kw):
+                super().__init__(*a, **kw)
+                r0.clear()
+                r0.update(ran())  # the phase may have reset the counters
+                if self.graphed:
+                    self.graphs.events = trace.replays
+
             def fit(self, num_steps, metrics_hook=None):
-                return super().fit(num_steps, metrics_hook=lambda step, m: (
+                def hook(step, m):
+                    r = delta(ran(), r0)
                     trace.append((time.perf_counter(), m["loss"],
-                                  attention.flash_fwd_launches,
-                                  attention.flash_bwd_launches))))
+                                  r.get("flash_attention_fwd", 0),
+                                  r.get("flash_attention_bwd", 0)))
+                return super().fit(num_steps, metrics_hook=hook)
 
         self.timed = Timed
 
@@ -1575,6 +1650,12 @@ class TimedTrainer:
 
     def __exit__(self, *exc):
         self.module.Trainer = self.real
+
+
+def replay_ms(torch, trace):
+    """The device ms of each graph replay of a `Trace`'s steps."""
+    torch.cuda.synchronize()
+    return [a.elapsed_time(b) for a, b in trace.replays]
 
 
 def step_times(t0, trace):
@@ -1646,17 +1727,17 @@ def cfm_train_phase(torch, card_info, out):
 
 def cfm_fid_phase(torch, card_info, out):
     """`cli.compute_fid.main` on the cfm_train checkpoint: random_conv
-    features, 1024 images in batches of 512, by Euler-100 and by dopri5
-    (the early exit, graphed), and 512 by the calibrated fixed-trip dopri5
-    in segments of 8 trips (`Dopri5Chunked`)."""
+    features, one batch of 512 images (cut from 1024, to make room for
+    the train_graphs phase) by Euler-100, by dopri5 (the early
+    exit, graphed) and by the calibrated fixed-trip dopri5 in segments of 8
+    trips (`Dopri5Chunked`)."""
     from tpu_diffusion_torch.cli import compute_fid
     common = ["--model", "otcfm", "--input_dir", out, "--features",
-              "random_conv", "--num_gen", "1024", "--batch_size_fid", "512"]
+              "random_conv", "--num_gen", "512", "--batch_size_fid", "512"]
     runs = {"euler": [], "dopri5": [],  # dopri5 at the default tol 1e-5
-            # the calibrated fixed-trip budget in segments of 8 trips, one
-            # batch (cut from 1024 images)
+            # the calibrated fixed-trip budget in segments of 8 trips
             "dopri5_chunked": ["--dopri5_fixed_trip", "true",
-                               "--dopri5_chunk", "8", "--num_gen", "512"]}
+                               "--dopri5_chunk", "8"]}
     for run, extra in runs.items():
         method = run.split("_")[0]
         torch.cuda.synchronize()
@@ -1679,7 +1760,7 @@ def cfm_fid_phase(torch, card_info, out):
                   "main() call (the first computes the real-set "
                   "statistics, the second reads them from its cache)")
         check(math.isfinite(res["fid"]) and res["step"] == CFM_TRAIN_STEPS
-              and res["num_gen"] == (512 if extra else 1024),
+              and res["num_gen"] == 512,
               f"cfm_fid {run}: {res}")
         if method == "euler":
             check(res["mean_nfe"] == 100, f"cfm_fid euler: NFE {res}")
@@ -2001,6 +2082,8 @@ def parallel_phase(torch, card_info, dev, out):
         # in turns: the meshed and the plain run twice each
         for name in ("mesh", "plain", "plain", "mesh"):
             extra = []
+            for key in list(env) + ["COORDINATOR_ADDRESS"]:
+                os.environ.pop(key, None)  # a plain run joins no group
             if name == "mesh":
                 os.environ.update(env, COORDINATOR_ADDRESS=(
                     f"127.0.0.1:{free_port()}"))
@@ -2012,17 +2095,30 @@ def parallel_phase(torch, card_info, dev, out):
             attention.flash_fwd_launches = 0
             attention.flash_bwd_launches = 0
             r0 = ran()
-            with TimedTrainer(cc) as trace:
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                res = cc.main(args + extra + [
-                    "--output_dir", os.path.join(out, f"{name}{len(runs)}")])
-                torch.cuda.synchronize()
+            real = cc.Trainer
+            if name == "plain":
+                # eager steps, as the meshed run's (a process group keeps
+                # them eager): the two differ by the group alone
+                class Eager(real):
+                    def __init__(self, *a, **kw):
+                        super().__init__(*a, graphed=False, **kw)
+                cc.Trainer = Eager
+            try:
+                with TimedTrainer(cc) as trace:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    res = cc.main(args + extra + [
+                        "--output_dir",
+                        os.path.join(out, f"{name}{len(runs)}")])
+                    torch.cuda.synchronize()
+            finally:
+                cc.Trainer = real
             first_ms, later = step_times(t0, trace)
             per_step = [(f1 - f0, b1 - b0) for (_, _, f0, b0), (_, _, f1, b1)
                         in zip([(0, 0, 0, 0)] + trace, trace)]
             runs.append({
-                "run": name, "losses": [l for _, l, _, _ in trace],
+                "run": name, "process_group": dist.is_initialized(),
+                "losses": [l for _, l, _, _ in trace],
                 "first_step_ms": first_ms,
                 "ms_per_step_median": later[len(later) // 2],
                 "ms_per_step_min": later[0], "ms_per_step_max": later[-1],
@@ -2074,15 +2170,19 @@ def parallel_phase(torch, card_info, dev, out):
               "one-rank NCCL world, --sequence_parallel --model_axis 1 "
               "(the state broadcast from rank 0, the gradients and the "
               "loss all-reduced over 'data', the ring declined: one rank "
-              "on 'model'); plain: no process group; ms per step: host "
+              "on 'model'; eager steps: a process group keeps them so); "
+              "plain: no process group (the meshed run's variables "
+              "removed from the environment), eager steps; ms per step: host "
               "clock between per-step metric reads over steps 2-10; the "
               "first step of every run sees the same weights and batch, "
               "so its loss must agree bitwise; later steps inherit the "
               "bf16 flash backward's atomic dq sums, whose last bits vary "
               "from call to call (compare plain with plain)")
     check(backend == ("nccl" if dev.type == "cuda" else "gloo")
-          and world == 1,
-          f"parallel: backend {backend}, world {world}")
+          and world == 1
+          and all(r["process_group"] == (r["run"] == "mesh") for r in runs),
+          f"parallel: backend {backend}, world {world}, process groups "
+          f"{[(r['run'], r['process_group']) for r in runs]}")
     check(all(len(r["losses"]) == PAR_STEPS
               and all(math.isfinite(l) for l in r["losses"]) for r in runs),
           f"parallel: losses {[r['losses'] for r in runs]}")
@@ -2441,21 +2541,17 @@ def event_deltas(torch, events):
 def protein_phase(torch, card_info, dev, out):
     """The protein stack at the reference width: the parameter count, one
     forward on the card against the CPU, `cli.train_protein.main` (a run,
-    then a resumed run), the same steps through `Trainer.fit_scanned` with
-    `make_protein_sampler` at two chunkings, then `cli.sample_protein.main`
-    guided (gs 1500, cond_start_step 125 of 250) and unguided."""
+    then a resumed run; `Trainer.fit_scanned` is phase train_graphs'),
+    then `cli.sample_protein.main` guided (gs 1500, cond_start_step 125 of
+    250) and unguided."""
     import os
-
-    import numpy as np
 
     from tpu_diffusion_torch.cli import sample_protein, train_protein
     from tpu_diffusion_torch.data.device_cache import make_protein_sampler
     from tpu_diffusion_torch.protein.data import get_protein_data
     from tpu_diffusion_torch.protein.sde import (HoogeboomGraphSDE,
                                                  ProteinBatch)
-    from tpu_diffusion_torch.train.trainer import (TrainState, Trainer,
-                                                   make_optimizer,
-                                                   make_train_step)
+    from tpu_diffusion_torch.train.trainer import make_train_step
     args = train_protein.parser().parse_args(protein_flags([]))
     n_len, b = args.max_len, PROTEIN_SAMPLES
 
@@ -2521,8 +2617,7 @@ def protein_phase(torch, card_info, dev, out):
     runs = {}
     for name, steps in (("fit", PROTEIN_TRAIN_STEPS),
                         ("fit_resumed", PROTEIN_RESUME_STEPS)):
-        with TimedTrainer(train_protein) as trace, \
-                ForwardEvents(torch, train_protein) as events:
+        with TimedTrainer(train_protein) as trace:
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
@@ -2534,7 +2629,7 @@ def protein_phase(torch, card_info, dev, out):
             "steps": len(trace), "final_step": res["state"].step,
             "seconds": seconds,
             "wall_ms_per_step": quartiles(wall),
-            "device_ms_per_step": quartiles(event_deltas(torch, events)[1:]),
+            "replay_device_ms": quartiles(replay_ms(torch, trace)),
             "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
             "losses": [l for _, l, _, _ in trace]}
     ckpts = sorted(os.listdir(os.path.join(train_out, "gvp", "ckpt")))
@@ -2551,58 +2646,20 @@ def protein_phase(torch, card_info, dev, out):
     train_profile = profile_steps(torch, lambda: train_step(fit_state, fixed))
     del fit_state, res
 
-    # --- the same steps through fit_scanned, at two chunkings ------------
-    scanned = {}
-    for chunk in (PROTEIN_TRAIN_STEPS, PROTEIN_TRAIN_STEPS // 2):
-        torch.manual_seed(SEED)
-        m = train_protein.build_model(args, dev)
-        events = []
-        forward_events(torch, m, events)
-        opt = make_optimizer(m.parameters(), args.lr, warmup=0,
-                             grad_clip=1.0, schedule="constant")
-        state = TrainState.create(
-            m, opt, torch.Generator(device=dev).manual_seed(SEED))
-        rows = []
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        state = Trainer(make_train_step(loss_fn, ema_decay=0.999), state,
-                        iter(())).fit_scanned(
-            PROTEIN_TRAIN_STEPS, sampler, chunk=chunk, base_seed=SEED,
-            metrics_hook=lambda s, mm: rows.append((time.perf_counter(),
-                                                     s, mm)))
-        stamps = [t0] + [r[0] for r in rows]
-        steps = [0] + [r[1] for r in rows]
-        scanned[chunk] = {
-            "state": state,
-            "wall_ms_per_step_by_chunk": [
-                (b1 - a1) * 1e3 / (s1 - s0) for a1, b1, s0, s1
-                in zip(stamps, stamps[1:], steps, steps[1:])],
-            "device_ms_per_step": quartiles(event_deltas(torch, events)),
-            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
-            "losses": [float(x) for r in rows
-                       for x in r[2]["loss_trace"]]}
-    (c1, a), (c2, bb) = scanned.items()
-    pa, pb_ = a.pop("state").params, bb.pop("state").params
-    chunk_diff = max((pa[k] - pb_[k]).abs().max().item() for k in pa)
-    bitwise = all(torch.equal(pa[k], pb_[k]) for k in pa)
     step_bound = 3 * flops * PROTEIN_TRAIN_BATCH / b / FP32_FLOPS * 1e3
     emit(card_info, phase="protein_train", batch=PROTEIN_TRAIN_BATCH,
          residues=n_len, width=[args.node_scalars, args.node_vectors],
          conv_layers=args.conv_layers, runs=runs, checkpoints=ckpts,
-         fit_scanned={str(k): v for k, v in scanned.items()},
-         chunkings_bitwise_equal=bitwise, chunkings_max_abs_diff=chunk_diff,
          step_bound_ms=step_bound, step_profile=train_profile,
          note="runs: train_protein.main for 10 steps, then again to 15 "
-              "(resuming from the step-10 checkpoint, EMA included); "
-              "wall: host clock between per-step metric reads; device: "
-              "CUDA events at each step's forward; fit_scanned: the CLI's "
-              "model, loss and optimizer for 10 steps from "
-              "make_protein_sampler at chunk 10 and at chunk 5, wall per "
-              "step per chunk; step_bound_ms: three forwards' products "
-              "(forward, and the backward's two) at fp32's 67 TFLOP/s; "
-              "step_profile: device ms by kernel class of three steps on "
-              "a fixed batch under torch.profiler")
+              "(resuming from the step-10 checkpoint, EMA included), "
+              "graphed (fit_scanned and the eager twin: phase "
+              "train_graphs); wall: host clock between per-step metric "
+              "reads; replay_device_ms: each graph replay's CUDA events; "
+              "step_bound_ms: three forwards' products (forward, and the "
+              "backward's two) at fp32's 67 TFLOP/s; step_profile: "
+              "device ms by kernel class of three eager steps on a fixed "
+              "batch under torch.profiler")
     check(all(math.isfinite(l) for r in runs.values() for l in r["losses"])
           and runs["fit"]["steps"] == PROTEIN_TRAIN_STEPS
           and runs["fit_resumed"]["steps"]
@@ -2610,10 +2667,6 @@ def protein_phase(torch, card_info, dev, out):
           and runs["fit_resumed"]["final_step"] == PROTEIN_RESUME_STEPS,
           f"protein_train: runs {runs}")
     check("ckpt_00000015.pt" in ckpts, f"protein_train: checkpoints {ckpts}")
-    check(all(math.isfinite(l) for v in scanned.values()
-              for l in v["losses"])
-          and chunk_diff <= 1e-6,
-          f"protein_train: fit_scanned chunkings differ by {chunk_diff}")
 
     # --- sample_protein.main: guided, then unguided ---------------------
     ckpt_dir = os.path.join(train_out, "gvp", "ckpt")
@@ -3440,6 +3493,565 @@ def graphs_phase(torch, card_info, dev, mk):
           f"{proc.stdout} {proc.stderr[-2000:]}")
 
 
+TG_STEPS = 10           # steps of each eager and graphed run (train_graphs)
+TG_FP32_STEPS = 6       # steps of the fp32 bitwise runs
+TG_FP32_BATCH = 8       # the fp32 64px runs' batch, cut from 32
+TG_FP32_DIFFUSION = 50  # their diffusion steps (the staleness check's chain)
+TG_FUSED_BATCH = 64     # the fused-QKV training step: qkv [64,256,768]
+TG_FUSED_STEPS = 5
+
+
+def tg_flat(torch, tensors):
+    return torch.cat([t.detach().reshape(-1).float() for t in tensors])
+
+
+def tg_run(torch, make, graphed, steps, deterministic=False, scanned=None,
+           after=None):
+    """One run of `steps` steps of the Trainer `make(graphed)` builds from
+    a fresh state (fit, or fit_scanned with `scanned` = (sampler, chunk)):
+    (record, final state flattened, `after(trainer)`). The record holds the
+    route, the metric traces, the host clock between per-step metric reads
+    (ms; per chunk for fit_scanned), the flash launches that ran per step,
+    and for a graphed run each replay's device ms, the captures' seconds
+    and pool bytes and the launches a replay makes."""
+    import gc
+    torch.backends.cudnn.deterministic = deterministic
+    try:
+        trainer = make(graphed)
+        if trainer.graphed:
+            trainer.graphs.events = []
+        rows = []
+        r0 = ran()
+
+        def hook(step, m):
+            r = delta(ran(), r0)
+            rows.append((time.perf_counter(), step, m,
+                         r.get("flash_attention_fwd", 0),
+                         r.get("flash_attention_bwd", 0)))
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if scanned is None:
+            trainer.fit(steps, metrics_hook=hook)
+        else:
+            trainer.fit_scanned(steps, scanned[0], chunk=scanned[1],
+                                base_seed=SEED, metrics_hook=hook)
+        torch.cuda.synchronize()
+        stamps = [t0] + [r[0] for r in rows]
+        done = [0] + [r[1] - trainer.state.step + steps for r in rows]
+        rec = {"route": trainer.route(), "graphed": trainer.graphed,
+               "seconds": stamps[-1] - t0,
+               "wall_ms": [(b - a) * 1e3 / (s1 - s0) for a, b, s0, s1
+                           in zip(stamps, stamps[1:], done, done[1:])],
+               "flash_per_step": [(f1 - f0, b1 - b0) for (f0, b0), (f1, b1)
+                                  in zip([(0, 0)] + [r[3:] for r in rows],
+                                         [r[3:] for r in rows])]}
+        if scanned is None:
+            rec["losses"] = [r[2]["loss"] for r in rows]
+            rec["grad_norms"] = [r[2]["grad_norm"] for r in rows]
+        else:
+            rec["losses"] = [float(x) for r in rows
+                             for x in r[2]["loss_trace"]]
+            rec["grad_norms"] = [float(x) for r in rows
+                                 for x in r[2]["grad_norm_trace"]]
+        if trainer.graphed:
+            entries = list(trainer.graphs.captured().values())
+            rec.update(
+                replay_device_ms=[a.elapsed_time(b)
+                                  for a, b in trainer.graphs.events],
+                capture_s=[e.capture_s for e in entries],
+                pool_gb=[e.pool_bytes / 1e9 for e in entries],
+                launches_per_replay=entries[0].launches if entries else {},
+                replays=[e.replays for e in entries])
+        st = trainer.state
+        params = list(st.model.parameters())
+        final = {"params": tg_flat(torch, params),
+                 "ema": tg_flat(torch, st.ema.params.values()),
+                 "exp_avg": tg_flat(torch, [st.optimizer.state[p]["exp_avg"]
+                                            for p in params]),
+                 "exp_avg_sq": tg_flat(torch, [
+                     st.optimizer.state[p]["exp_avg_sq"] for p in params])}
+        extra = after(trainer) if after is not None else None
+        del trainer, st, params
+    finally:
+        torch.backends.cudnn.deterministic = False
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec, final, extra
+
+
+def tg_summary(graphed, eager):
+    """Per-step wall ms of the steady steps (after the warm-ups and the
+    capture: the same step indices for both routes), the replays' device
+    ms, and the card's idle share per step, graphed and eager (the eager
+    step does the replay's work)."""
+    from tpu_diffusion_torch.sampling.graph import WARMUP
+    g_wall = quartiles(graphed["wall_ms"][WARMUP + 1:])
+    e_wall = quartiles(eager["wall_ms"][WARMUP + 1:])
+    dev = quartiles(graphed["replay_device_ms"])
+    return {"wall_ms_per_step_graphed": g_wall,
+            "wall_ms_per_step_eager": e_wall,
+            "replay_device_ms": dev,
+            "idle_share_graphed": 1 - dev["median"] / g_wall["median"],
+            "idle_share_eager": 1 - dev["median"] / e_wall["median"],
+            "capture_s": graphed["capture_s"],
+            "pool_gb": graphed["pool_gb"],
+            "launches_per_replay": graphed["launches_per_replay"],
+            "eager_flash_per_step": sorted(set(eager["flash_per_step"])),
+            "route_graphed": graphed["route"],
+            "route_eager": eager["route"]}
+
+
+def tg_equal(a, b):
+    return {k: bool(a[k].shape == b[k].shape and a[k].eq(b[k]).all())
+            for k in a}
+
+
+def tg_turns(torch, card_info, name, make, batch, steps=TG_STEPS, **fields):
+    """bf16 (or any config whose step sums with atomics): eager, graphed,
+    eager, graphed, eager from one seed. The spread is the mean over the
+    three pairs of eager runs, the difference the mean over the six
+    graphed-eager pairs, of the parameters' and the loss trace's mean
+    |difference|; the difference must stay within twice the spread. A
+    loss is one rounded fp32 scalar, so the loss trace's bound also allows
+    one ulp of the loss (two runs whose parameters differ in their last
+    bits tie or differ by an ulp at random)."""
+    import itertools
+
+    import numpy as np
+
+    from tpu_diffusion_torch.sampling.graph import WARMUP
+    runs = [tg_run(torch, make, graphed, steps)
+            for graphed in (False, True, False, True, False)]
+    eager = [r for r in runs if not r[0]["graphed"]]
+    graphed = [r for r in runs if r[0]["graphed"]]
+
+    def dist(a, b):
+        return {"losses": sum(abs(x - y) for x, y in zip(
+                    a[0]["losses"], b[0]["losses"])) / steps,
+                "params": (a[1]["params"] - b[1]["params"]).abs().mean()
+                .item()}
+
+    def mean(pairs):
+        ds = [dist(a, b) for a, b in pairs]
+        return {k: sum(d[k] for d in ds) / len(ds) for k in ds[0]}
+
+    spread = mean(itertools.combinations(eager, 2))
+    diff = mean(itertools.product(graphed, eager))
+    ulp = float(np.spacing(np.float32(max(abs(x) for r in runs
+                                          for x in r[0]["losses"]))))
+    (e1, _, _), (g1, _, _) = eager[0], graphed[0]
+    summary = tg_summary(g1, e1)
+    emit(card_info, phase="train_graphs", config=name, batch=batch,
+         steps=steps, **summary, spread_eager=spread, diff_graphed=diff,
+         loss_ulp=ulp,
+         losses={"eager": [r[0]["losses"] for r in eager],
+                 "graphed": [r[0]["losses"] for r in graphed]},
+         wall_ms={"eager": [r[0]["wall_ms"] for r in eager],
+                  "graphed": [r[0]["wall_ms"] for r in graphed]},
+         **fields)
+    check(all(r[0]["graphed"] and r[0]["replays"] == [steps - WARMUP]
+              for r in graphed) and not e1["graphed"],
+          f"train_graphs {name}: routes {g1['route']} / {e1['route']}, "
+          f"replays {[r[0].get('replays') for r in graphed]}")
+    check(all(math.isfinite(x) for r in runs
+              for x in r[0]["losses"] + r[0]["grad_norms"]),
+          f"train_graphs {name}: losses")
+    check(diff["params"] <= 2 * spread["params"]
+          and diff["losses"] <= 2 * spread["losses"] + ulp,
+          f"train_graphs {name}: graphed differs from eager by {diff}, "
+          f"twice the eager spread {spread} (losses: + {ulp})")
+    # the replays launch the eager step's flash kernels
+    flash = {k: v for k, v in g1["launches_per_replay"].items()
+             if k.startswith("flash_attention_")}
+    want = summary["eager_flash_per_step"]
+    check(len(want) == 1 and (flash.get("flash_attention_fwd", 0),
+                              flash.get("flash_attention_bwd", 0)) == want[0]
+          and all(p == want[0] for p in g1["flash_per_step"]),
+          f"train_graphs {name}: flash launches per replay {flash}, per "
+          f"graphed step {g1['flash_per_step']}, per eager step {want}")
+    del runs, eager, graphed
+    torch.cuda.empty_cache()
+    return summary
+
+
+def tg_bitwise(torch, card_info, name, make, batch, steps, scanned=(),
+               after=None, **fields):
+    """fp32 under cuDNN's deterministic algorithms: the eager run and the
+    graphed run equal bitwise (loss and gradient-norm traces, parameters,
+    Adam moments, EMA). `scanned`: (sampler, chunk) pairs of fit_scanned
+    runs, eager at the first chunk then graphed at each, all equal."""
+    e, fe, xe = tg_run(torch, make, False, steps, True, after=after)
+    g, fg, xg = tg_run(torch, make, True, steps, True, after=after)
+    equal = tg_equal(fe, fg)
+    traces = e["losses"] == g["losses"] and e["grad_norms"] == g[
+        "grad_norms"]
+    out = {"fit": tg_summary(g, e)}
+    scans = []  # (record, final state, chunk)
+    for i, (sampler, chunk) in enumerate(scanned):
+        for graphed in ((False, True) if i == 0 else (True,)):
+            rec, final, _ = tg_run(torch, make, graphed, steps, True,
+                                   scanned=(sampler, chunk))
+            scans.append((rec, final, chunk))
+    scan_equal = [tg_equal(scans[0][1], s[1]) for s in scans[1:]]
+    scan_traces = [s[0]["losses"] == scans[0][0]["losses"]
+                   for s in scans[1:]]
+    if scans:
+        # wall ms per step of each chunk (one host read a chunk); the
+        # graphed run at the smallest chunk has a chunk of replays only
+        last = scans[-1][0]
+        dev = quartiles(last["replay_device_ms"])
+        out["fit_scanned"] = {
+            "wall_ms_per_step_by_chunk": [
+                {"graphed": r["graphed"], "chunk": c, "wall_ms": r["wall_ms"]}
+                for r, _, c in scans],
+            "replay_device_ms": dev,
+            "idle_share_graphed_last_chunk":
+                1 - dev["median"] / last["wall_ms"][-1],
+            "capture_s": last["capture_s"], "pool_gb": last["pool_gb"],
+            "launches_per_replay": last["launches_per_replay"],
+            "route_graphed": last["route"],
+            "route_eager": scans[0][0]["route"]}
+    emit(card_info, phase="train_graphs", config=name, batch=batch,
+         steps=steps, deterministic=True, **out, bitwise_equal=equal,
+         traces_equal=traces, fit_scanned_bitwise_equal=scan_equal,
+         fit_scanned_traces_equal=scan_traces,
+         losses={"eager": e["losses"], "graphed": g["losses"]}, **fields)
+    check(g["graphed"] and not e["graphed"] and traces
+          and all(equal.values()),
+          f"train_graphs {name}: fp32 graphed differs from eager: traces "
+          f"{traces}, state {equal}")
+    check(all(all(q.values()) for q in scan_equal) and all(scan_traces),
+          f"train_graphs {name}: fit_scanned runs differ: {scan_equal} "
+          f"{scan_traces}")
+    return xe, xg
+
+
+def train_graphs_phase(torch, card_info, dev):
+    """The training step as a captured CUDA graph (`train/graph.py`)
+    against the eager loop, through the five training CLIs' own build
+    functions at their widths: each configuration's Trainer from one seed,
+    eager and graphed in turns. bf16 configurations within twice the eager spread;
+    fp32 ones bitwise under cuDNN's deterministic algorithms (the 64px
+    config at reduced depth, with sampling from the live model after the
+    steps, and the protein config through fit and fit_scanned at two
+    chunkings); the in-step exact OT loss's declared eager route; C6 (the
+    fused-QKV attention's gradient on the card, and a graphed "fused"
+    training step moving the qkv weights); the EMA body against the eager
+    blend. Returns the wrappers' calls of the phase."""
+    from tpu_diffusion_torch.cli import main as cli
+    from tpu_diffusion_torch.cli import (train_cfm_conditional, train_cifar10,
+                                         train_conditional_mnist,
+                                         train_protein)
+    from tpu_diffusion_torch.core.ema import EMAState, ema_update
+    from tpu_diffusion_torch.data.device_cache import make_protein_sampler
+    from tpu_diffusion_torch.data.registry import (get_dataset,
+                                                   infinite_batches)
+    from tpu_diffusion_torch.kernels import attention
+    from tpu_diffusion_torch.losses.cfm import get_matcher, host_ot_pairs
+    from tpu_diffusion_torch.protein.data import (get_protein_data,
+                                                  protein_batches)
+    from tpu_diffusion_torch.protein.sde import HoogeboomGraphSDE
+    from tpu_diffusion_torch.train.trainer import (TrainState, Trainer,
+                                                   make_optimizer,
+                                                   make_train_step)
+    from tpu_diffusion_torch.utils import config as config_mod
+    calls0 = {"flash_attention_fused": attention.launches,
+              "flash_attention_fwd": attention.flash_fwd_launches,
+              "flash_attention_bwd": attention.flash_bwd_launches}
+    t_phase = time.perf_counter()
+
+    # --- cli.main flowers,inpainting,amortized --------------------------
+    flowers = get_dataset("flowers")("data", train=True)
+
+    def cli_main(overrides, samplers=None):
+        config = config_mod.get_config("flowers,inpainting,amortized")
+        config_mod.apply_overrides(config, overrides
+                                   + [f"training.seed={SEED}"])
+
+        def make(graphed):
+            torch.manual_seed(SEED)  # the model's own initialisation
+            parts = cli.build(config, dev)
+            state, _ = cli.init_state(config, parts)
+            step = make_train_step(
+                cli.make_loss(parts), ema_decay=config.training.ema_decay,
+                ema_update_every=config.training.ema_update_every)
+            trainer = Trainer(step, state, infinite_batches(
+                flowers, config.training.batch_size, seed=SEED),
+                graphed=graphed)
+            if samplers is not None:
+                samplers(config, parts, trainer)
+            return trainer
+        return make, config
+
+    make, config = cli_main([])
+    tg_turns(torch, card_info, "cli_main_64px_bf16", make,
+             config.training.batch_size,
+             note="flowers,inpainting,amortized at its config (93.3M "
+                  "parameters, bf16 forward, fp32 parameters, the flash "
+                  "kernels at [128,1024,64]) through cli.build, "
+                  "init_state and make_loss")
+
+    # fp32 at reduced depth, and sampling from the live model after
+    gen_x = torch.Generator().manual_seed(SEED + 21)
+    imgs = torch.from_numpy(flowers.images[:TG_FP32_BATCH]).to(dev)
+    xT = torch.randn(imgs.shape, generator=gen_x).to(dev)
+
+    def with_sampler(config, parts, trainer):
+        cond_sample, _ = cli.make_samplers(config, parts, graphed=True)
+        cond = parts["likelihood"].sample(
+            torch.Generator(dev).manual_seed(SEED + 22), imgs)
+        trainer.state.model.eval()
+        cond_sample(trainer.state.model, xT, cond,
+                    torch.Generator(dev).manual_seed(SEED + 23))
+        trainer.sample = lambda: cond_sample(
+            trainer.state.model.eval(), xT, cond,
+            torch.Generator(dev).manual_seed(SEED + 23))
+        trainer.cache = cond_sample.built
+
+    def sample_after(trainer):
+        x = trainer.sample()
+        torch.cuda.synchronize()
+        return x, trainer.cache["graphs"].captures
+
+    make, config = cli_main(
+        ["network.dtype=float32", "network.num_res_blocks=1",
+         f"training.batch_size={TG_FP32_BATCH}",
+         f"diffusion.num_steps={TG_FP32_DIFFUSION}"], with_sampler)
+    (xe, ce), (xg, cg) = tg_bitwise(
+        torch, card_info, "cli_main_64px_fp32", make, TG_FP32_BATCH,
+        TG_FP32_STEPS, after=sample_after,
+        note="the 64px config at reduced depth (num_res_blocks 2 -> 1), "
+             "fp32 forward (the fp32 flash kernels, no atomics), batch "
+             "32 -> 8, 50 diffusion steps")
+    stale_equal = torch.equal(xe, xg)
+    emit(card_info, phase="train_graphs", config="cli_main_64px_fp32",
+         check="sampling_after_training", samples_equal=stale_equal,
+         captures={"eager": ce, "graphed": cg},
+         note="cli.make_samplers' cached amortized chain (graphed, one "
+              "GraphCache on the live model), called before the steps and "
+              "after them: the chain must be captured again (2 captures) "
+              "and sample the trained weights, equal after graphed and "
+              "after eager steps")
+    check(stale_equal and ce == cg == 2,
+          f"train_graphs: sampling after graphed steps differs from after "
+          f"eager ones ({stale_equal}) or was not captured again "
+          f"({ce}, {cg})")
+    del xe, xg
+
+    # --- train_cfm_conditional: SR256 at batch 8 ------------------------
+    cc = train_cfm_conditional
+    sr_ds = get_dataset("synthetic256")("data", train=True)
+
+    def make_sr(graphed):
+        torch.manual_seed(SEED)
+        model, dim = cc.build("superres", "synthetic256",
+                              cc.ATTENTION_IMPLS["auto"], 0, dev)
+        opt = make_optimizer(model.parameters(), 2e-4, warmup=5,
+                             grad_clip=1.0)
+        state = TrainState.create(model, opt,
+                                  torch.Generator(dev).manual_seed(SEED))
+        loss = cc.make_loss_fn(get_matcher("icfm", sigma=0.0),
+                               cc.make_condition_fn("superres", dim, 20,
+                                                    -2.0),
+                               "superres", False, -2.0)
+        return Trainer(make_train_step(loss, ema_decay=0.9999), state,
+                       infinite_batches(sr_ds, SR_BATCH, seed=SEED),
+                       graphed=graphed)
+
+    tg_turns(torch, card_info, "cfm_sr256_bf16", make_sr, SR_BATCH,
+             note="train_cfm_conditional --task superres --dataset "
+                  "synthetic256 (125,375,107 parameters, bf16 forward, the "
+                  "flash kernels at [32,1024,64]), warmup 5")
+
+    # --- train_cifar10: OT-CFM, exact pairs on the host, batch 128 --------
+    tc = train_cifar10
+    cifar = get_dataset("cifar10")("data", train=True)
+    pipes = []
+
+    def make_cifar(graphed, exact_in_step=False):
+        torch.manual_seed(SEED)
+        model = tc.build_model(num_channels=128,
+                               attention_impl=tc.ATTENTION_IMPLS["auto"],
+                               device=dev)
+        opt = make_optimizer(model.parameters(), 2e-4, warmup=5,
+                             grad_clip=1.0)
+        state = TrainState.create(model, opt,
+                                  torch.Generator(dev).manual_seed(SEED))
+        batches = infinite_batches(cifar, 128, seed=SEED, flip=True)
+        if exact_in_step:
+            loss = tc.make_cfm_loss_fn(get_matcher("otcfm", sigma=0.0,
+                                                   method="exact"))
+        else:
+            batches = host_ot_pairs(batches, seed=SEED)
+            pipes.append(batches)
+            loss = tc.make_cfm_loss_fn(get_matcher("icfm", sigma=0.0),
+                                       paired=True)
+        return Trainer(make_train_step(loss, ema_decay=0.9999), state,
+                       batches, graphed=graphed)
+
+    tg_turns(torch, card_info, "cfm_cifar10_otcfm_host_pairs", make_cifar,
+             128, note="train_cifar10 --model otcfm (38.31M parameters, "
+                       "bf16 forward, attention at 16x16 dense): exact OT "
+                       "pairs on the host between steps (prefetch 2), then "
+                       "I-CFM in the step; warmup 5")
+    for p in pipes:
+        p.close()
+    eager_only = make_cifar(True, exact_in_step=True)
+    emit(card_info, phase="train_graphs", config="cfm_cifar10_otcfm_in_step",
+         graphed=eager_only.graphed, route=eager_only.route(),
+         note="exact OT solved inside the step (losses/cfm.py:"
+              "exact_ot_permutation): declared eager")
+    check(not eager_only.graphed and "host" in eager_only.eager_reason,
+          f"train_graphs: the in-step exact OT route {eager_only.route()}")
+    del eager_only
+
+    # --- train_conditional_mnist: cfm and otcfm (sinkhorn) -------------
+    tcm = train_conditional_mnist
+    mnist = get_dataset("mnist")("data", train=True)
+    for variant, matcher in (
+            ("cfm", get_matcher("icfm", sigma=0.1)),
+            ("otcfm", get_matcher("otcfm", sigma=0.1, method="sinkhorn"))):
+        def make_mnist(graphed, matcher=matcher):
+            torch.manual_seed(SEED)
+            model = torch.nn.ModuleDict(
+                {"flow": tcm.build_model(32, device=dev)})
+            opt = make_optimizer(model.parameters(), 2e-4, warmup=500,
+                                 grad_clip=1.0)
+            state = TrainState.create(model, opt,
+                                      torch.Generator(dev).manual_seed(SEED))
+            return Trainer(
+                make_train_step(tcm.make_loss_fn(matcher, False),
+                                ema_decay=0.9999),
+                state, tcm.labeled_batches(mnist, 128, SEED),
+                graphed=graphed)
+
+        tg_turns(torch, card_info, f"cond_mnist_{variant}", make_mnist, 128,
+                 note="train_conditional_mnist (1,744,161 parameters, bf16 "
+                      "forward, no kernel); otcfm: sinkhorn with a column "
+                      "drawn per row (torch.multinomial) inside the graph")
+
+    # --- train_protein at batch 32: fit and fit_scanned -----------------
+    args = train_protein.parser().parse_args(protein_flags([]))
+    diffuser = HoogeboomGraphSDE(num_steps=args.diffusion_steps, device=dev)
+    ds = get_protein_data("data/scope", max_len=args.max_len, seed=SEED)
+    sampler = make_protein_sampler(ds.positions, ds.lengths,
+                                   PROTEIN_TRAIN_BATCH, device=dev)
+
+    def make_protein(graphed):
+        torch.manual_seed(SEED)
+        model = train_protein.build_model(args, dev)
+        opt = make_optimizer(model.parameters(), args.lr, warmup=0,
+                             grad_clip=1.0, schedule="constant")
+        state = TrainState.create(model, opt,
+                                  torch.Generator(dev).manual_seed(SEED))
+        loss = train_protein.make_loss_fn(diffuser, args.aux_weight,
+                                          args.aux_cutoff, args.distogram)
+        return Trainer(make_train_step(loss, ema_decay=0.999), state,
+                       protein_batches(ds, PROTEIN_TRAIN_BATCH, seed=SEED),
+                       graphed=graphed)
+
+    tg_bitwise(torch, card_info, "protein", make_protein,
+               PROTEIN_TRAIN_BATCH, PROTEIN_TRAIN_STEPS,
+               scanned=((sampler, PROTEIN_TRAIN_STEPS),
+                        (sampler, PROTEIN_TRAIN_STEPS // 2)),
+               note="train_protein at the reference width (3,336,001 "
+                    "parameters, 112 residues, fp32): fit from "
+                    "protein_batches; fit_scanned from make_protein_sampler "
+                    "eager at chunk 10, graphed at chunks 10 and 5")
+
+    # --- C6: the fused-QKV attention's gradient on the card --------------
+    grads = []
+    gen = torch.Generator(dev).manual_seed(SEED + 31)
+    for dtype, tol in ((torch.bfloat16, 2e-2), (torch.float32, 2e-5)):
+        qkv = torch.randn((TG_FUSED_BATCH, 256, 768), generator=gen,
+                          device=dev).to(dtype)
+        g = torch.randn((TG_FUSED_BATCH, 256, 256), generator=gen,
+                        device=dev).to(dtype)
+        x = qkv.clone().requires_grad_()
+        got, = torch.autograd.grad(attention.flash_attention_fused(x, 4),
+                                   x, g)
+        x = qkv.clone().requires_grad_()
+        want, = torch.autograd.grad(attention.dense_attention(x, 4), x, g)
+        err = ((got.float() - want.float()).abs().max()
+               / want.float().abs().max()).item()
+        grads.append({"dtype": str(dtype), "max_rel_err": err, "tol": tol})
+        check(math.isfinite(err) and err <= tol,
+              f"train_graphs C6: the fused-QKV gradient in {dtype} is "
+              f"{err} off the plain version's")
+
+    def make_fused(graphed):
+        torch.manual_seed(SEED)
+        model = tc.build_model(num_channels=128, attention_impl="fused",
+                               device=dev)
+        opt = make_optimizer(model.parameters(), 2e-4, warmup=0,
+                             grad_clip=1.0)
+        state = TrainState.create(model, opt,
+                                  torch.Generator(dev).manual_seed(SEED))
+        loss = tc.make_cfm_loss_fn(get_matcher("icfm", sigma=0.0))
+        return Trainer(make_train_step(loss, ema_decay=0.9999), state,
+                       infinite_batches(cifar, TG_FUSED_BATCH, seed=SEED),
+                       graphed=graphed)
+
+    init = make_fused(False)
+    qkv0 = {n: p.detach().clone() for n, p in
+            init.state.model.named_parameters() if ".qkv." in n}
+    del init
+    fused_moved = {}
+
+    def qkv_moved(trainer):
+        now = dict(trainer.state.model.named_parameters())
+        fused_moved.update({n: not torch.equal(now[n], v)
+                            for n, v in qkv0.items()})
+
+    rec, _, _ = tg_run(torch, make_fused, True, TG_FUSED_STEPS,
+                       after=qkv_moved)
+    emit(card_info, phase="train_graphs", config="c6_fused_qkv_training",
+         batch=TG_FUSED_BATCH, steps=TG_FUSED_STEPS, gradients=grads,
+         route=rec["route"], launches_per_replay=rec["launches_per_replay"],
+         qkv_weights_moved=fused_moved,
+         note="C6: torch.autograd.grad through flash_attention_fused at "
+              "[64,256,768] (4 heads, d=64) against dense_attention's, "
+              "max |diff| over the largest entry; then the CIFAR CFM UNet "
+              "with attention_impl='fused' trained graphed: the fused "
+              "kernel in every replay, its backward the plain version's "
+              "vjp")
+    check(rec["graphed"] and fused_moved and all(fused_moved.values())
+          and rec["launches_per_replay"].get("flash_attention_fused", 0) > 0,
+          f"train_graphs C6: qkv weights moved {fused_moved}, per replay "
+          f"{rec['launches_per_replay']}")
+
+    # --- the EMA body against the eager blend, on the card ----------------
+    gen = torch.Generator(dev).manual_seed(SEED + 41)
+    p = {f"p{i}": torch.randn(n, generator=gen, device=dev)
+         for i, n in enumerate((37, 4099, 1 << 20))}
+    state = EMAState(p)
+    ema_ok = []
+    for decay in (0.9999, 0.5, 2.0 / 11.0):
+        want = {k: state.params[k].clone() for k in p}
+        torch._foreach_mul_(list(want.values()), decay)
+        torch._foreach_add_(list(want.values()), list(p.values()),
+                            alpha=1.0 - decay)
+        ema_update(state, p, decay, warmup=False)
+        ema_ok.append(all(torch.equal(state.params[k].view(torch.int32),
+                                      want[k].view(torch.int32))
+                          for k in p))
+    emit(card_info, phase="train_graphs", check="ema_blend_bitwise",
+         decays=[0.9999, 0.5, 2.0 / 11.0], equal=ema_ok,
+         note="ema_blend (mul by d, addcmul by 1 - d from device buffers) "
+              "against _foreach_mul_ then _foreach_add_(alpha=1 - d)")
+    check(all(ema_ok), f"train_graphs: the EMA body differs from the eager "
+                       f"blend on the card: {ema_ok}")
+    emit(card_info, phase="train_graphs", seconds=time.perf_counter()
+         - t_phase)
+    return {"flash_attention_fused": attention.launches
+            - calls0["flash_attention_fused"],
+            "flash_attention_fwd": attention.flash_fwd_launches
+            - calls0["flash_attention_fwd"],
+            "flash_attention_bwd": attention.flash_bwd_launches
+            - calls0["flash_attention_bwd"]}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3617,6 +4229,9 @@ def main():
         protein_eval_phase(torch, card_info, dev,
                            os.path.join(out, "protein_guided"),
                            protein_eval_work)
+        # --- the training step as a captured CUDA graph, against eager ------
+        for name, n in train_graphs_phase(torch, card_info, dev).items():
+            counts[name] += n
     finally:
         shutil.rmtree(out, ignore_errors=True)
     for name, n in counts.items():
@@ -3642,7 +4257,9 @@ def main():
     per = {
         "flash_attention_fused": "one full CIFAR UNet forward at batch 64 "
                                  "(sum over its call shapes); launches: the "
-                                 "four DDIM-100 runs and the graphs phase",
+                                 "four DDIM-100 runs, the graphs phase and "
+                                 "train_graphs' C6 gradients and graphed "
+                                 "'fused' training steps",
         "fused_groupnorm_silu": "one full CIFAR UNet forward at batch 64 "
                                 "(sum over its call shapes); launches: the "
                                 "four DDIM-100 runs and the graphs phase",
@@ -3662,9 +4279,12 @@ def main():
                                "[32,1024,64]); launches: the guidance run "
                                "and the graphs phase's guided chains "
                                "(their warm-ups and captures), "
-                               "the 20 DDPM training steps, the 20 "
-                               "cfm_cond_sr256 steps and the parallel "
-                               "phase's 10 meshed steps; max_rel_err: the "
+                               "the graphed training steps' warm-ups and "
+                               "captures (train, cfm_cond_sr256, the "
+                               "parallel phase's plain runs, train_graphs) "
+                               "and the eager ones (the parallel phase's "
+                               "10 meshed steps, train_graphs' eager "
+                               "runs); max_rel_err: the "
                                "largest |dq, dk, dv - plain| over each "
                                "gradient's largest entry",
         "fused_resblock": "one full CIFAR UNet forward through the engine "

@@ -1,0 +1,210 @@
+"""The training step as a captured CUDA graph (`train/graph.py`) and the
+fused-QKV attention's gradient on the card, at a small size.
+
+These tests need a CUDA card and skip without one (a capture has no CPU
+mode, the kernels have none either). The file imports nothing of JAX, so
+on a machine with a card and without JAX it runs as
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda_train_graph.py
+"""
+
+import pytest
+import torch
+
+from tpu_diffusion_torch.core.schedules import DDPM
+from tpu_diffusion_torch.kernels import attention
+from tpu_diffusion_torch.losses.ddpm import ddpm_loss
+from tpu_diffusion_torch.models.unet import create_model, randomize_
+from tpu_diffusion_torch.sampling import ancestral
+from tpu_diffusion_torch.sampling.graph import WARMUP, GraphCache
+from tpu_diffusion_torch.train import trainer
+
+STEPS = 6
+
+
+@pytest.fixture(scope="module")
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: a CUDA graph has no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.fixture
+def deterministic():
+    """cuDNN's default backward algorithms sum with atomics even in fp32."""
+    was = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = was
+
+
+def _state(cuda, dtype=torch.float32, attention_impl="dense", seed=0):
+    model = create_model(image_size=16, num_channels=32, num_res_blocks=1,
+                         in_channels=3, channel_mult=(1, 2), num_heads=1,
+                         attention_resolutions="8", dropout=0.1,
+                         use_scale_shift_norm=True, dtype=dtype,
+                         attention_impl=attention_impl, device=cuda)
+    randomize_(model, torch.Generator().manual_seed(seed))
+    opt = trainer.make_optimizer(model.parameters(), 1e-3, warmup=2,
+                                 grad_clip=1.0)
+    return trainer.TrainState.create(
+        model, opt, torch.Generator(cuda).manual_seed(seed + 1))
+
+
+def _step(device):
+    ddpm = DDPM.create(1000).to(device)
+
+    def loss(model, gen, x):
+        return ddpm_loss(gen, lambda xi, t: model(xi, t, generator=gen),
+                         ddpm, x)
+    return trainer.make_train_step(loss, ema_decay=0.9, ema_update_every=2)
+
+
+def _batches(n, seed=3):
+    gen = torch.Generator().manual_seed(seed)
+    return [torch.randn((4, 16, 16, 3), generator=gen).numpy()
+            for _ in range(n)]
+
+
+def _fit(cuda, graphed, **kw):
+    state = _state(cuda, **kw)
+    rows = []
+    tr = trainer.Trainer(_step(cuda), state, iter(_batches(STEPS)),
+                         graphed=graphed)
+    tr.fit(STEPS, metrics_hook=lambda s, m: rows.append(
+        (m["loss"], m["grad_norm"])))
+    return tr, rows
+
+
+def _same_state(a, b):
+    for (name, p), q in zip(a.model.named_parameters(),
+                            b.model.parameters()):
+        assert torch.equal(p, q), name
+        assert torch.equal(a.ema.params[name], b.ema.params[name]), name
+        for key in ("exp_avg", "exp_avg_sq"):
+            assert torch.equal(a.optimizer.state[p][key],
+                               b.optimizer.state[q][key]), (name, key)
+
+
+@pytest.mark.cuda
+def test_cuda_graphed_fit_equals_eager_fp32(cuda, deterministic):
+    """fp32: the graphed steps (the first WARMUP eager, then one replay a
+    step) equal the eager loop bitwise: the metric traces, the parameters,
+    the Adam moments and the EMA, dropout and the loss's draws included."""
+    eager, want = _fit(cuda, graphed=False)
+    graphed, got = _fit(cuda, graphed=True)
+    assert graphed.graphed and not eager.graphed
+    assert got == want
+    _same_state(graphed.state, eager.state)
+    entry, = graphed.graphs.captured().values()
+    assert entry.replays == STEPS - WARMUP
+
+
+@pytest.mark.cuda
+def test_cuda_graphed_fit_scanned_equals_eager(cuda, deterministic):
+    """fit_scanned's sampler and draws inside the graph: equal to the eager
+    loop bitwise, and the same for any chunking."""
+    images = torch.randn((32, 16, 16, 3), generator=torch.Generator()
+                         .manual_seed(5)).to(cuda)
+
+    def sample(gen):
+        idx = torch.randint(0, 32, (4,), generator=gen, device=cuda)
+        return images[idx]
+
+    finals = []
+    for graphed, chunk in ((False, 6), (True, 6), (True, 4)):
+        rows = []
+        tr = trainer.Trainer(_step(cuda), _state(cuda), iter(()),
+                             graphed=graphed)
+        tr.fit_scanned(STEPS, sample, chunk=chunk, base_seed=9,
+                       metrics_hook=lambda s, m: rows.extend(m["loss_trace"]))
+        finals.append((tr.state, rows))
+    for state, rows in finals[1:]:
+        assert rows == finals[0][1]
+        _same_state(state, finals[0][0])
+
+
+@pytest.mark.cuda
+def test_cuda_live_model_sees_graphed_updates(cuda, deterministic):
+    """A replay bumps the parameters' versions: a no-grad forward of the
+    live bf16 model recasts its weights, and a sampler chain keyed on it is
+    captured again; both equal the same after eager steps."""
+    xT = torch.randn((4, 16, 16, 3), generator=torch.Generator()
+                     .manual_seed(7)).to(cuda)
+    out = {}
+    for graphed in (False, True):
+        state = _state(cuda, dtype=torch.bfloat16)
+        model = state.model
+        cache = GraphCache(model)
+        sampler = ancestral.make_ddim_sampler(
+            lambda x, i: model(x, i.float() / 1000.0), DDPM.create(1000),
+            4, graphs=cache)
+        model.eval()
+        with torch.no_grad():
+            model(xT, torch.full((4,), 0.5, device=cuda))  # cast copies
+        sampler(xT)
+        tr = trainer.Trainer(_step(cuda), state, iter(_batches(STEPS)),
+                             graphed=graphed)
+        tr.fit(STEPS)
+        model.eval()
+        with torch.no_grad():
+            fwd = model(xT, torch.full((4,), 0.5, device=cuda))
+        out[graphed] = (fwd, sampler(xT), cache.captures)
+    assert torch.equal(out[True][0], out[False][0])
+    assert torch.equal(out[True][1], out[False][1])
+    assert out[True][2] == out[False][2] == 2
+
+
+@pytest.mark.cuda
+def test_cuda_graphed_flash_training_replays_the_backward(cuda):
+    """bf16 with the flash kernels at T=64: the replays launch the flash
+    forward and backward, and the losses stay near the eager run's (the
+    bf16 backward's atomic dq sums: not bitwise)."""
+    from tpu_diffusion_torch.sampling.graph import executed_launches
+    before = executed_launches()
+    graphed, got = _fit(cuda, graphed=True, dtype=torch.bfloat16,
+                        attention_impl="flash")
+    ran = {k: v - before[k] for k, v in executed_launches().items()}
+    entry, = graphed.graphs.captured().values()
+    per_step = entry.launches["flash_attention_bwd"]
+    assert per_step == entry.launches["flash_attention_fwd"] > 0
+    assert ran["flash_attention_bwd"] == STEPS * per_step
+    _, want = _fit(cuda, graphed=False, dtype=torch.bfloat16,
+                   attention_impl="flash")
+    for (lg, _), (lw, _) in zip(got, want):
+        assert abs(lg - lw) <= 1e-2 * abs(lw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2),
+                                       (torch.float32, 2e-5)])
+def test_cuda_fused_attention_gradient(cuda, dtype, tol):
+    """C6: the gradient through `flash_attention_fused` on the card is the
+    plain version's (the JAX custom VJP's recompute)."""
+    gen = torch.Generator().manual_seed(11)
+    qkv = torch.randn((4, 256, 3 * 128), generator=gen).to(cuda, dtype)
+    g = torch.randn((4, 256, 128), generator=gen).to(cuda, dtype)
+    x = qkv.clone().requires_grad_()
+    before = attention.launches
+    got, = torch.autograd.grad(attention.flash_attention_fused(x, 2), x, g)
+    assert attention.launches == before + 1
+    x = qkv.clone().requires_grad_()
+    want, = torch.autograd.grad(attention.dense_attention(x, 2), x, g)
+    assert got.dtype == dtype and bool(torch.isfinite(got).all())
+    assert (got - want).abs().max() <= tol * want.abs().max()
+
+
+@pytest.mark.cuda
+def test_cuda_fused_attention_training_moves_qkv(cuda):
+    """A graphed training step of a model with `attention_impl="fused"`
+    moves the qkv projection (before C6 its gradient was lost)."""
+    state = _state(cuda, dtype=torch.bfloat16, attention_impl="fused")
+    qkv = {n: p.detach().clone() for n, p in state.model.named_parameters()
+           if ".qkv." in n}
+    assert qkv
+    trainer.Trainer(_step(cuda), state, iter(_batches(STEPS))).fit(STEPS)
+    params = dict(state.model.named_parameters())
+    for n, before in qkv.items():
+        assert not torch.equal(params[n], before), n

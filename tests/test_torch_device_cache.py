@@ -45,13 +45,19 @@ def _scanned_setup():
     return step, state, sample
 
 
-def test_fit_scanned_chunk_invariant():
+ROUTES = pytest.mark.parametrize("route", ["graphed", "eager"])
+
+
+@ROUTES
+def test_fit_scanned_chunk_invariant(route):
     """The batch of step s comes from a generator seeded by (base_seed, s):
-    the final state is bitwise the same for any chunking."""
+    the final state is bitwise the same for any chunking, on either route
+    (`Trainer(graphed=...)`)."""
     finals = []
     for chunk in (8, 4, 3):       # 3 leaves a tail chunk of 2
         step, state, sample = _scanned_setup()
-        tr = trainer.Trainer(step, state, iter(()))
+        tr = trainer.Trainer(step, state, iter(()),
+                             graphed=route == "graphed")
         finals.append(tr.fit_scanned(8, sample, chunk=chunk, base_seed=42))
     for other in finals[1:]:
         assert other.step == 8
@@ -61,30 +67,38 @@ def test_fit_scanned_chunk_invariant():
                                    finals[0].ema.params["w"], rtol=0, atol=0)
 
 
-def test_fit_scanned_resume_exact():
+@ROUTES
+def test_fit_scanned_resume_exact(route):
     """Stopping after 4 steps and going on from the carried state replays
     the stream of an unbroken run."""
+    graphed = route == "graphed"
     step, state, sample = _scanned_setup()
-    full = trainer.Trainer(step, state, iter(())).fit_scanned(
+    full = trainer.Trainer(step, state, iter(()),
+                           graphed=graphed).fit_scanned(
         8, sample, chunk=4, base_seed=7)
     step2, state2, _ = _scanned_setup()
-    mid = trainer.Trainer(step2, state2, iter(())).fit_scanned(
+    mid = trainer.Trainer(step2, state2, iter(()),
+                          graphed=graphed).fit_scanned(
         4, sample, chunk=4, base_seed=7)
-    resumed = trainer.Trainer(step2, mid, iter(())).fit_scanned(
+    resumed = trainer.Trainer(step2, mid, iter(()),
+                              graphed=graphed).fit_scanned(
         4, sample, chunk=4, base_seed=7)
     torch.testing.assert_close(resumed.model.w, full.model.w, rtol=0,
                                atol=0)
 
 
-def test_fit_scanned_equals_fit_on_the_same_batches():
-    """fit_scanned is fit() fed the sampler's batches of steps 0, 1, ..."""
+@ROUTES
+def test_fit_scanned_equals_fit_on_the_same_batches(route):
+    """fit_scanned is fit() fed the sampler's batches of steps 0, 1, ...
+    (the eager loop's fit() against either route's fit_scanned)."""
     step, state, sample = _scanned_setup()
-    scanned = trainer.Trainer(step, state, iter(())).fit_scanned(
+    scanned = trainer.Trainer(step, state, iter(()),
+                              graphed=route == "graphed").fit_scanned(
         6, sample, chunk=4, base_seed=3)
     batches = (sample(torch.Generator().manual_seed(
         trainer.step_seed(3, s))) for s in range(6))
     step2, state2, _ = _scanned_setup()
-    plain = trainer.Trainer(step2, state2, batches).fit(6)
+    plain = trainer.Trainer(step2, state2, batches, graphed=False).fit(6)
     torch.testing.assert_close(plain.model.w, scanned.model.w, rtol=0,
                                atol=0)
 

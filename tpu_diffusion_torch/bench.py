@@ -66,7 +66,8 @@ REPEATS = 5  # timed chains of each sampler
 
 def bench_model(num_channels: int, device) -> torch.nn.Module:
     """`bench.py`'s UNet at `num_channels`, with the GroupNorm kernel and
-    the fused-QKV attention, random weights from seed 0."""
+    the fused-QKV attention, random weights from seed 0, for inference
+    (no parameter needs a gradient: the GroupNorm kernel has no backward)."""
     model = create_model(image_size=32, num_channels=num_channels,
                          num_res_blocks=2, in_channels=3,
                          channel_mult=(1, 2, 2, 2), num_heads=4,
@@ -74,7 +75,8 @@ def bench_model(num_channels: int, device) -> torch.nn.Module:
                          use_scale_shift_norm=True, dtype=torch.bfloat16,
                          attention_impl="fused", norm_impl="fused",
                          device=device)
-    return randomize_(model, torch.Generator().manual_seed(0)).eval()
+    return randomize_(model, torch.Generator().manual_seed(0)).eval(
+    ).requires_grad_(False)
 
 
 def forward_cost(model, x: torch.Tensor, t: torch.Tensor, **kw):

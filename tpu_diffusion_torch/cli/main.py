@@ -434,10 +434,11 @@ def main(argv: Optional[list] = None):
             PeriodicCallback(callback_fn=plot_samples, every_steps=every),
             PeriodicCallback(callback_fn=periodic_eval, every_steps=every),
         ]
-        state = Trainer(train_step, state, batches, mesh=mesh,
-                        callbacks=callbacks,
-                        tensor_parallel=config.mesh.model_axis > 1
-                        ).fit(num_steps)
+        trainer = Trainer(train_step, state, batches, mesh=mesh,
+                          callbacks=callbacks,
+                          tensor_parallel=config.mesh.model_axis > 1)
+        print(f"[main] {trainer.route()}")
+        state = trainer.fit(num_steps)
         save_ckpt(state.step, state)
 
     results = None

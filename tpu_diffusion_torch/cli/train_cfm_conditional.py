@@ -47,7 +47,7 @@ from tpu_diffusion_torch.conditioning.likelihoods import (InPainting,
                                                           resize_bilinear)
 from tpu_diffusion_torch.data.registry import get_dataset, infinite_batches
 from tpu_diffusion_torch.eval.metrics import mse, psnr, ssim
-from tpu_diffusion_torch.losses.cfm import get_matcher
+from tpu_diffusion_torch.losses.cfm import get_matcher, host_read
 from tpu_diffusion_torch.models.unet import (InPaintModelWrapper,
                                              SuperResModelWrapper,
                                              resolve_device)
@@ -129,6 +129,7 @@ def make_loss_fn(matcher, condition_fn, task: str, weighted: bool,
             return torch.mean((1.0 + 9.0 * (cond == pad_value).float()) * sq)
         return torch.mean(sq)
 
+    loss_fn.eager_reason = host_read(matcher)
     return loss_fn
 
 
@@ -332,9 +333,11 @@ def main(argv=None) -> dict:
         callbacks.append(PeriodicCallback(callback_fn=run_eval,
                                           every_steps=every))
     batches = infinite_batches(train_ds, args.batch_size, seed=args.seed)
-    state = Trainer(train_step, state, batches, mesh=mesh,
-                    callbacks=callbacks,
-                    tensor_parallel=args.model_axis > 1).fit(args.num_steps)
+    trainer = Trainer(train_step, state, batches, mesh=mesh,
+                      callbacks=callbacks,
+                      tensor_parallel=args.model_axis > 1)
+    print(f"[train_cfm_conditional] {trainer.route()}")
+    state = trainer.fit(args.num_steps)
 
     final = run_eval(state.step, state)
     with open(os.path.join(savedir, "results.json"), "w") as f:

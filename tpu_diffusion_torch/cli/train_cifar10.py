@@ -33,7 +33,8 @@ import torch
 
 from tpu_diffusion_torch.cli.main import set_params
 from tpu_diffusion_torch.data.registry import get_dataset, infinite_batches
-from tpu_diffusion_torch.losses.cfm import cfm_loss, get_matcher, host_ot_pairs
+from tpu_diffusion_torch.losses.cfm import (cfm_loss, get_matcher,
+                                            host_ot_pairs, host_read)
 from tpu_diffusion_torch.models.unet import UNetModelWrapper, resolve_device
 from tpu_diffusion_torch.parallel.distributed import initialize_distributed
 from tpu_diffusion_torch.parallel.mesh import make_mesh
@@ -81,6 +82,7 @@ def make_cfm_loss_fn(matcher, paired: bool = False):
             generator, x0, x1, t, eps)
         return cfm_loss(model(t, xt, generator=generator), ut)
 
+    loss_fn.eager_reason = host_read(matcher)
     return loss_fn
 
 
@@ -199,8 +201,10 @@ def main(argv=None) -> dict:
         PeriodicCallback(callback_fn=save_and_sample,
                          every_steps=args.save_step),
     ]
-    state = Trainer(train_step, state, batches, mesh=mesh,
-                    callbacks=callbacks).fit(args.total_steps)
+    trainer = Trainer(train_step, state, batches, mesh=mesh,
+                      callbacks=callbacks)
+    print(f"[train_cifar10] {trainer.route()}")
+    state = trainer.fit(args.total_steps)
     save_and_sample(state.step, state)
     writer.flush()
     return last

@@ -42,7 +42,7 @@ from torch import nn
 from tpu_diffusion_torch.cli.main import set_params
 from tpu_diffusion_torch.data.registry import get_dataset
 from tpu_diffusion_torch.losses.cfm import (
-    SchrodingerBridgeConditionalFlowMatcher, cfm_loss, get_matcher)
+    SchrodingerBridgeConditionalFlowMatcher, cfm_loss, get_matcher, host_read)
 from tpu_diffusion_torch.models.unet import UNetModelWrapper, resolve_device
 from tpu_diffusion_torch.parallel.distributed import initialize_distributed
 from tpu_diffusion_torch.parallel.mesh import make_mesh
@@ -154,6 +154,7 @@ def make_loss_fn(matcher, sf2m: bool):
             generator, x0, x1, y1, t, eps)
         return cfm_loss(model["flow"](t, xt, y1p, generator=generator), ut)
 
+    loss_fn.eager_reason = host_read(matcher)
     return loss_fn
 
 
@@ -260,9 +261,11 @@ def main(argv=None) -> dict:
                          every_steps=50),
         PeriodicCallback(callback_fn=sample_grid, every_steps=every),
     ]
-    state = Trainer(train_step, state,
-                    labeled_batches(ds, args.batch_size, args.seed),
-                    mesh=mesh, callbacks=callbacks).fit(args.num_steps)
+    trainer = Trainer(train_step, state,
+                      labeled_batches(ds, args.batch_size, args.seed),
+                      mesh=mesh, callbacks=callbacks)
+    print(f"[train_conditional_mnist] {trainer.route()}")
+    state = trainer.fit(args.num_steps)
     sample_grid(state.step, state)
     writer.flush()
     print(f"[train_conditional_mnist] {args.variant} done at "

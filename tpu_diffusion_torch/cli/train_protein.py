@@ -156,8 +156,10 @@ def main(argv=None) -> dict:
         PeriodicCallback(callback_fn=save, every_steps=every),
     ]
     batches = protein_batches(ds, args.batch_size, seed=args.seed)
-    state = Trainer(train_step, state, batches, mesh=mesh,
-                    callbacks=callbacks).fit(max(args.num_steps - start, 0))
+    trainer = Trainer(train_step, state, batches, mesh=mesh,
+                      callbacks=callbacks)
+    print(f"[train_protein] {trainer.route()}")
+    state = trainer.fit(max(args.num_steps - start, 0))
     save(state.step, state)
     writer.flush()
     print(f"[train_protein] done at step {state.step}")

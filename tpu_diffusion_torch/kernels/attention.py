@@ -66,10 +66,33 @@ def _entry():
 
 
 def flash_attention_fused(qkv: torch.Tensor, heads: int) -> torch.Tensor:
-    """softmax(q k^T / sqrt(d)) v per head, from the raw [B, T, 3C] qkv."""
+    """softmax(q k^T / sqrt(d)) v per head, from the raw [B, T, 3C] qkv.
+    Differentiable: on the card through `_FusedAttention`."""
     if qkv.device.type == "cpu":
         return dense_attention(qkv, heads)
-    return _launch(qkv, heads)
+    return _FusedAttention.apply(qkv, heads)
+
+
+class _FusedAttention(torch.autograd.Function):
+    """The JAX `flash_attention_fused` custom VJP (`_faf_fwd`, `_faf_bwd`):
+    the kernel forward, and as the backward the vjp of the plain version
+    recomputed from the saved qkv. The JAX package has no backward kernel
+    for it either."""
+
+    @staticmethod
+    def forward(ctx, qkv, heads):
+        ctx.heads = heads
+        ctx.save_for_backward(qkv)
+        return _launch(qkv, heads)
+
+    @staticmethod
+    def backward(ctx, g):
+        qkv, = ctx.saved_tensors
+        with torch.enable_grad():
+            x = qkv.detach().requires_grad_()
+            out = dense_attention(x, ctx.heads)
+        dqkv, = torch.autograd.grad(out, x, g.to(out.dtype))
+        return dqkv.to(qkv.dtype), None
 
 
 def _launch(qkv: torch.Tensor, heads: int) -> torch.Tensor:

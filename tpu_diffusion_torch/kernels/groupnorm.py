@@ -6,7 +6,8 @@ group statistics, on NHWC x. A CPU tensor goes to `reference_groupnorm_silu`;
 a CUDA tensor goes to `csrc/groupnorm_silu.cu` or raises. `gn_route` picks
 the kernel: "cluster" (one launch; a cluster of blocks holds each image in
 shared memory) where the image fits, else "two_pass" (statistics, then
-apply).
+apply). The kernel has no backward, as the JAX one has none: on the card an
+input that needs a gradient raises (`kernels.refuse_grad`).
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import functools
 import torch
 import torch.nn.functional as F
 
+from tpu_diffusion_torch.kernels import refuse_grad
 from tpu_diffusion_torch.kernels.build import load_library
 
 # Kernel launches made by `fused_groupnorm_silu` since the count was last
@@ -165,6 +167,7 @@ def _sms(device: torch.device) -> int:
 
 def _launch(x, gamma, beta, scale, shift, num_groups, eps, act):
     global launches
+    refuse_grad("fused_groupnorm_silu", x, gamma, beta, scale, shift)
     if not x.is_cuda:
         raise ValueError(f"x must be a CUDA tensor, got {x.device}")
     if x.dtype not in (torch.bfloat16, torch.float32):

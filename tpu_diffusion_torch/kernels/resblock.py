@@ -1,7 +1,8 @@
 """A whole ResBlock forward: the hand-written CUDA kernels and a plain version.
 
 Counterpart of `tpu_diffusion/kernels/resblock.py` (`fused_resblock`,
-`resblock_reference`), for inference only:
+`resblock_reference`), for inference only (on the card an input that needs
+a gradient raises, `kernels.refuse_grad`):
 
     h   = silu(GN1(x))
     h   = conv3x3(h, w1) + b1
@@ -26,6 +27,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from tpu_diffusion_torch.kernels import refuse_grad
 from tpu_diffusion_torch.kernels.build import load_library
 
 # Calls of `fused_resblock` that launched its kernels since the count was
@@ -188,6 +190,8 @@ def fused_resblock(x: torch.Tensor, gn1_scale: torch.Tensor,
 def _launch(x, gn1_scale, gn1_bias, w1, b1, gn2_scale, gn2_bias, emb_scale,
             emb_shift, w2, b2, wskip, bskip, *, eps, groups):
     global launches
+    refuse_grad("fused_resblock", x, gn1_scale, gn1_bias, w1, b1, gn2_scale,
+                gn2_bias, emb_scale, emb_shift, w2, b2, wskip, bskip)
     if not x.is_cuda:
         raise ValueError(f"x must be a CUDA tensor, got {x.device}")
     if x.dtype not in (torch.bfloat16, torch.float32):

@@ -392,6 +392,18 @@ def get_matcher(name: str, sigma: float = 0.0, **kw) -> ConditionalFlowMatcher:
     return MATCHERS[name](sigma=sigma, **kw)
 
 
+def host_read(matcher: ConditionalFlowMatcher) -> Optional[str]:
+    """Why a training step over `matcher` cannot be captured as a CUDA
+    graph (`train/graph.py`): the reason where its coupling reads the host
+    inside the step, else None. The loss factories set it as the loss's
+    `eager_reason`, which keeps the Trainer on the eager loop."""
+    if (isinstance(matcher, ExactOptimalTransportConditionalFlowMatcher)
+            and matcher.method == "exact"):
+        return ("exact OT inside the step: the assignment is solved on the "
+                "host (losses/cfm.py:exact_ot_permutation)")
+    return None
+
+
 def cfm_loss(vt: Tensor, ut: Tensor) -> Tensor:
     """The CFM regression objective mean((v - u)^2)
     (cifar10/train_cifar10.py:148-149)."""

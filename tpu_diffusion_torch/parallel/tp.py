@@ -187,7 +187,7 @@ def shard_state_(mesh: Mesh, state, shardings=None,
     group, index = mesh.group(MODEL_AXIS), mesh.index(MODEL_AXIS)
     size = mesh.shape[MODEL_AXIS]
     layout = shardings["params"]
-    adam = state.optimizer.adam.state
+    adam = state.optimizer.state
     if any(hasattr(p, SHARD_ATTR) for p in state.model.parameters()):
         raise ValueError("the state is sharded already")
     n = 0
@@ -218,7 +218,7 @@ def shard_state_(mesh: Mesh, state, shardings=None,
 def opt_state_tree(state) -> Dict[str, Dict[str, torch.Tensor]]:
     """The Adam moments by parameter name ({name: {"exp_avg", "exp_avg_sq"}},
     empty before the first update), each carrying its parameter's layout."""
-    adam = state.optimizer.adam.state
+    adam = state.optimizer.state
     out = {}
     for name, p in state.model.named_parameters():
         moments = {k: v for k, v in adam.get(p, {}).items()

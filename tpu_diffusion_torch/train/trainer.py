@@ -2,8 +2,11 @@
 
 Counterpart of `tpu_diffusion/train/trainer.py`: `make_optimizer` (Adam with
 the JAX package's three learning-rate schedules and global-norm clipping),
-`make_train_step` (loss, gradients, update, EMA), the train state, and
-`Trainer.fit`, whose host loop feeds batches and fires periodic callbacks.
+`make_train_step` (loss, gradients, update, EMA, as a host fill and a
+device body), the train state, and `Trainer.fit`, whose host loop feeds
+batches and fires periodic callbacks; on the card each step replays the
+body captured as a CUDA graph (`train/graph.py`), the counterpart of the
+JAX package's jitted step.
 The model's parameters are fp32 whatever the forward's type
 (`models/nn.py:CastConv2d`), so Adam and the EMA run on fp32 values as in
 the JAX package. The state is updated in place. `Trainer.fit_scanned`
@@ -30,12 +33,14 @@ import torch
 import torch.distributed as dist
 from torch import nn
 
-from tpu_diffusion_torch.core.ema import EMAState, ema_update
+from tpu_diffusion_torch.core.ema import EMAState, ema_blend, ema_fill
 from tpu_diffusion_torch.parallel.mesh import (DATA_AXIS, MODEL_AXIS, Mesh,
                                                make_mesh, replicate,
                                                shard_batch)
 from tpu_diffusion_torch.parallel.tp import SHARD_ATTR, shard_state_
+from tpu_diffusion_torch.sampling.graph import WARMUP
 from tpu_diffusion_torch.train.actions import PeriodicAction
+from tpu_diffusion_torch.train.graph import StepGraphs
 
 # loss(model, generator, batch) -> scalar
 LossFn = Callable[[nn.Module, Optional[torch.Generator], torch.Tensor],
@@ -99,7 +104,19 @@ class Optimizer:
     """Adam (b1 0.9, b2 0.999, eps 1e-8) behind a schedule, after clipping
     the gradients to a global norm: scaled by clip / max(norm, clip), the
     JAX package's rule (`torch.nn.utils.clip_grad_norm_` divides by
-    norm + 1e-6 instead)."""
+    norm + 1e-6 instead).
+
+    An update is split in two, so that a captured training step
+    (`train/graph.py`) replays it: `fill` writes the update's scalars (the
+    learning rate from the schedule and the two bias corrections, from the
+    host count) into 0-d fp32 device buffers and advances the count, and
+    `update` is the device part, optax's `scale_by_adam` over
+    `torch._foreach_*` ops that read those buffers (`torch.optim.Adam`'s
+    capturable mode takes no CPU tensors, and the CPU runs the same body).
+    The moments (`state[p]["exp_avg"]`, `["exp_avg_sq"]`) are made at the
+    first update."""
+
+    B1, B2, EPS = 0.9, 0.999, 1e-8
 
     def __init__(self, params, schedule: Callable[[int], float],
                  grad_clip: Optional[float] = 1.0,
@@ -108,18 +125,29 @@ class Optimizer:
         self.schedule = schedule
         self.grad_clip = grad_clip
         self.mesh = mesh
-        self.adam = torch.optim.Adam(self.params, lr=schedule(0),
-                                     betas=(0.9, 0.999), eps=1e-8)
+        self.state: Dict[torch.Tensor, Dict[str, torch.Tensor]] = {}
+        device = self.params[0].device
+        self.scalars = {k: torch.ones((), dtype=torch.float32, device=device)
+                        for k in ("lr", "bc1", "bc2")}
         self.count = 0  # updates made so far
 
     def zero_grad(self) -> None:
-        self.adam.zero_grad(set_to_none=True)
+        for p in self.params:
+            p.grad = None
+
+    def fill(self) -> None:
+        """Write the next update's scalars and advance the count."""
+        self.count += 1
+        self.scalars["lr"].fill_(self.schedule(self.count - 1))
+        self.scalars["bc1"].fill_(1.0 - self.B1 ** self.count)
+        self.scalars["bc2"].fill_(1.0 - self.B2 ** self.count)
 
     @torch.no_grad()
-    def step(self) -> torch.Tensor:
-        """One update from the parameters' `.grad`; returns the gradients'
-        global norm before clipping. With a mesh of ranks, the gradients
-        are first averaged over its "data" axis."""
+    def update(self) -> torch.Tensor:
+        """The update from the parameters' `.grad` with the scalars of the
+        last `fill`; returns the gradients' global norm before clipping.
+        With a mesh of ranks, the gradients are first averaged over its
+        "data" axis."""
         params = [p for p in self.params if p.grad is not None]
         grads = [p.grad for p in params]
         if self.mesh is not None and self.mesh.device_mesh is not None:
@@ -130,10 +158,23 @@ class Optimizer:
             torch._foreach_mul_(
                 grads, self.grad_clip / torch.clamp(gnorm,
                                                     min=self.grad_clip))
-        for group in self.adam.param_groups:
-            group["lr"] = self.schedule(self.count)
-        self.adam.step()
-        self.count += 1
+        for p in params:
+            if p not in self.state:
+                self.state[p] = {"exp_avg": torch.zeros_like(p),
+                                 "exp_avg_sq": torch.zeros_like(p)}
+        mu = [self.state[p]["exp_avg"] for p in params]
+        nu = [self.state[p]["exp_avg_sq"] for p in params]
+        torch._foreach_mul_(mu, self.B1)
+        torch._foreach_add_(mu, grads, alpha=1.0 - self.B1)
+        torch._foreach_mul_(nu, self.B2)
+        torch._foreach_addcmul_(nu, grads, grads, value=1.0 - self.B2)
+        mu_hat = torch._foreach_div(mu, self.scalars["bc1"])
+        denom = torch._foreach_div(nu, self.scalars["bc2"])
+        torch._foreach_sqrt_(denom)
+        torch._foreach_add_(denom, self.EPS)
+        torch._foreach_div_(mu_hat, denom)
+        torch._foreach_mul_(mu_hat, self.scalars["lr"])
+        torch._foreach_sub_(params, mu_hat)
         return gnorm
 
 
@@ -170,26 +211,56 @@ class TrainState:
         return dict(self.model.named_parameters())
 
 
-def make_train_step(loss_fn: LossFn, ema_decay: float = 0.9999,
-                    ema_update_every: int = 1, ema_update_after: int = 0,
-                    ema_warmup: bool = True) -> Callable:
+class TrainStep:
     """train_step(state, batch) -> (state, {"loss", "grad_norm"}), the
     metrics as tensors on the device; `grad_norm` is taken before
-    clipping."""
+    clipping.
 
-    def train_step(state: TrainState, batch: torch.Tensor):
-        state.model.train()
-        state.optimizer.zero_grad()
-        loss = loss_fn(state.model, state.generator, batch)
-        loss.backward()
-        gnorm = state.optimizer.step()
-        ema_update(state.ema, state.params, ema_decay,
-                   update_every=ema_update_every,
-                   update_after=ema_update_after, warmup=ema_warmup)
+    A step is `fill(state)`, the host part (the step, optimizer and EMA
+    counters, and the per-step scalars written into the optimizer's and
+    the EMA's device buffers), then `body(state, batch)`, the device part
+    with no host value that changes from step to step: the loss, its
+    backward, clipping, the Adam update and the EMA blend, returning
+    [loss, grad_norm] as one fp32 tensor. The eager step sets the gradients
+    to None between the two; a captured body (`train/graph.py`) writes them
+    in place. `eager_reason` is the loss function's, where it declares one
+    (a loss that reads the host inside the step cannot be captured)."""
+
+    def __init__(self, loss_fn: LossFn, ema_decay: float = 0.9999,
+                 ema_update_every: int = 1, ema_update_after: int = 0,
+                 ema_warmup: bool = True):
+        self.loss_fn = loss_fn
+        self.ema = dict(decay=ema_decay, update_every=ema_update_every,
+                        update_after=ema_update_after, warmup=ema_warmup)
+        self.eager_reason: Optional[str] = getattr(loss_fn, "eager_reason",
+                                                   None)
+
+    def fill(self, state: TrainState) -> None:
+        state.optimizer.fill()
+        ema_fill(state.ema, **self.ema)
         state.step += 1
-        return state, {"loss": loss.detach(), "grad_norm": gnorm}
 
-    return train_step
+    def body(self, state: TrainState, batch) -> torch.Tensor:
+        state.model.train()
+        loss = self.loss_fn(state.model, state.generator, batch)
+        loss.backward()
+        gnorm = state.optimizer.update()
+        ema_blend(state.ema, state.params)
+        return torch.stack([loss.detach().float(), gnorm.float()])
+
+    def __call__(self, state: TrainState, batch):
+        self.fill(state)
+        state.optimizer.zero_grad()
+        out = self.body(state, batch)
+        return state, {"loss": out[0], "grad_norm": out[1]}
+
+
+def make_train_step(loss_fn: LossFn, ema_decay: float = 0.9999,
+                    ema_update_every: int = 1, ema_update_after: int = 0,
+                    ema_warmup: bool = True) -> TrainStep:
+    """The train step of `loss_fn` (`TrainStep`)."""
+    return TrainStep(loss_fn, ema_decay, ema_update_every, ema_update_after,
+                     ema_warmup)
 
 
 class Trainer:
@@ -201,6 +272,21 @@ class Trainer:
     dicts of them (the {"x", "y"} batches of
     `cli/train_conditional_mnist.py`); each rank keeps its "data" slice and
     moves it to the model's device.
+
+    Route: with `graphed` (the default) and a step of `make_train_step`,
+    every step's body goes through `train/graph.py:StepGraphs`: on the card
+    a captured CUDA graph replayed per step after the run's first
+    `WARMUP` steps, the counterpart of the JAX package's jitted step; on
+    the CPU the same body as a plain call. On either route the batch is
+    first copied into static buffers. `eager_reason` says why a Trainer
+    takes the eager loop instead (`graphed` is then False): asked to, a
+    step that is not a `TrainStep`, a mesh with a process group (the
+    all-reduces and tensor-parallel gathers stay outside a capture until a
+    multi-card cell), a loss that declares a host read inside the step
+    (`losses/cfm.py:host_read`), or a model that recomputes under
+    `torch.utils.checkpoint` (`use_checkpoint`, `remat`: it captures, but
+    on the card the replayed fp32 step differed from the eager one, with
+    and without dropout).
 
     `mesh` (default: the optimizer's, else `make_mesh()`, every rank on
     "data"): with a process group, the state is broadcast from the first
@@ -215,7 +301,7 @@ class Trainer:
     def __init__(self, train_step: Callable, state: TrainState,
                  batches: Iterator, mesh: Optional[Mesh] = None,
                  callbacks: Optional[List[Callable]] = None,
-                 tensor_parallel: bool = False):
+                 tensor_parallel: bool = False, graphed: bool = True):
         if mesh is None:
             mesh = state.optimizer.mesh or make_mesh()
         self.mesh = mesh
@@ -243,6 +329,43 @@ class Trainer:
                      + index * 0x9E3779B97F4A7C15) % 2**64)
         if tensor_parallel and self.mesh.shape[MODEL_AXIS] > 1:
             self.n_sharded = shard_state_(self.mesh, state)
+        # fit_scanned's batch generator, seeded before every step
+        self._batch_gen = torch.Generator(device=self._device)
+        self.eager_reason = self._eager_reason(graphed)
+        self.graphed = self.eager_reason is None
+        self.graphs = StepGraphs(
+            state.optimizer.zero_grad, [state.generator, self._batch_gen],
+            list(state.model.parameters())
+            + list(state.ema.params.values())) if self.graphed else None
+        self._inputs: Dict[object, object] = {}
+
+    def _eager_reason(self, graphed: bool) -> Optional[str]:
+        if not graphed:
+            return "asked for the eager loop (graphed=False)"
+        if not isinstance(self._step_fn, TrainStep):
+            return "the step is not a make_train_step step"
+        if self.mesh.device_mesh is not None:
+            return ("a mesh with a process group: the gradient and loss "
+                    "all-reduces and the tensor-parallel gathers run "
+                    "outside a capture")
+        if self._step_fn.eager_reason:
+            return self._step_fn.eager_reason
+        if any(getattr(m, "use_checkpoint", False) or getattr(m, "remat",
+                                                              False)
+               for m in self.state.model.modules()):
+            return ("torch.utils.checkpoint (use_checkpoint, remat): its "
+                    "recomputation captures, but the replayed step differs "
+                    "from the eager one")
+        return None
+
+    def route(self) -> str:
+        """One line for the CLIs: the route the steps take, and why."""
+        if not self.graphed:
+            return f"eager steps ({self.eager_reason})"
+        if self._device.type == "cuda":
+            return (f"graphed steps (one CUDA graph replayed per step after "
+                    f"{WARMUP} eager warm-up steps)")
+        return "graphed steps' body as a plain call (CPU)"
 
     def _global_metrics(self, metrics: Dict) -> Dict:
         """The loss averaged over the "data" ranks."""
@@ -252,23 +375,50 @@ class Trainer:
         dist.all_reduce(loss, group=self.mesh.group(DATA_AXIS))
         return {**metrics, "loss": loss / self.mesh.shape[DATA_AXIS]}
 
+    def _static_inputs(self, batch):
+        """The static buffers of the batch's structure, shapes and types,
+        with the batch copied in, and their key."""
+        if isinstance(batch, dict):
+            names, parts = list(batch), list(batch.values())
+        else:
+            names = None
+            parts = list(batch) if isinstance(batch, tuple) else [batch]
+        parts = [torch.as_tensor(b) for b in parts]
+        key = (type(batch).__name__, tuple(names or ()),
+               tuple((tuple(b.shape), b.dtype) for b in parts))
+        bufs = self._inputs.get(key)
+        if bufs is None:
+            bufs = [b.to(self._device, copy=True) for b in parts]
+            self._inputs[key] = bufs
+        else:
+            for buf, b in zip(bufs, parts):
+                buf.copy_(b)
+        if names is not None:
+            return key, dict(zip(names, bufs))
+        return key, (tuple(bufs) if isinstance(batch, tuple) else bufs[0])
+
+    def _graphed_step(self, key, inputs_of: Callable) -> torch.Tensor:
+        """fill, then the body through the step graphs: [loss, grad_norm],
+        the graph's static output (copy it before the next step)."""
+        self._step_fn.fill(self.state)
+        return self.graphs.run(key, lambda: self._step_fn.body(
+            self.state, inputs_of()))
+
     def fit(self, num_steps: int,
             metrics_hook: Optional[Callable[[int, Dict], None]] = None
             ) -> TrainState:
         t0 = time.monotonic()
         step0 = self.state.step
         for local_step in range(num_steps):
-            batch = shard_batch(self.mesh, next(self._batches))
-            if isinstance(batch, tuple):
-                batch = tuple(torch.as_tensor(b).to(self._device)
-                              for b in batch)
-            elif isinstance(batch, dict):
-                batch = {k: torch.as_tensor(b).to(self._device)
-                         for k, b in batch.items()}
+            key, inputs = self._static_inputs(
+                shard_batch(self.mesh, next(self._batches)))
+            if self.graphed:
+                out = self._graphed_step(("fit", key), lambda: inputs)
+                out = out.clone()
+                metrics = {"loss": out[0], "grad_norm": out[1]}
             else:
-                batch = torch.as_tensor(batch).to(self._device)
-            self.state, metrics = self._step_fn(self.state, batch)
-            metrics = self._global_metrics(metrics)
+                self.state, metrics = self._step_fn(self.state, inputs)
+                metrics = self._global_metrics(metrics)
             step = step0 + local_step + 1
             # The metrics come to the host (a device synchronisation) only
             # on steps where some consumer runs. Each callback's decision is
@@ -305,11 +455,12 @@ class Trainer:
         s)`, so the stream depends on neither `chunk` nor where a run
         resumed; with a mesh, `sample_batch` returns this rank's slice of
         the global batch (`data/device_cache.py` samplers built with the
-        mesh draw the global batch and keep the slice). Inside a chunk
-        nothing is read on the host: the losses and gradient norms gather
-        into device tensors, read once at its end
-        (which also bounds how far the host runs ahead). Callbacks and the
-        hook fire once per chunk with `loss`, `grad_norm` (the last
+        mesh draw the global batch and keep the slice). On the graphed
+        route the sampler runs inside the step's body (the graph replays
+        its draws). Inside a chunk nothing is read on the host: each step's
+        loss and gradient norm go into a device trace, read once at its
+        end (which also bounds how far the host runs ahead). Callbacks and
+        the hook fire once per chunk with `loss`, `grad_norm` (the last
         step's), `loss_mean`, `steps_per_sec` and the whole
         `loss_trace`/`grad_norm_trace`; a `PeriodicAction`, which must be
         called every step, raises.
@@ -324,20 +475,25 @@ class Trainer:
         step0 = self.state.step
         t0 = time.monotonic()
         done = 0
+        gen = self._batch_gen
         while done < num_steps:
             k = min(chunk, num_steps - done)
-            losses, gnorms = [], []
+            trace = torch.empty((k, 2), dtype=torch.float32,
+                                device=self._device)
             for i in range(k):
-                gen = torch.Generator(device=self._device).manual_seed(
-                    step_seed(base_seed, step0 + done + i))
-                self.state, metrics = self._step_fn(self.state,
-                                                    sample_batch(gen))
-                metrics = self._global_metrics(metrics)
-                losses.append(metrics["loss"])
-                gnorms.append(metrics["grad_norm"])
+                gen.manual_seed(step_seed(base_seed, step0 + done + i))
+                if self.graphed:
+                    out = self._graphed_step(("scanned", sample_batch),
+                                             lambda: sample_batch(gen))
+                else:
+                    self.state, metrics = self._step_fn(self.state,
+                                                        sample_batch(gen))
+                    metrics = self._global_metrics(metrics)
+                    out = torch.stack([metrics["loss"].float(),
+                                       metrics["grad_norm"].float()])
+                trace[i].copy_(out)
             # one host read per chunk
-            trace = torch.stack([torch.stack(losses).float(),
-                                 torch.stack(gnorms).float()]).cpu().numpy()
+            trace = trace.T.cpu().numpy()
             losses, gnorms = trace[0], trace[1]
             done += k
             step = step0 + done
