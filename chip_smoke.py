@@ -225,7 +225,8 @@ eager loop, through the training CLIs' own build functions at their
 widths:
   train_graphs  per configuration, eager and graphed runs from one seed in
            turns: `cli.main` flowers,inpainting,amortized (batch 32, bf16,
-           the flash kernels at [128,1024,64]), the SR256 CFM CLI (batch
+           the flash kernels at [128,1024,64]; also with `use_checkpoint`
+           at dropout TG_DROPOUT), the SR256 CFM CLI (batch
            8, [32,1024,64]), `train_cifar10` OT-CFM with exact host pairs
            (batch 128), `train_conditional_mnist` cfm and otcfm (sinkhorn
            inside the graph), each eager, graphed, eager, graphed, eager
@@ -235,9 +236,13 @@ widths:
            config at reduced depth (num_res_blocks 1, batch TG_FP32_BATCH)
            with its amortized chain sampled from the live model before and
            after the steps (captured again, equal after graphed and eager
-           steps), and the protein config at batch 32 through `fit` and
-           through `fit_scanned` eager at chunk 10 and graphed at chunks
-           10 and 5; the in-step exact OT loss declared eager; C6 (the
+           steps), the same with `use_checkpoint` at dropout 0 and
+           TG_DROPOUT (also against the plain graphed run), and the
+           protein config at batch 32 through `fit` and through
+           `fit_scanned` eager at chunk 10 and graphed at chunks 10 and 5,
+           and with `--remat` at drop TG_DROPOUT (also against the plain
+           graphed run at that drop); the in-step exact OT loss declared
+           eager; C6 (the
            fused-QKV attention's gradient against the plain version's in
            bf16 and fp32, and the CIFAR CFM UNet with attention_impl
            "fused" trained graphed at batch 64, its qkv weights moved);
@@ -259,6 +264,15 @@ builds the kernels and runs only the kernels' cases of the `kernel`,
 them (`ATTN_PATH_SHAPES`, `GN_PATH_SHAPES`, `RES_PATH_SHAPES`,
 `FLASH_PATH_SHAPES`, checked against the models' own calls in the full run;
 a quick check while working on a kernel; it does not print the ok line).
+
+    python3 chip_smoke.py --data-parallel
+
+needs DP_RANKS cards: builds the kernels, then runs the 64px fp32 config at
+reduced depth over a (data DP_RANKS x model 1) mesh of one NCCL world, one
+rank per card, eager then graphed (the gradients' and loss's all-reduce
+captured in each rank's graph): phase `data_parallel`, one line per rank,
+bitwise against the eager run, and every rank holding the same parameters
+and losses. It does not print the ok line.
 """
 
 import copy
@@ -1604,12 +1618,13 @@ CFM_TRAIN_STEPS = 20
 
 class Trace(list):
     """(seconds, loss, flash forward launches, flash backward launches) per
-    step, and `replays`: the (start, end) CUDA events of every graph
-    replay of the steps."""
+    step, `replays`: the (start, end) CUDA events of every graph replay of
+    the steps, and `route`: the Trainer's route line."""
 
     def __init__(self):
         super().__init__()
         self.replays = []
+        self.route = None
 
 
 class TimedTrainer:
@@ -1631,6 +1646,7 @@ class TimedTrainer:
                 super().__init__(*a, **kw)
                 r0.clear()
                 r0.update(ran())  # the phase may have reset the counters
+                trace.route = self.route()
                 if self.graphed:
                     self.graphs.events = trace.replays
 
@@ -2057,9 +2073,12 @@ def parallel_phase(torch, card_info, dev, out):
     PAR_STEPS steps, Euler-20 eval) with `--sequence_parallel --model_axis
     1` in a one-rank NCCL world (COORDINATOR_ADDRESS / NUM_PROCESSES /
     PROCESS_ID, `initialize_distributed`), then with no process group in
-    the same process, four runs in turns (mesh, plain, plain, mesh): ms
-    per step, losses and `sp_decisions` of each, and the meshed run's
-    flash launches. (b) The ring's arithmetic on the
+    the same process, four runs in turns (mesh, plain, plain, mesh), all
+    graphed (the meshed step's all-reduce inside its graph): ms per step,
+    the idle share, the route line, losses and `sp_decisions` of each, and
+    the meshed run's flash launches; in the first meshed turn's world, the
+    64px fp32 config at reduced depth over the one-rank mesh, graphed
+    against eager, bitwise. (b) The ring's arithmetic on the
     card: `simulated_ring_attention` over RING_SHARDS token shards at
     [32, 1024, 64] bf16 against the flash kernels and the fp32 plain
     version, values and gradients, and its time (a simulated one-card
@@ -2095,25 +2114,15 @@ def parallel_phase(torch, card_info, dev, out):
             attention.flash_fwd_launches = 0
             attention.flash_bwd_launches = 0
             r0 = ran()
-            real = cc.Trainer
-            if name == "plain":
-                # eager steps, as the meshed run's (a process group keeps
-                # them eager): the two differ by the group alone
-                class Eager(real):
-                    def __init__(self, *a, **kw):
-                        super().__init__(*a, graphed=False, **kw)
-                cc.Trainer = Eager
-            try:
-                with TimedTrainer(cc) as trace:
-                    torch.cuda.synchronize()
-                    t0 = time.perf_counter()
-                    res = cc.main(args + extra + [
-                        "--output_dir",
-                        os.path.join(out, f"{name}{len(runs)}")])
-                    torch.cuda.synchronize()
-            finally:
-                cc.Trainer = real
+            with TimedTrainer(cc) as trace:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res = cc.main(args + extra + [
+                    "--output_dir", os.path.join(out, f"{name}{len(runs)}")])
+                torch.cuda.synchronize()
             first_ms, later = step_times(t0, trace)
+            # the replays' device ms (none on a CPU rehearsal)
+            device_ms = sorted(replay_ms(torch, trace)) or [math.nan]
             per_step = [(f1 - f0, b1 - b0) for (_, _, f0, b0), (_, _, f1, b1)
                         in zip([(0, 0, 0, 0)] + trace, trace)]
             runs.append({
@@ -2122,6 +2131,10 @@ def parallel_phase(torch, card_info, dev, out):
                 "first_step_ms": first_ms,
                 "ms_per_step_median": later[len(later) // 2],
                 "ms_per_step_min": later[0], "ms_per_step_max": later[-1],
+                "route": trace.route,
+                "replay_device_ms_median": device_ms[len(device_ms) // 2],
+                "idle_share": 1 - device_ms[len(device_ms) // 2]
+                / later[len(later) // 2],
                 "seconds": time.perf_counter() - t0,
                 "sp_decisions": sorted({(d["reason"], d["tokens"],
                                          d["axis_size"])
@@ -2135,6 +2148,17 @@ def parallel_phase(torch, card_info, dev, out):
                                        - r0["flash_attention_fwd"]),
                 "eval": res["results"]})
             del res
+            if name == "mesh" and len(runs) == 1:
+                # one fp32 meshed step graphed against eager, in this world
+                make, _ = tg_cli_main(torch, dev, TG_FP32_OVERRIDES,
+                                      meshed=True)
+                tg_bitwise(torch, card_info, "mesh_64px_fp32", make,
+                           TG_FP32_BATCH, TG_FP32_STEPS, phase="parallel",
+                           note="the 64px fp32 config at reduced depth over "
+                                "the one-rank NCCL world's mesh (the "
+                                "gradients and the loss all-reduced over "
+                                "'data' inside the graph): graphed against "
+                                "eager")
             if dist.is_initialized():
                 dist.destroy_process_group()
             torch.cuda.empty_cache()
@@ -2164,16 +2188,21 @@ def parallel_phase(torch, card_info, dev, out):
          ms_per_step_median_mesh=ms["mesh"],
          ms_per_step_median_plain=ms["plain"],
          step_ms_ratio_mesh_over_plain=sum(ms["mesh"]) / sum(ms["plain"]),
+         idle_share_mesh=[r["idle_share"] for r in runs
+                          if r["run"] == "mesh"],
+         idle_share_plain=[r["idle_share"] for r in runs
+                           if r["run"] == "plain"],
          note="the SR256 CFM CLI (128 channels, (1,1,2,2,4,4), attention "
               "at 32/16/8, bf16 forward, fp32 parameters) from one seed, "
               "four runs in turns (mesh, plain, plain, mesh): mesh: a "
               "one-rank NCCL world, --sequence_parallel --model_axis 1 "
               "(the state broadcast from rank 0, the gradients and the "
-              "loss all-reduced over 'data', the ring declined: one rank "
-              "on 'model'; eager steps: a process group keeps them so); "
+              "loss all-reduced over 'data' in one flat buffer inside the "
+              "step's CUDA graph, the ring declined: one rank on 'model'); "
               "plain: no process group (the meshed run's variables "
-              "removed from the environment), eager steps; ms per step: host "
-              "clock between per-step metric reads over steps 2-10; the "
+              "removed from the environment); both graphed; ms per step: "
+              "host clock between per-step metric reads over steps 2-10; "
+              "idle: 1 - the replays' median device ms over it; the "
               "first step of every run sees the same weights and batch, "
               "so its loss must agree bitwise; later steps inherit the "
               "bf16 flash backward's atomic dq sums, whose last bits vary "
@@ -2194,6 +2223,10 @@ def parallel_phase(torch, card_info, dev, out):
           and all((run["n_sp_decisions"] > 0) == (run["run"] == "mesh")
                   for run in runs),
           f"parallel: sp decisions {[r['sp_decisions'] for r in runs]}")
+    check(all(r["route"].startswith("graphed steps")
+              and ("all-reduce over 1 'data'" in r["route"])
+              == (r["run"] == "mesh") for r in runs),
+          f"parallel: routes {[(r['run'], r['route']) for r in runs]}")
     check(all(d == (5, 5) for d in mesh["flash_launches_per_step"])
           and mesh["flash_fwd_executed"] - 5 * PAR_STEPS
           == 5 * SR_EVAL_STEPS,
@@ -2276,6 +2309,73 @@ def parallel_phase(torch, card_info, dev, out):
     del got, kern, want
     torch.cuda.empty_cache()
     return launches
+
+
+DP_RANKS = 4  # the --data-parallel world: one rank per card
+
+
+def dp_rank():
+    """One rank of the `--data-parallel` world (`parallel/dryrun.py:
+    run_world` spawns it): the 64px fp32 config at reduced depth over the
+    world's (data DP_RANKS x model 1) mesh, eager then graphed, under
+    cuDNN's deterministic algorithms. Returns {"eager", "graphed"}: each
+    run's record and final state, on the host."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", torch.cuda.current_device())
+    make, _ = tg_cli_main(torch, dev, TG_FP32_OVERRIDES, meshed=True)
+    runs = {}
+    for graphed in (False, True):
+        rec, final, _ = tg_run(torch, make, graphed, TG_FP32_STEPS, True)
+        runs["graphed" if graphed else "eager"] = (
+            rec, {k: v.cpu() for k, v in final.items()})
+    return runs
+
+
+def data_parallel_phase(torch, card_info):
+    """`--data-parallel`: `dp_rank` on DP_RANKS spawned ranks of one NCCL
+    world, one card each. Per rank, the graphed run against the eager one,
+    bitwise (loss and gradient-norm traces, parameters, Adam moments, EMA,
+    the rank's generator), its route and replays; across ranks, the same
+    parameters, EMA and losses (each rank draws its own noise for its
+    slice, so the generators differ)."""
+    from tpu_diffusion_torch.parallel.dryrun import run_world
+    from tpu_diffusion_torch.sampling.graph import WARMUP
+    check(torch.cuda.device_count() >= DP_RANKS,
+          f"--data-parallel needs {DP_RANKS} cards, has "
+          f"{torch.cuda.device_count()}")
+    t0 = time.perf_counter()
+    ranks = run_world("chip_smoke:dp_rank", DP_RANKS, "cuda")
+    for r, runs in enumerate(ranks):
+        (e, fe), (g, fg) = runs["eager"], runs["graphed"]
+        equal = tg_equal(fe, fg)
+        traces = (e["losses"] == g["losses"]
+                  and e["grad_norms"] == g["grad_norms"])
+        emit(card_info, phase="data_parallel", rank=r, ranks=DP_RANKS,
+             config="mesh_64px_fp32", batch=TG_FP32_BATCH,
+             steps=TG_FP32_STEPS, deterministic=True, fit=tg_summary(g, e),
+             replays=g.get("replays"), bitwise_equal=equal,
+             traces_equal=traces,
+             losses={"eager": e["losses"], "graphed": g["losses"]},
+             note=f"the 64px fp32 config at reduced depth over a (data "
+                  f"{DP_RANKS} x model 1) mesh, {TG_FP32_BATCH // DP_RANKS} "
+                  f"images a rank: graphed (the NCCL all-reduce of the "
+                  f"gradients and the loss inside the graph) against eager")
+        check(g["graphed"] and not e["graphed"] and traces
+              and all(equal.values())
+              and g["replays"] == [TG_FP32_STEPS - WARMUP],
+              f"data_parallel rank {r}: graphed differs from eager: traces "
+              f"{traces}, state {equal}, replays {g.get('replays')}, "
+              f"routes {g['route']} / {e['route']}")
+    first = ranks[0]["graphed"]
+    agree = [bool(torch.equal(runs["graphed"][1][k], first[1][k]))
+             and runs["graphed"][0]["losses"] == first[0]["losses"]
+             for runs in ranks[1:] for k in ("params", "ema")]
+    emit(card_info, phase="data_parallel", check="ranks_agree",
+         ranks=DP_RANKS, agree=agree, seconds=time.perf_counter() - t0)
+    check(all(agree), f"data_parallel: the ranks' parameters, EMA or "
+                      f"losses differ: {agree}")
 
 
 def cfm_cond_64_phase(torch, card_info, out):
@@ -3501,6 +3601,50 @@ TG_FUSED_BATCH = 64     # the fused-QKV training step: qkv [64,256,768]
 TG_FUSED_STEPS = 5
 
 
+TG_FP32_OVERRIDES = ["network.dtype=float32", "network.num_res_blocks=1",
+                     f"training.batch_size={TG_FP32_BATCH}",
+                     f"diffusion.num_steps={TG_FP32_DIFFUSION}"]
+TG_REMAT_STEPS = 6      # steps of the rematerialised runs, cut from 10
+TG_REMAT_TOL = 1e-6     # rematerialised against plain, of the largest entry
+TG_DROPOUT = 0.1        # the rematerialised runs' dropout
+
+
+def tg_cli_main(torch, dev, overrides, samplers=None, use_checkpoint=False,
+                meshed=False):
+    """(make, config) for cli.main's flowers,inpainting,amortized config
+    with `overrides`: `make(graphed)` builds its Trainer from one seed as
+    `cli.main` does (`cli.build`, `init_state`, `make_loss`), the
+    ResBlocks rematerialised with `use_checkpoint`, over `make_mesh()` of
+    the caller's process group with `meshed`; then calls
+    `samplers(config, parts, trainer)` where given."""
+    from tpu_diffusion_torch.cli import main as cli
+    from tpu_diffusion_torch.data.registry import (get_dataset,
+                                                   infinite_batches)
+    from tpu_diffusion_torch.parallel.mesh import make_mesh
+    from tpu_diffusion_torch.train.trainer import Trainer, make_train_step
+    from tpu_diffusion_torch.utils import config as config_mod
+    flowers = get_dataset("flowers")("data", train=True)
+    config = config_mod.get_config("flowers,inpainting,amortized")
+    config_mod.apply_overrides(config, overrides + [f"training.seed={SEED}"])
+
+    def make(graphed):
+        torch.manual_seed(SEED)  # the model's own initialisation
+        parts = cli.build(config, dev)
+        parts["model"].use_checkpoint = use_checkpoint
+        mesh = make_mesh() if meshed else None
+        state, _ = cli.init_state(config, parts, mesh)
+        step = make_train_step(
+            cli.make_loss(parts), ema_decay=config.training.ema_decay,
+            ema_update_every=config.training.ema_update_every)
+        trainer = Trainer(step, state, infinite_batches(
+            flowers, config.training.batch_size, seed=SEED), mesh=mesh,
+            graphed=graphed)
+        if samplers is not None:
+            samplers(config, parts, trainer)
+        return trainer
+    return make, config
+
+
 def tg_flat(torch, tensors):
     return torch.cat([t.detach().reshape(-1).float() for t in tensors])
 
@@ -3570,7 +3714,8 @@ def tg_run(torch, make, graphed, steps, deterministic=False, scanned=None,
                  "exp_avg": tg_flat(torch, [st.optimizer.state[p]["exp_avg"]
                                             for p in params]),
                  "exp_avg_sq": tg_flat(torch, [
-                     st.optimizer.state[p]["exp_avg_sq"] for p in params])}
+                     st.optimizer.state[p]["exp_avg_sq"] for p in params]),
+                 "generator": st.generator.get_state()}
         extra = after(trainer) if after is not None else None
         del trainer, st, params
     finally:
@@ -3676,11 +3821,13 @@ def tg_turns(torch, card_info, name, make, batch, steps=TG_STEPS, **fields):
 
 
 def tg_bitwise(torch, card_info, name, make, batch, steps, scanned=(),
-               after=None, **fields):
+               after=None, phase="train_graphs", **fields):
     """fp32 under cuDNN's deterministic algorithms: the eager run and the
     graphed run equal bitwise (loss and gradient-norm traces, parameters,
-    Adam moments, EMA). `scanned`: (sampler, chunk) pairs of fit_scanned
-    runs, eager at the first chunk then graphed at each, all equal."""
+    Adam moments, EMA, the Trainer's generator). `scanned`: (sampler,
+    chunk) pairs of fit_scanned runs, eager at the first chunk then graphed
+    at each, all equal. Returns `after`'s results of the eager and the
+    graphed fit, and the graphed fit's record and final state."""
     e, fe, xe = tg_run(torch, make, False, steps, True, after=after)
     g, fg, xg = tg_run(torch, make, True, steps, True, after=after)
     equal = tg_equal(fe, fg)
@@ -3712,7 +3859,7 @@ def tg_bitwise(torch, card_info, name, make, batch, steps, scanned=(),
             "launches_per_replay": last["launches_per_replay"],
             "route_graphed": last["route"],
             "route_eager": scans[0][0]["route"]}
-    emit(card_info, phase="train_graphs", config=name, batch=batch,
+    emit(card_info, phase=phase, config=name, batch=batch,
          steps=steps, deterministic=True, **out, bitwise_equal=equal,
          traces_equal=traces, fit_scanned_bitwise_equal=scan_equal,
          fit_scanned_traces_equal=scan_traces,
@@ -3724,7 +3871,43 @@ def tg_bitwise(torch, card_info, name, make, batch, steps, scanned=(),
     check(all(all(q.values()) for q in scan_equal) and all(scan_traces),
           f"train_graphs {name}: fit_scanned runs differ: {scan_equal} "
           f"{scan_traces}")
-    return xe, xg
+    return xe, xg, g, fg
+
+
+def tg_remat_vs_plain(card_info, name, remat, remat_final, plain,
+                      plain_final, note):
+    """A rematerialised graphed run against the plain graphed run from the
+    same seed: the loss traces and the parameters within TG_REMAT_TOL of
+    the largest entry (bitwise expected: the recomputation repeats the
+    forward's kernels on the same inputs), the flash kernels' launches per
+    replay equal (the attention blocks are not checkpointed), and their
+    steps' times."""
+    from tpu_diffusion_torch.sampling.graph import WARMUP
+    losses = max(abs(a - b) for a, b in zip(remat["losses"],
+                                            plain["losses"]))
+    top = max(abs(x) for x in plain["losses"])
+    params = ((remat_final["params"] - plain_final["params"]).abs().max()
+              / plain_final["params"].abs().max()).item()
+    bitwise = (remat["losses"] == plain["losses"] and bool(
+        remat_final["params"].eq(plain_final["params"]).all()))
+    flash = [{k: v for k, v in r["launches_per_replay"].items()
+              if k.startswith("flash_attention_")} for r in (remat, plain)]
+    emit(card_info, phase="train_graphs", config=name,
+         check="against_plain_graphed", max_loss_diff_rel=losses / top,
+         max_param_diff_rel=params, tol=TG_REMAT_TOL, bitwise=bitwise,
+         flash_per_replay_remat=flash[0], flash_per_replay_plain=flash[1],
+         replay_device_ms_remat=quartiles(remat["replay_device_ms"]),
+         replay_device_ms_plain=quartiles(plain["replay_device_ms"]),
+         wall_ms_remat=quartiles(remat["wall_ms"][WARMUP + 1:]),
+         wall_ms_plain=quartiles(plain["wall_ms"][WARMUP + 1:]),
+         pool_gb_remat=remat["pool_gb"], pool_gb_plain=plain["pool_gb"],
+         note=note)
+    check(losses <= TG_REMAT_TOL * top and params <= TG_REMAT_TOL,
+          f"train_graphs {name}: rematerialised against plain: losses "
+          f"{losses / top}, parameters {params}")
+    check(flash[0] == flash[1],
+          f"train_graphs {name}: flash launches per replay {flash[0]}, "
+          f"plain {flash[1]}")
 
 
 def train_graphs_phase(torch, card_info, dev):
@@ -3751,11 +3934,11 @@ def train_graphs_phase(torch, card_info, dev):
     from tpu_diffusion_torch.losses.cfm import get_matcher, host_ot_pairs
     from tpu_diffusion_torch.protein.data import (get_protein_data,
                                                   protein_batches)
+    from tpu_diffusion_torch.protein.gvp import GVPDropout
     from tpu_diffusion_torch.protein.sde import HoogeboomGraphSDE
     from tpu_diffusion_torch.train.trainer import (TrainState, Trainer,
                                                    make_optimizer,
                                                    make_train_step)
-    from tpu_diffusion_torch.utils import config as config_mod
     calls0 = {"flash_attention_fused": attention.launches,
               "flash_attention_fwd": attention.flash_fwd_launches,
               "flash_attention_bwd": attention.flash_bwd_launches}
@@ -3763,34 +3946,22 @@ def train_graphs_phase(torch, card_info, dev):
 
     # --- cli.main flowers,inpainting,amortized --------------------------
     flowers = get_dataset("flowers")("data", train=True)
-
-    def cli_main(overrides, samplers=None):
-        config = config_mod.get_config("flowers,inpainting,amortized")
-        config_mod.apply_overrides(config, overrides
-                                   + [f"training.seed={SEED}"])
-
-        def make(graphed):
-            torch.manual_seed(SEED)  # the model's own initialisation
-            parts = cli.build(config, dev)
-            state, _ = cli.init_state(config, parts)
-            step = make_train_step(
-                cli.make_loss(parts), ema_decay=config.training.ema_decay,
-                ema_update_every=config.training.ema_update_every)
-            trainer = Trainer(step, state, infinite_batches(
-                flowers, config.training.batch_size, seed=SEED),
-                graphed=graphed)
-            if samplers is not None:
-                samplers(config, parts, trainer)
-            return trainer
-        return make, config
-
-    make, config = cli_main([])
+    make, config = tg_cli_main(torch, dev, [])
     tg_turns(torch, card_info, "cli_main_64px_bf16", make,
              config.training.batch_size,
              note="flowers,inpainting,amortized at its config (93.3M "
                   "parameters, bf16 forward, fp32 parameters, the flash "
                   "kernels at [128,1024,64]) through cli.build, "
                   "init_state and make_loss")
+    # the same at full depth in bf16 with use_checkpoint (the flash
+    # backward under the recomputation's atomics), dropout on
+    make, config = tg_cli_main(torch, dev, [f"network.dropout={TG_DROPOUT}"],
+                               use_checkpoint=True)
+    tg_turns(torch, card_info, "cli_main_64px_bf16_use_checkpoint", make,
+             config.training.batch_size,
+             note=f"the same config with use_checkpoint (each ResBlock under "
+                  f"torch.utils.checkpoint, its dropout mask drawn first) "
+                  f"and dropout {TG_DROPOUT} (the config's is 0.0)")
 
     # fp32 at reduced depth, and sampling from the live model after
     gen_x = torch.Generator().manual_seed(SEED + 21)
@@ -3814,11 +3985,8 @@ def train_graphs_phase(torch, card_info, dev):
         torch.cuda.synchronize()
         return x, trainer.cache["graphs"].captures
 
-    make, config = cli_main(
-        ["network.dtype=float32", "network.num_res_blocks=1",
-         f"training.batch_size={TG_FP32_BATCH}",
-         f"diffusion.num_steps={TG_FP32_DIFFUSION}"], with_sampler)
-    (xe, ce), (xg, cg) = tg_bitwise(
+    make, config = tg_cli_main(torch, dev, TG_FP32_OVERRIDES, with_sampler)
+    (xe, ce), (xg, cg), _, _ = tg_bitwise(
         torch, card_info, "cli_main_64px_fp32", make, TG_FP32_BATCH,
         TG_FP32_STEPS, after=sample_after,
         note="the 64px config at reduced depth (num_res_blocks 2 -> 1), "
@@ -3838,6 +4006,27 @@ def train_graphs_phase(torch, card_info, dev):
           f"eager ones ({stale_equal}) or was not captured again "
           f"({ce}, {cg})")
     del xe, xg
+
+    # --- use_checkpoint: the same config, its ResBlocks rematerialised ----
+    for dropout in (0.0, TG_DROPOUT):
+        overrides = TG_FP32_OVERRIDES + [f"network.dropout={dropout}"]
+        make, _ = tg_cli_main(torch, dev, overrides, use_checkpoint=True)
+        name = f"cli_main_64px_fp32_use_checkpoint_dropout_{dropout}"
+        _, _, remat, remat_final = tg_bitwise(
+            torch, card_info, name, make, TG_FP32_BATCH, TG_REMAT_STEPS,
+            note="the 64px fp32 config at reduced depth with "
+                 "use_checkpoint (each ResBlock under torch.utils."
+                 f"checkpoint, its dropout mask drawn first), dropout "
+                 f"{dropout}: graphed against eager")
+        make, _ = tg_cli_main(torch, dev, overrides)
+        plain, plain_final, _ = tg_run(torch, make, True, TG_REMAT_STEPS,
+                                       deterministic=True)
+        tg_remat_vs_plain(card_info, name, remat, remat_final, plain,
+                          plain_final,
+                          "the graphed rematerialised run against the graphed "
+                          "plain run (the same config without "
+                          "use_checkpoint), both fp32 under cuDNN's "
+                          "deterministic algorithms")
 
     # --- train_cfm_conditional: SR256 at batch 8 ------------------------
     cc = train_cfm_conditional
@@ -3959,6 +4148,43 @@ def train_graphs_phase(torch, card_info, dev):
                     "parameters, 112 residues, fp32): fit from "
                     "protein_batches; fit_scanned from make_protein_sampler "
                     "eager at chunk 10, graphed at chunks 10 and 5")
+    # --remat with dropout (the CLI exposes no drop_rate: set on the layers)
+    remat_args = train_protein.parser().parse_args(protein_flags(["--remat"]))
+
+    def make_protein_drop(graphed, remat=True):
+        torch.manual_seed(SEED)
+        model = train_protein.build_model(remat_args if remat else args, dev)
+        for m in model.modules():
+            if isinstance(m, GVPDropout):
+                m.rate = TG_DROPOUT
+        opt = make_optimizer(model.parameters(), args.lr, warmup=0,
+                             grad_clip=1.0, schedule="constant")
+        state = TrainState.create(model, opt,
+                                  torch.Generator(dev).manual_seed(SEED))
+        loss = train_protein.make_loss_fn(diffuser, args.aux_weight,
+                                          args.aux_cutoff, args.distogram)
+        return Trainer(make_train_step(loss, ema_decay=0.999), state,
+                       protein_batches(ds, PROTEIN_TRAIN_BATCH, seed=SEED),
+                       graphed=graphed)
+
+    _, _, remat, remat_final = tg_bitwise(
+        torch, card_info, "protein_remat", make_protein_drop,
+        PROTEIN_TRAIN_BATCH, TG_REMAT_STEPS,
+        scanned=((sampler, TG_REMAT_STEPS), (sampler, TG_REMAT_STEPS // 2)),
+        note=f"train_protein --remat at the reference width, drop_rate "
+             f"{TG_DROPOUT} (each conv layer under torch.utils.checkpoint, "
+             f"its dropout masks drawn first): fit, and fit_scanned eager "
+             f"at chunk {TG_REMAT_STEPS}, graphed at chunks "
+             f"{TG_REMAT_STEPS} and {TG_REMAT_STEPS // 2}")
+    plain, plain_final, _ = tg_run(
+        torch, lambda graphed: make_protein_drop(graphed, remat=False), True,
+        TG_REMAT_STEPS, deterministic=True)
+    tg_remat_vs_plain(card_info, "protein_remat", remat, remat_final, plain,
+                      plain_final,
+                      f"the graphed fit of the rematerialised protein step "
+                      f"against the plain one, both at drop {TG_DROPOUT}, "
+                      f"fp32 under cuDNN's deterministic algorithms (C7 on "
+                      f"the card)")
 
     # --- C6: the fused-QKV attention's gradient on the card --------------
     grads = []
@@ -4071,7 +4297,8 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     card_info = card()
     emit(card_info, phase="device", count=torch.cuda.device_count(),
-         torch=torch.__version__, cuda=torch.version.cuda)
+         torch=torch.__version__, cuda=torch.version.cuda,
+         nccl=".".join(map(str, torch.cuda.nccl.version())))
 
     t0 = time.perf_counter()
     report = build.build_all()
@@ -4082,6 +4309,12 @@ def main():
                   for k, v in report.items()})
 
     dev = torch.device("cuda")
+    if sys.argv[1:] == ["--data-parallel"]:
+        data_parallel_phase(torch, card_info)
+        print(json.dumps({"partial": "--data-parallel: the multi-card "
+                                     "data-parallel check only"}),
+              flush=True)
+        return 0
     if sys.argv[1:] == ["--kernels"]:
         kernel_phase(torch, F, card_info, ATTN_PATH_SHAPES, GN_PATH_SHAPES)
         resblock_phase(torch, card_info, RES_PATH_SHAPES, unet, dev)
@@ -4281,10 +4514,10 @@ def main():
                                "(their warm-ups and captures), "
                                "the graphed training steps' warm-ups and "
                                "captures (train, cfm_cond_sr256, the "
-                               "parallel phase's plain runs, train_graphs) "
-                               "and the eager ones (the parallel phase's "
-                               "10 meshed steps, train_graphs' eager "
-                               "runs); max_rel_err: the "
+                               "parallel phase's runs, train_graphs) and "
+                               "the eager ones (the eager runs of "
+                               "train_graphs and of the parallel phase's "
+                               "fp32 check); max_rel_err: the "
                                "largest |dq, dk, dv - plain| over each "
                                "gradient's largest entry",
         "fused_resblock": "one full CIFAR UNet forward through the engine "

@@ -40,12 +40,14 @@ def deterministic():
         torch.backends.cudnn.deterministic = was
 
 
-def _state(cuda, dtype=torch.float32, attention_impl="dense", seed=0):
+def _state(cuda, dtype=torch.float32, attention_impl="dense", seed=0,
+           use_checkpoint=False):
     model = create_model(image_size=16, num_channels=32, num_res_blocks=1,
                          in_channels=3, channel_mult=(1, 2), num_heads=1,
                          attention_resolutions="8", dropout=0.1,
                          use_scale_shift_norm=True, dtype=dtype,
-                         attention_impl=attention_impl, device=cuda)
+                         attention_impl=attention_impl,
+                         use_checkpoint=use_checkpoint, device=cuda)
     randomize_(model, torch.Generator().manual_seed(seed))
     opt = trainer.make_optimizer(model.parameters(), 1e-3, warmup=2,
                                  grad_clip=1.0)
@@ -86,6 +88,7 @@ def _same_state(a, b):
         for key in ("exp_avg", "exp_avg_sq"):
             assert torch.equal(a.optimizer.state[p][key],
                                b.optimizer.state[q][key]), (name, key)
+    assert torch.equal(a.generator.get_state(), b.generator.get_state())
 
 
 @pytest.mark.cuda
@@ -208,3 +211,52 @@ def test_cuda_fused_attention_training_moves_qkv(cuda):
     params = dict(state.model.named_parameters())
     for n, before in qkv.items():
         assert not torch.equal(params[n], before), n
+
+
+@pytest.mark.cuda
+def test_cuda_use_checkpoint_graphed_equals_eager(cuda, deterministic):
+    """A `use_checkpoint` UNet with dropout 0.1, fp32: graphed (its
+    ResBlocks recomputed inside the replayed backward) equals the eager
+    loop bitwise, the generator included."""
+    eager, want = _fit(cuda, graphed=False, use_checkpoint=True)
+    graphed, got = _fit(cuda, graphed=True, use_checkpoint=True)
+    assert graphed.graphed and not eager.graphed
+    assert got == want
+    _same_state(graphed.state, eager.state)
+    entry, = graphed.graphs.captured().values()
+    assert entry.replays == STEPS - WARMUP
+
+
+@pytest.mark.cuda
+def test_cuda_protein_remat_graphed_equals_eager(cuda, deterministic):
+    """A tiny `remat` GVP denoiser with drop_rate 0.3, fp32: graphed
+    equals the eager loop bitwise, the generator included."""
+    from tpu_diffusion_torch.cli import train_protein
+    from tpu_diffusion_torch.protein.data import (protein_batches,
+                                                  synthetic_ca_chains)
+    from tpu_diffusion_torch.protein.denoiser import GVPDenoiser
+    from tpu_diffusion_torch.protein.sde import HoogeboomGraphSDE
+    ds = synthetic_ca_chains(16, max_len=24, min_len=8, seed=0)
+    runs = []
+    for graphed in (False, True):
+        torch.manual_seed(0)
+        model = GVPDenoiser(max_protein_length=24, n_h_node_feats=(16, 4),
+                            n_h_edge_feats=(16, 4), n_conv_layers=2,
+                            num_steps=20, drop_rate=0.3, remat=True,
+                            device=cuda)
+        state = trainer.TrainState.create(
+            model, trainer.make_optimizer(model.parameters(), 1e-3),
+            torch.Generator(cuda).manual_seed(1))
+        loss = train_protein.make_loss_fn(HoogeboomGraphSDE(num_steps=20,
+                                                            device=cuda))
+        rows = []
+        tr = trainer.Trainer(trainer.make_train_step(loss, ema_decay=0.9),
+                             state, protein_batches(ds, 4, seed=2),
+                             graphed=graphed)
+        tr.fit(STEPS, metrics_hook=lambda s, m: rows.append(
+            (m["loss"], m["grad_norm"])))
+        runs.append((tr, rows))
+    (eager, want), (graphed, got) = runs
+    assert graphed.graphed and not eager.graphed
+    assert got == want
+    _same_state(graphed.state, eager.state)

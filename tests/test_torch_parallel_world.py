@@ -176,6 +176,19 @@ def test_data_parallel_step_matches_the_replicated_step(world, reference):
         assert_step_matches(got, world[reference], world["initial"])
 
 
+def test_routes_of_the_data_and_model_axes(world):
+    """The (data 2 x model 1) Trainer takes the graphed route (on the CPU
+    its body as a plain call), the all-reduce of the gradients and the
+    loss over both "data" ranks inside it; the (data 1 x model 2) TP+SP
+    Trainer keeps the eager route and names its "model" axis."""
+    for rank in world["ranks"]:
+        dp = rank["data_parallel"]
+        assert dp["graphed"], dp["route"]
+        assert "all-reduce over 2 'data' rank(s) inside" in dp["route"]
+        assert not rank["graphed"]
+        assert "'model' axis of 2 ranks" in rank["route"]
+
+
 def test_ranks_agree_and_match_the_port_closely(world):
     """The two "model" ranks hold the same gathered weights, and the ring
     changes only the order of the sums: the loss within 1e-5 of the

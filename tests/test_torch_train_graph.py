@@ -1,7 +1,8 @@
 """The training step as a graph (`train/graph.py`, `Trainer(graphed=True)`)
 on the CPU, where its body runs as a plain call: against the JAX package's
 jitted step, against the eager loop, the EMA body against the eager
-branches, the declared eager routes, and C6 (the fused-QKV attention's
+branches, the declared eager routes, checkpointed models on the graphed
+route, and C6 (the fused-QKV attention's
 gradient through its autograd Function, the kernels without a backward
 refusing a gradient)."""
 
@@ -252,18 +253,21 @@ def test_declared_eager_routes_report_their_reason():
         lambda s, b: (s, {}), _tiny(), iter(())).eager_reason
 
 
-def test_checkpointed_models_are_declared_eager():
+def test_checkpointed_models_take_the_graphed_route():
     """The UNet's `use_checkpoint` and the protein denoiser's `remat`
-    recompute under torch.utils.checkpoint: declared eager."""
+    recompute under torch.utils.checkpoint with their dropout masks drawn
+    first, so the recomputation draws nothing: both take the graphed
+    route."""
     tr = trainer.Trainer(_ddpm_step(), _tiny(use_checkpoint=True), iter(()))
-    assert not tr.graphed and "use_checkpoint" in tr.eager_reason
+    assert tr.graphed and tr.eager_reason is None
+    assert tr.graphs is not None and "graphed" in tr.route()
     model = GVPDenoiser(max_protein_length=8, n_h_node_feats=(8, 2),
                         n_h_edge_feats=(8, 2), n_conv_layers=1,
                         num_steps=10, remat=True, device="cpu")
     state = trainer.TrainState.create(
         model, trainer.make_optimizer(model.parameters(), 1e-3))
     tr = trainer.Trainer(_ddpm_step(), state, iter(()))
-    assert not tr.graphed and "remat" in tr.eager_reason
+    assert tr.graphed and tr.eager_reason is None
 
 
 # --- C6 -----------------------------------------------------------------------

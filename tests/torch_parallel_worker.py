@@ -109,6 +109,7 @@ def tp_sp_world(state_dict, batch, draws):
             "n_sharded": n_sharded, "n_trainer_sharded": trainer.n_sharded,
             "restore_step": step, "restore_bitwise": bitwise,
             "restore_shapes_kept": shapes_kept,
+            "graphed": trainer.graphed, "route": trainer.route(),
             "mesh": dict(mesh.shape), "dryrun": dryrun("cpu")}
 
 
@@ -117,10 +118,11 @@ def data_parallel_step(state_dict, batch, draws):
     half of the batch and of the draws, and the gradients are averaged over
     "data"."""
     mesh = make_mesh(data=2, model=1)
-    state, _, loss, gnorm, _ = superres_step(state_dict, batch, draws,
-                                             mesh=mesh)
+    state, trainer, loss, gnorm, _ = superres_step(state_dict, batch, draws,
+                                                   mesh=mesh)
     params, mu = _gathered(state)
     return {"loss": loss, "grad_norm": gnorm, "params": params, "mu": mu,
+            "graphed": trainer.graphed, "route": trainer.route(),
             "mesh": dict(mesh.shape)}
 
 

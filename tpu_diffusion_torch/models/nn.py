@@ -161,12 +161,21 @@ class CastEmbedding(_CastParams, nn.Embedding):
         return F.embedding(y, self.cast("weight"))
 
 
+def dropout_keep(shape, p: float, generator: torch.Generator | None,
+                 device) -> torch.Tensor:
+    """The keep mask of `dropout`: True with probability 1 - p."""
+    return torch.rand(shape, generator=generator, device=device) >= p
+
+
 def dropout(x: torch.Tensor, p: float,
-            generator: torch.Generator | None = None) -> torch.Tensor:
+            generator: torch.Generator | None = None,
+            keep: torch.Tensor | None = None) -> torch.Tensor:
     """Inverted dropout with the mask drawn from `generator`
-    (`torch.nn.functional.dropout` takes none): an entry is kept with
-    probability 1 - p and scaled by 1 / (1 - p)."""
-    keep = torch.rand(x.shape, generator=generator, device=x.device) >= p
+    (`torch.nn.functional.dropout` takes none), or `keep` where it was
+    drawn before (`dropout_keep`): an entry is kept with probability 1 - p
+    and scaled by 1 / (1 - p)."""
+    if keep is None:
+        keep = dropout_keep(x.shape, p, generator, x.device)
     return x * keep.to(x.dtype) / (1.0 - p)
 
 

@@ -37,6 +37,7 @@ from tpu_diffusion_torch.models.nn import (NORM_IMPLS, CastConv2d,
                                            FusedNormAct,
                                            GroupNorm32, avg_pool_2x,
                                            channels_last, dropout,
+                                           dropout_keep,
                                            nearest_upsample,
                                            timestep_embedding, zero_init_conv)
 from tpu_diffusion_torch.parallel.sp import maybe_sequence_parallel
@@ -113,9 +114,26 @@ class ResBlock(nn.Module):
         self.skip = (CastConv2d(cin, cout, 1, dtype=dtype, device=device)
                      if cin != cout else None)
 
+    def dropout_keep(self, x: torch.Tensor,
+                     generator: torch.Generator | None
+                     ) -> torch.Tensor | None:
+        """The dropout mask that `forward(x, ...)` would draw from
+        `generator`, drawn now; None where it draws none."""
+        if not (self.training and self.dropout > 0):
+            return None
+        b, _, h, w = x.shape
+        if self.up:
+            h, w = 2 * h, 2 * w
+        elif self.down:
+            h, w = h // 2, w // 2
+        return dropout_keep((b, self.cout, h, w), self.dropout, generator,
+                            x.device)
+
     def forward(self, x: torch.Tensor, emb: torch.Tensor,
-                generator: torch.Generator | None = None) -> torch.Tensor:
-        """`generator` draws the dropout mask (in `train()` mode only)."""
+                generator: torch.Generator | None = None,
+                keep: torch.Tensor | None = None) -> torch.Tensor:
+        """`generator` draws the dropout mask (in `train()` mode only),
+        unless `keep` (`dropout_keep`) hands it in."""
         h = self.in_norm(x) if self.fused else F.silu(self.in_norm(x))
         if self.up:
             h, x = nearest_upsample(h), nearest_upsample(x)
@@ -134,34 +152,23 @@ class ResBlock(nn.Module):
             h = h + emb_out[:, :, None, None]
             h = self.out_norm(h) if self.fused else F.silu(self.out_norm(h))
         if self.training and self.dropout > 0:
-            h = dropout(h, self.dropout, generator)
+            h = dropout(h, self.dropout, generator, keep)
         h = self.out_conv(h)
         if self.skip is not None:
             x = self.skip(x)
         return x + h
 
 
-def checkpointed(block: nn.Module, h: torch.Tensor, emb: torch.Tensor,
+def checkpointed(block: ResBlock, h: torch.Tensor, emb: torch.Tensor,
                  generator: torch.Generator | None) -> torch.Tensor:
     """`block(h, emb, generator)` under `torch.utils.checkpoint`: its
-    activations are recomputed in the backward pass. The recomputation
-    draws its dropout masks from the generator state the forward started
-    from, and leaves the generator where it was."""
-    start = None if generator is None else generator.get_state()
-    ran = []
-
-    def run(h, emb):
-        if not ran or start is None:
-            ran.append(True)
-            return block(h, emb, generator)
-        now = generator.get_state()
-        generator.set_state(start)
-        try:
-            return block(h, emb, generator)
-        finally:
-            generator.set_state(now)
-
-    return checkpoint(run, h, emb, use_reentrant=False)
+    activations are recomputed in the backward pass. Its dropout mask is
+    drawn first, as the block would draw it, and handed to the forward and
+    to the recomputation, which so draws nothing: no generator state is
+    saved or restored, inside a CUDA graph capture or out of it."""
+    keep = block.dropout_keep(h, generator)
+    return checkpoint(block, h, emb, None, keep, use_reentrant=False,
+                      preserve_rng_state=False)
 
 
 class AttentionBlock(nn.Module):

@@ -9,7 +9,9 @@ graph -> an equivariant eps_hat. fp32 throughout, as the JAX model.
 Children carry the flax names: `W_v`, `W_e`, `W_e_norm`, `conv_{i}`,
 `out_norm`, `W_out`. `remat=True` recomputes each conv layer in the
 backward (`torch.utils.checkpoint`), the JAX `nn.remat`: the dense
-[B, N, N, ...] message tensors dominate training memory.
+[B, N, N, ...] message tensors dominate training memory. The
+recomputation reuses the forward's dropout masks, so rematerialised and
+plain training give the same outputs, gradients and generator state.
 """
 
 from __future__ import annotations
@@ -122,8 +124,13 @@ class GVPDenoiser(nn.Module):
         for i in range(self.n_conv_layers):
             layer = getattr(self, f"conv_{i}")
             if self.remat and torch.is_grad_enabled():
-                h_v = checkpoint(layer, h_v, h_e, pair_mask, train,
-                                 generator, use_reentrant=False)
+                # the masks drawn first, as the layer would draw them, so
+                # the recomputation reuses the forward's (flax's nn.remat
+                # replays the forward's keys) and draws nothing
+                masks = layer.dropout_masks(h_v, train, generator)
+                h_v = checkpoint(layer, h_v, h_e, pair_mask, train, None,
+                                 masks, use_reentrant=False,
+                                 preserve_rng_state=False)
             else:
                 h_v = layer(h_v, h_e, pair_mask, train, generator)
         _, out_v = self.W_out(self.out_norm(h_v))

@@ -111,17 +111,29 @@ class GVPDropout(nn.Module):
         super().__init__()
         self.rate = rate
 
-    def forward(self, x, train: bool = False,
-                generator: Optional[torch.Generator] = None):
+    def masks(self, x, train: bool,
+              generator: Optional[torch.Generator]):
+        """The (scalar, vector) keep masks that `forward(x, ...)` would
+        draw, drawn now; None where it draws none."""
         s, v = x
         if self.rate == 0.0 or not train:
-            return x
+            return None
         if generator is None:
             raise ValueError("GVPDropout in training needs a generator")
         keep = 1.0 - self.rate
         ms = torch.rand(s.shape, generator=generator, device=s.device) < keep
         mv = torch.rand(v.shape[:-1] + (1,), generator=generator,
                         device=v.device) < keep
+        return ms, mv
+
+    def forward(self, x, train: bool = False,
+                generator: Optional[torch.Generator] = None, masks=None):
+        """`masks` (`self.masks`) hands in masks drawn before."""
+        s, v = x
+        if self.rate == 0.0 or not train:
+            return x
+        ms, mv = masks or self.masks(x, train, generator)
+        keep = 1.0 - self.rate
         return s * ms / keep, v * mv / keep
 
 
@@ -174,10 +186,20 @@ class DenseGVPConvLayer(nn.Module):
         self.GVPLayerNorm_0 = GVPLayerNorm(ns)
         self.GVPLayerNorm_1 = GVPLayerNorm(ns)
 
+    def dropout_masks(self, x, train: bool,
+                      generator: Optional[torch.Generator]):
+        """The masks of `dropout_0` and `dropout_1` that `forward(x, ...)`
+        would draw, drawn now in its order (each drops a tensor of x's
+        shapes)."""
+        return (self.dropout_0.masks(x, train, generator),
+                self.dropout_1.masks(x, train, generator))
+
     def forward(self, x, edge_attr, pair_mask: Tensor, train: bool = False,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None,
+                masks=(None, None)):
         """x: (s [B,N,ds], v [B,N,dv,3]); edge_attr: (se [B,N,N,de],
-        ve [B,N,N,dve,3]); pair_mask [B,N,N] (True = real edge i<-j)."""
+        ve [B,N,N,dve,3]); pair_mask [B,N,N] (True = real edge i<-j).
+        `masks` (`dropout_masks`) hands in the dropout masks."""
         s, v = x
         b, n, ds = s.shape
         dv = v.shape[-2]
@@ -195,11 +217,12 @@ class DenseGVPConvLayer(nn.Module):
         agg_s = (msg_s * w).sum(dim=2) / denom
         agg_v = (msg_v * w[..., None]).sum(dim=2) / denom[..., None]
 
-        d_s, d_v = self.dropout_0((agg_s, agg_v), train, generator)
+        d_s, d_v = self.dropout_0((agg_s, agg_v), train, generator,
+                                  masks[0])
         s, v = self.GVPLayerNorm_0((s + d_s, v + d_v))
 
         h = (s, v)
         for k in range(self.n_message, self.n_message + self.n_feedforward):
             h = getattr(self, f"GVP_{k}")(h)
-        dh = self.dropout_1(h, train, generator)
+        dh = self.dropout_1(h, train, generator, masks[1])
         return self.GVPLayerNorm_1((s + dh[0], v + dh[1]))

@@ -26,7 +26,16 @@ state's and `fit_scanned`'s batch generator; the card's default generator
 is registered by every capture), so each replay reads the generator's
 current seed and offset and advances it as the eager step does: a graphed
 step draws what an eager step draws. `fit_scanned` seeds its batch
-generator before every step.
+generator before every step. A rematerialised model (`use_checkpoint`,
+`remat`) draws its dropout masks before each checkpointed block and hands
+them to the recomputation, which draws nothing.
+
+Collectives: under a process group whose "model" axis is one rank, the
+body's all-reduce over "data" (the gradients and the loss in one flat
+buffer, `train/trainer.py:average_over`) is captured with the rest: NCCL
+launches it on the capture stream and every replay runs it again. The
+warm-ups run the first all-reduces outside the capture, which creates the
+communicator there.
 
 The body's output ([loss, grad_norm]) is a static tensor: the caller copies
 it before the next replay. A replay updates the parameters without bumping

@@ -26,7 +26,7 @@ from __future__ import annotations
 import math
 import time
 from dataclasses import dataclass
-from typing import Callable, Dict, Iterator, List, Optional
+from typing import Callable, Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -143,15 +143,17 @@ class Optimizer:
         self.scalars["bc2"].fill_(1.0 - self.B2 ** self.count)
 
     @torch.no_grad()
-    def update(self) -> torch.Tensor:
+    def update(self, metrics: Sequence[torch.Tensor] = ()) -> torch.Tensor:
         """The update from the parameters' `.grad` with the scalars of the
         last `fill`; returns the gradients' global norm before clipping.
-        With a mesh of ranks, the gradients are first averaged over its
-        "data" axis."""
+        With a mesh of ranks, the gradients are first averaged in place
+        over its "data" axis, and the step's fp32 `metrics` (its loss)
+        with them: one all-reduce, so that a captured step replays one
+        collective."""
         params = [p for p in self.params if p.grad is not None]
         grads = [p.grad for p in params]
         if self.mesh is not None and self.mesh.device_mesh is not None:
-            average_over(grads, self.mesh.group(DATA_AXIS),
+            average_over(grads + list(metrics), self.mesh.group(DATA_AXIS),
                          self.mesh.shape[DATA_AXIS])
         gnorm = global_norm(params)
         if self.grad_clip is not None:
@@ -221,7 +223,9 @@ class TrainStep:
     the EMA's device buffers), then `body(state, batch)`, the device part
     with no host value that changes from step to step: the loss, its
     backward, clipping, the Adam update and the EMA blend, returning
-    [loss, grad_norm] as one fp32 tensor. The eager step sets the gradients
+    [loss, grad_norm] as one fp32 tensor. With a mesh of ranks, the loss
+    is the global batch's: averaged over "data" in the gradients'
+    all-reduce. The eager step sets the gradients
     to None between the two; a captured body (`train/graph.py`) writes them
     in place. `eager_reason` is the loss function's, where it declares one
     (a loss that reads the host inside the step cannot be captured)."""
@@ -244,9 +248,10 @@ class TrainStep:
         state.model.train()
         loss = self.loss_fn(state.model, state.generator, batch)
         loss.backward()
-        gnorm = state.optimizer.update()
+        loss = loss.detach().float().reshape(1)
+        gnorm = state.optimizer.update([loss])
         ema_blend(state.ema, state.params)
-        return torch.stack([loss.detach().float(), gnorm.float()])
+        return torch.cat([loss, gnorm.float().reshape(1)])
 
     def __call__(self, state: TrainState, batch):
         self.fill(state)
@@ -278,20 +283,21 @@ class Trainer:
     a captured CUDA graph replayed per step after the run's first
     `WARMUP` steps, the counterpart of the JAX package's jitted step; on
     the CPU the same body as a plain call. On either route the batch is
-    first copied into static buffers. `eager_reason` says why a Trainer
-    takes the eager loop instead (`graphed` is then False): asked to, a
-    step that is not a `TrainStep`, a mesh with a process group (the
-    all-reduces and tensor-parallel gathers stay outside a capture until a
-    multi-card cell), a loss that declares a host read inside the step
-    (`losses/cfm.py:host_read`), or a model that recomputes under
-    `torch.utils.checkpoint` (`use_checkpoint`, `remat`: it captures, but
-    on the card the replayed fp32 step differed from the eager one, with
-    and without dropout).
+    first copied into static buffers. A mesh with a process group and one
+    rank on "model" captures its "data" all-reduce (gradients and loss in
+    one flat buffer) inside the graph; models that recompute under
+    `torch.utils.checkpoint` (`use_checkpoint`, `remat`) are graphed too.
+    `eager_reason` says why a Trainer takes the eager loop instead
+    (`graphed` is then False): asked to, a step that is not a `TrainStep`,
+    a "model" axis of more than one rank (the tensor-parallel gathers,
+    `global_norm`'s all-reduce over sharded slices and the ring's sends
+    stay outside a capture until a multi-card cell), or a loss that
+    declares a host read inside the step (`losses/cfm.py:host_read`).
 
     `mesh` (default: the optimizer's, else `make_mesh()`, every rank on
     "data"): with a process group, the state is broadcast from the first
     rank, the optimizer (built with the same mesh) averages the gradients
-    over "data", and the loss is averaged over "data"; each "data" rank
+    over "data", and the loss with them; each "data" rank
     draws its own noise for its slice (its generator re-seeded by its
     index; index 0 keeps the seed), where the JAX step draws the global
     batch's with one key (ROADMAP §C). `tensor_parallel` with a
@@ -344,36 +350,24 @@ class Trainer:
             return "asked for the eager loop (graphed=False)"
         if not isinstance(self._step_fn, TrainStep):
             return "the step is not a make_train_step step"
-        if self.mesh.device_mesh is not None:
-            return ("a mesh with a process group: the gradient and loss "
-                    "all-reduces and the tensor-parallel gathers run "
-                    "outside a capture")
-        if self._step_fn.eager_reason:
-            return self._step_fn.eager_reason
-        if any(getattr(m, "use_checkpoint", False) or getattr(m, "remat",
-                                                              False)
-               for m in self.state.model.modules()):
-            return ("torch.utils.checkpoint (use_checkpoint, remat): its "
-                    "recomputation captures, but the replayed step differs "
-                    "from the eager one")
-        return None
+        if self.mesh.shape[MODEL_AXIS] > 1:
+            return (f"a 'model' axis of {self.mesh.shape[MODEL_AXIS]} "
+                    "ranks: the tensor-parallel gathers, the sharded "
+                    "gradients' norm all-reduce and the ring's sends are "
+                    "not captured until a multi-card cell")
+        return self._step_fn.eager_reason
 
     def route(self) -> str:
         """One line for the CLIs: the route the steps take, and why."""
         if not self.graphed:
             return f"eager steps ({self.eager_reason})"
+        collective = ("" if self.mesh.device_mesh is None else
+                      f", the all-reduce over {self.mesh.shape[DATA_AXIS]}"
+                      f" 'data' rank(s) inside")
         if self._device.type == "cuda":
             return (f"graphed steps (one CUDA graph replayed per step after "
-                    f"{WARMUP} eager warm-up steps)")
-        return "graphed steps' body as a plain call (CPU)"
-
-    def _global_metrics(self, metrics: Dict) -> Dict:
-        """The loss averaged over the "data" ranks."""
-        if self.mesh.device_mesh is None:
-            return metrics
-        loss = metrics["loss"].float().clone()
-        dist.all_reduce(loss, group=self.mesh.group(DATA_AXIS))
-        return {**metrics, "loss": loss / self.mesh.shape[DATA_AXIS]}
+                    f"{WARMUP} eager warm-up steps{collective})")
+        return f"graphed steps' body as a plain call (CPU{collective})"
 
     def _static_inputs(self, batch):
         """The static buffers of the batch's structure, shapes and types,
@@ -418,7 +412,6 @@ class Trainer:
                 metrics = {"loss": out[0], "grad_norm": out[1]}
             else:
                 self.state, metrics = self._step_fn(self.state, inputs)
-                metrics = self._global_metrics(metrics)
             step = step0 + local_step + 1
             # The metrics come to the host (a device synchronisation) only
             # on steps where some consumer runs. Each callback's decision is
@@ -488,7 +481,6 @@ class Trainer:
                 else:
                     self.state, metrics = self._step_fn(self.state,
                                                         sample_batch(gen))
-                    metrics = self._global_metrics(metrics)
                     out = torch.stack([metrics["loss"].float(),
                                        metrics["grad_norm"].float()])
                 trace[i].copy_(out)
