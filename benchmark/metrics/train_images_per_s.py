@@ -1,0 +1,4 @@
+"""Images of every optimizer step the window completed, per second of the
+window."""
+
+from benchmark.harness import items_per_s as read  # noqa: F401
