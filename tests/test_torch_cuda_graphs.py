@@ -8,6 +8,8 @@ without JAX it runs as
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_graphs.py
 """
 
+import time
+
 import pytest
 import torch
 
@@ -20,6 +22,7 @@ from tpu_diffusion_torch.models.unet_infer import make_fused_apply
 from tpu_diffusion_torch.protein import mpnn
 from tpu_diffusion_torch.sampling import ancestral, ode
 from tpu_diffusion_torch.sampling.graph import GraphCache, launch_counts
+from tpu_diffusion_torch.utils import spans
 
 STEPS = 12
 
@@ -87,6 +90,47 @@ def test_cuda_graphed_ddim_equals_eager(cifar, cuda, path, k, eta):
     assert eager["fused_groupnorm_silu"] > 0
     if path == "engine":
         assert eager["fused_resblock"] > 0
+
+
+@pytest.mark.cuda
+def test_cuda_marked_chain_equals_eager_and_its_splits_add_up(cifar, cuda):
+    """K=3 through the engine with the recorder on: the chain, whose group
+    body holds the "encode" marker, equals the eager one bitwise; each
+    sampled replay's marker splits add up to its event time within 20 us,
+    and the summary's replay and gap seconds fill its window."""
+    model, engine = cifar
+    xT = torch.randn((8, 32, 32, 3), generator=torch.Generator()
+                     .manual_seed(4)).to(cuda)
+    want = _samplers(engine, 3, 0.5, None)(
+        xT, torch.Generator(cuda).manual_seed(5))
+    graphs = GraphCache(model)
+    sample = _samplers(engine, 3, 0.5, graphs)
+    sample(xT, torch.Generator(cuda).manual_seed(6))  # captures
+    events = []
+    graphs.events = events
+    t0 = time.perf_counter()
+    got = sample(xT, torch.Generator(cuda).manual_seed(5))
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    graphs.events = None
+    assert torch.equal(got, want)
+    chain, = graphs.chains.values()
+    assert [[n for n, _ in m] for m in chain.markers.values()] == [
+        ["encode"]]
+    rec = graphs.recorder
+    assert len(events) == STEPS // 3 and rec.reads
+    replays = {t: (s, e) for t, _, _, s, e in rec.replays}
+    for t, label, _, names, segs in rec.reads:
+        s, e = replays[t]
+        assert label == "chain/3" and names == ["encode", "end"]
+        assert min(segs) > 0
+        assert abs(sum(segs) - s.elapsed_time(e)) <= 0.020
+    got = spans.summary(t0, t1)
+    assert got["replays"] == STEPS // 3
+    assert got["replay_s"] + got["gap_s"] == pytest.approx(t1 - t0,
+                                                           abs=50e-6)
+    assert sum(got["gaps"]["by_span"].values()) == pytest.approx(
+        got["gap_s"])
 
 
 @pytest.mark.cuda

@@ -106,6 +106,38 @@ def test_cuda_graphed_fit_equals_eager_fp32(cuda, deterministic):
 
 
 @pytest.mark.cuda
+def test_cuda_marked_step_equals_eager_and_its_splits_add_up(cuda,
+                                                             deterministic):
+    """The step graph holds the "forward" and "backward" markers; with the
+    recorder on the graphed steps still equal the eager loop bitwise, and
+    every replay (each step's metrics read on the host) is read back, its
+    splits adding up to its event time within 20 us."""
+    eager, want = _fit(cuda, graphed=False)
+    rows = []
+    tr = trainer.Trainer(_step(cuda), _state(cuda), iter(_batches(STEPS)))
+    events = []
+    tr.graphs.events = events
+    tr.fit(STEPS, metrics_hook=lambda s, m: rows.append(
+        (m["loss"], m["grad_norm"])))
+    tr.graphs.events = None
+    assert rows == want
+    _same_state(tr.state, eager.state)
+    entry, = tr.graphs.captured().values()
+    assert [n for n, _ in entry.markers] == ["forward", "backward"]
+    rec = tr.recorder
+    assert len(events) == STEPS - WARMUP == len(rec.reads)
+    assert not rec.unread
+    replays = {t: (s, e) for t, _, _, s, e in rec.replays}
+    for t, label, _, names, segs in rec.reads:
+        s, e = replays[t]
+        assert label == "step/1"
+        assert names == ["forward", "backward", "end"] and min(segs) > 0
+        assert abs(sum(segs) - s.elapsed_time(e)) <= 0.020
+    steps = [r for n, *_, r, _ in rec.spans if n == "step"]
+    assert steps == list(range(1, STEPS + 1))
+
+
+@pytest.mark.cuda
 def test_cuda_graphed_fit_scanned_equals_eager(cuda, deterministic):
     """fit_scanned's sampler and draws inside the graph: equal to the eager
     loop bitwise, and the same for any chunking."""

@@ -38,6 +38,7 @@ from tpu_diffusion_torch.conditioning.likelihoods import Likelihood, Painting
 from tpu_diffusion_torch.core.schedules import DDPM
 from tpu_diffusion_torch.sampling.graph import (GraphCache, row_at, rows_at,
                                                 scan)
+from tpu_diffusion_torch.utils import spans
 
 EpsFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
 NoiseFn = Callable[..., torch.Tensor]
@@ -557,7 +558,8 @@ def _graphed_ddim(graphs: GraphCache, slot, fn, per_step: np.ndarray,
     """The DDIM chain through `graph.scan`: the coefficient rows and step
     indices in device tables read at the counter, one body per group
     length; eta > 0 draws each step's noise before the replay, as the
-    eager chain draws it."""
+    eager chain draws it. A group's body marks the end of its encoder
+    pass ("encode", `utils/spans.py:mark`)."""
     def make_step(buf):
         rows = torch.from_numpy(np.ascontiguousarray(per_step)).to(xT.device)
         steps = rows[:, 0].to(torch.int32)
@@ -569,6 +571,7 @@ def _graphed_ddim(graphs: GraphCache, slot, fn, per_step: np.ndarray,
             else:
                 if j == 0:
                     scratch["cache"] = encode_fn(xi, ib)
+                    spans.mark("encode")
                 eps = decode_fn(xi, ib, scratch["cache"])
             return _ddim_step(xi, eps, row_at(rows, t),
                               noise[0] if noise else None)

@@ -43,6 +43,17 @@ body's count at capture and `Chain.replays` its replays, so
 `executed_launches()` what ran on the card in all: the wrappers' counts
 less the warm-ups' and captures' (`OVERHEAD`), plus every replay's
 (`REPLAYED`).
+
+Tracing (`utils/spans.py`): each cache has a recorder, started by
+assigning a list to `GraphCache.events` and stopped by assigning `None`.
+While it records, `scan` opens a span "chain" per call, with children
+"chain.lookup" (`GraphCache.chain`: the parameters' state, any rebuild),
+"chain.capture" (warm-ups and captures), "chain.inputs" (the copies into
+the static buffers), "chain.fill" and "chain.launch" per replay (its
+noise; the replay, tagged with the body's signature) and "chain.output"
+(the copy of the result), and every replay is bracketed by timing events.
+A body may call `spans.mark(name)`: captured as an event node, read back
+after the replay.
 """
 
 from __future__ import annotations
@@ -52,6 +63,8 @@ import time
 from typing import Callable, Dict, Optional
 
 import torch
+
+from tpu_diffusion_torch.utils import spans
 
 WARMUP = 2  # warm-up calls of each body before its capture
 # kernel launches counted by the wrappers during warm-ups and captures, and
@@ -103,7 +116,8 @@ class Chain:
     on the card (`graphs`) or run as it is on the CPU. `launches[sig]` is
     the kernel launches a replay of body `sig` makes, `replays[sig]` its
     replays so far, `capture_s[sig]` and `pool_bytes[sig]` the seconds its
-    capture took and the memory the card reserved for it."""
+    capture took and the memory the card reserved for it, `markers[sig]`
+    the (name, event) pairs its body marked in the capture."""
 
     def __init__(self, cache: "GraphCache", buffers: Dict[str, torch.Tensor],
                  bodies: Dict[object, Callable[[], None]]):
@@ -114,10 +128,12 @@ class Chain:
         self.replays = {sig: 0 for sig in bodies}
         self.capture_s: Dict[object, float] = {}
         self.pool_bytes: Dict[object, int] = {}
+        self.markers: Dict[object, list] = {}
         self._cache = cache
         self.device = next(iter(buffers.values())).device
         if self.device.type == "cuda":
-            self._capture()
+            with cache.recorder.span("chain.capture"):
+                self._capture()
 
     def _zero(self) -> None:
         for b in self.buffers.values():
@@ -148,7 +164,8 @@ class Chain:
             torch.cuda.empty_cache()
             reserved = torch.cuda.memory_reserved(self.device)
             t0 = time.perf_counter()
-            with torch.cuda.graph(graph, pool=cache.pool, stream=side):
+            with spans.capturing(self.markers.setdefault(sig, [])), \
+                    torch.cuda.graph(graph, pool=cache.pool, stream=side):
                 body()
             self.capture_s[sig] = time.perf_counter() - t0
             self.pool_bytes[sig] = (torch.cuda.memory_reserved(self.device)
@@ -163,27 +180,27 @@ class Chain:
 
     def replay(self, sig) -> None:
         self.replays[sig] += 1
-        if not self.graphs:
-            self.bodies[sig]()
-            return
-        _add(REPLAYED, self.launches[sig])
-        events = self._cache.events
-        if events is not None:
-            start, end = (torch.cuda.Event(enable_timing=True)
-                          for _ in range(2))
-            start.record()
-            self.graphs[sig].replay()
-            end.record()
-            events.append((start, end))
-        else:
-            self.graphs[sig].replay()
+        rec = self._cache.recorder
+        with rec.span("chain.launch", tag=sig):
+            if not self.graphs:
+                self.bodies[sig]()
+                return
+            _add(REPLAYED, self.launches[sig])
+            if rec.events is not None:
+                rec.replay(self.graphs[sig], "chain/%d" % (
+                    len(sig) if isinstance(sig, tuple) else 1),
+                    self.markers[sig])
+            else:
+                self.graphs[sig].replay()
 
     def run(self, units, fill: Optional[Callable] = None) -> None:
         """Replay `units` in order: each a (sig, unit) pair, with
         `fill(unit)` filling the replay's inputs first."""
+        rec = self._cache.recorder
         for sig, unit in units:
             if fill is not None:
-                fill(unit)
+                with rec.span("chain.fill"):
+                    fill(unit)
             self.replay(sig)
 
 
@@ -200,8 +217,11 @@ class GraphCache:
     reallocates. The stale chain is dropped first, so its graphs' memory
     goes back to the pool. `clear()` frees every graph. With `events` set
     to a list, every replay on the card appends its (start, end) CUDA
-    events, so the chains' device time is their sum.
+    events, so the chains' device time is their sum: setting it starts the
+    cache's `recorder` (`utils/spans.py`), setting `None` stops it.
     """
+
+    events = spans.Switch()
 
     def __init__(self, module: Optional[torch.nn.Module] = None):
         self.module = module
@@ -209,7 +229,7 @@ class GraphCache:
         self.captures = 0
         self.pool = None
         self.stream = None
-        self.events: Optional[list] = None
+        self.recorder = spans.Recorder()
 
     def _state(self) -> tuple:
         if not isinstance(self.module, torch.nn.Module):
@@ -319,22 +339,29 @@ def scan(cache: GraphCache, slot, fn, x: torch.Tensor, groups, make_step,
         # in first-use order: captured in the order they first replay
         return buf, {gsig: body_of(gsig) for gsig in dict.fromkeys(gsigs)}
 
-    chain = cache.chain(full_slot, fn, build)
-    buf = chain.buffers
-    buf["x"].copy_(x)
-    buf["t"].zero_()
-    for k, v in inputs.items():
-        buf[k].copy_(v)
+    rec = cache.recorder
+    with rec.span("chain"):
+        with rec.span("chain.lookup"):
+            chain = cache.chain(full_slot, fn, build)
+        buf = chain.buffers
+        with rec.span("chain.inputs"):
+            buf["x"].copy_(x)
+            buf["t"].zero_()
+            for k, v in inputs.items():
+                buf[k].copy_(v)
 
-    def fill(group) -> None:
-        used: Dict[str, int] = {}
-        for step in group:
-            for kind, j, like in draws_of(sig_of(step)):
-                k = used.get(like, 0)
-                buf["noise_" + like][k].copy_(draw(buf[like], kind, step, j))
-                used[like] = k + 1
+        def fill(group) -> None:
+            used: Dict[str, int] = {}
+            for step in group:
+                for kind, j, like in draws_of(sig_of(step)):
+                    k = used.get(like, 0)
+                    buf["noise_" + like][k].copy_(
+                        draw(buf[like], kind, step, j))
+                    used[like] = k + 1
 
-    chain.run(zip(gsigs, groups), fill)
-    if outputs:
-        return (buf["x"].clone(),) + tuple(buf[k].clone() for k in outputs)
-    return buf["x"].clone()
+        chain.run(zip(gsigs, groups), fill)
+        with rec.span("chain.output"):
+            if outputs:
+                return (buf["x"].clone(),) + tuple(buf[k].clone()
+                                                   for k in outputs)
+            return buf["x"].clone()

@@ -47,6 +47,14 @@ Launch accounting is `sampling/graph.py`'s: the kernel wrappers count at
 the warm-ups (which ran) and at the capture (which did not: `OVERHEAD`),
 and each replay adds the capture's counts to `REPLAYED`, so
 `executed_launches()` is what ran on the card.
+
+Tracing (`utils/spans.py`): the recorder of `StepGraphs.recorder` is
+started by assigning a list to `StepGraphs.events` and stopped by
+assigning `None`. `run` opens "step.eager" (a warm-up), "step.capture" or
+"step.launch" (a replay, or the plain call on the CPU) inside the
+Trainer's "step" span, and the body's markers ("forward", "backward",
+`train/trainer.py:TrainStep.body`) are captured as event nodes and read
+back after each replay.
 """
 
 from __future__ import annotations
@@ -59,6 +67,7 @@ import torch
 
 from tpu_diffusion_torch.sampling.graph import (OVERHEAD, REPLAYED, WARMUP,
                                                 _add, launch_counts)
+from tpu_diffusion_torch.utils import spans
 
 
 class _Entry:
@@ -68,6 +77,7 @@ class _Entry:
         self.warm = 0
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.out: Optional[torch.Tensor] = None
+        self.markers: list = []
         self.launches: Dict[str, int] = {}
         self.replays = 0
         self.capture_s = 0.0
@@ -80,7 +90,10 @@ class StepGraphs:
     `generators` are the generators the bodies draw from; `versioned` the
     tensors the body updates in place (parameters and EMA), whose version
     counters each replay bumps. With `events` set to a list, every replay
-    appends its (start, end) CUDA events."""
+    appends its (start, end) CUDA events: setting it starts `recorder`,
+    setting `None` stops it."""
+
+    events = spans.Switch()
 
     def __init__(self, zero_grad: Callable[[], None],
                  generators: List[Optional[torch.Generator]],
@@ -92,21 +105,26 @@ class StepGraphs:
         self.device = versioned[0].device
         self.entries: Dict[object, _Entry] = {}
         self.stream: Optional[torch.cuda.Stream] = None
-        self.events: Optional[list] = None
+        self.recorder = spans.Recorder()
 
     def run(self, key, body: Callable[[], torch.Tensor]) -> torch.Tensor:
         """One step's body: eager (a warm-up), captured then replayed, or
         replayed; on the CPU a plain call. Returns its [loss, grad_norm]."""
+        rec = self.recorder
         if self.device.type != "cuda":
-            self.zero_grad()
-            return body()
+            with rec.span("step.launch"):
+                self.zero_grad()
+                return body()
         e = self.entries.setdefault(key, _Entry())
         if e.graph is None:
             if e.warm < WARMUP:
                 e.warm += 1
-                return self._eager(body)
-            self._capture(e, body)
-        return self._replay(e)
+                with rec.span("step.eager"):
+                    return self._eager(body)
+            with rec.span("step.capture"):
+                self._capture(e, body)
+        with rec.span("step.launch"):
+            return self._replay(e)
 
     def _side(self) -> torch.cuda.Stream:
         if self.stream is None:
@@ -137,8 +155,8 @@ class StepGraphs:
         reserved = torch.cuda.memory_reserved(self.device)
         before = launch_counts()
         t0 = time.perf_counter()
-        with torch.cuda.graph(graph, pool=torch.cuda.graph_pool_handle(),
-                              stream=side):
+        with spans.capturing(e.markers), torch.cuda.graph(
+                graph, pool=torch.cuda.graph_pool_handle(), stream=side):
             e.out = body()
         e.capture_s = time.perf_counter() - t0
         e.pool_bytes = torch.cuda.memory_reserved(self.device) - reserved
@@ -151,13 +169,8 @@ class StepGraphs:
     def _replay(self, e: _Entry) -> torch.Tensor:
         e.replays += 1
         _add(REPLAYED, e.launches)
-        if self.events is not None:
-            start, end = (torch.cuda.Event(enable_timing=True)
-                          for _ in range(2))
-            start.record()
-            e.graph.replay()
-            end.record()
-            self.events.append((start, end))
+        if self.recorder.events is not None:
+            self.recorder.replay(e.graph, "step/1", e.markers)
         else:
             e.graph.replay()
         for t in self.versioned:

@@ -41,6 +41,7 @@ from tpu_diffusion_torch.parallel.tp import SHARD_ATTR, shard_state_
 from tpu_diffusion_torch.sampling.graph import WARMUP
 from tpu_diffusion_torch.train.actions import PeriodicAction
 from tpu_diffusion_torch.train.graph import StepGraphs
+from tpu_diffusion_torch.utils import spans
 
 # loss(model, generator, batch) -> scalar
 LossFn = Callable[[nn.Module, Optional[torch.Generator], torch.Tensor],
@@ -227,8 +228,10 @@ class TrainStep:
     is the global batch's: averaged over "data" in the gradients'
     all-reduce. The eager step sets the gradients
     to None between the two; a captured body (`train/graph.py`) writes them
-    in place. `eager_reason` is the loss function's, where it declares one
-    (a loss that reads the host inside the step cannot be captured)."""
+    in place, and holds two markers (`utils/spans.py:mark`): "forward"
+    after the loss and "backward" after its backward. `eager_reason` is
+    the loss function's, where it declares one (a loss that reads the host
+    inside the step cannot be captured)."""
 
     def __init__(self, loss_fn: LossFn, ema_decay: float = 0.9999,
                  ema_update_every: int = 1, ema_update_after: int = 0,
@@ -247,7 +250,9 @@ class TrainStep:
     def body(self, state: TrainState, batch) -> torch.Tensor:
         state.model.train()
         loss = self.loss_fn(state.model, state.generator, batch)
+        spans.mark("forward")
         loss.backward()
+        spans.mark("backward")
         loss = loss.detach().float().reshape(1)
         gnorm = state.optimizer.update([loss])
         ema_blend(state.ema, state.params)
@@ -302,6 +307,13 @@ class Trainer:
     index; index 0 keeps the seed), where the JAX step draws the global
     batch's with one key (ROADMAP §C). `tensor_parallel` with a
     "model" axis > 1 shards the state (`parallel/tp.py:shard_state_`).
+
+    Spans (`utils/spans.py`, on `recorder`: the step graphs' one, started
+    by assigning a list to `graphs.events`): "step" per step, its request
+    id the step number, with "step.batch" (the batch into the static
+    buffers), "step.fill" (the host part), the body's span of
+    `train/graph.py` ("step.eager" on the eager route) and "step.metrics"
+    (the host read of the metrics, where a consumer fires).
     """
 
     def __init__(self, train_step: Callable, state: TrainState,
@@ -343,6 +355,8 @@ class Trainer:
             state.optimizer.zero_grad, [state.generator, self._batch_gen],
             list(state.model.parameters())
             + list(state.ema.params.values())) if self.graphed else None
+        self.recorder = (self.graphs.recorder if self.graphs is not None
+                         else spans.Recorder())
         self._inputs: Dict[object, object] = {}
 
     def _eager_reason(self, graphed: bool) -> Optional[str]:
@@ -394,7 +408,8 @@ class Trainer:
     def _graphed_step(self, key, inputs_of: Callable) -> torch.Tensor:
         """fill, then the body through the step graphs: [loss, grad_norm],
         the graph's static output (copy it before the next step)."""
-        self._step_fn.fill(self.state)
+        with self.recorder.span("step.fill"):
+            self._step_fn.fill(self.state)
         return self.graphs.run(key, lambda: self._step_fn.body(
             self.state, inputs_of()))
 
@@ -403,37 +418,46 @@ class Trainer:
             ) -> TrainState:
         t0 = time.monotonic()
         step0 = self.state.step
+        rec = self.recorder
         for local_step in range(num_steps):
+            step = step0 + local_step + 1
+            with rec.span("step", request=step):
+                self._fit_step(step, local_step, t0, metrics_hook)
+        return self.state
+
+    def _fit_step(self, step: int, local_step: int, t0: float,
+                  metrics_hook) -> None:
+        rec = self.recorder
+        with rec.span("step.batch"):
             key, inputs = self._static_inputs(
                 shard_batch(self.mesh, next(self._batches)))
-            if self.graphed:
-                out = self._graphed_step(("fit", key), lambda: inputs)
-                out = out.clone()
-                metrics = {"loss": out[0], "grad_norm": out[1]}
-            else:
+        if self.graphed:
+            out = self._graphed_step(("fit", key), lambda: inputs)
+            out = out.clone()
+            metrics = {"loss": out[0], "grad_norm": out[1]}
+        else:
+            with rec.span("step.eager"):
                 self.state, metrics = self._step_fn(self.state, inputs)
-            step = step0 + local_step + 1
-            # The metrics come to the host (a device synchronisation) only
-            # on steps where some consumer runs. Each callback's decision is
-            # sampled once and passed back in: an every_secs deadline
-            # crossing between this preview and the callback's own re-check
-            # would otherwise fire with the device tensors.
-            decisions = [getattr(cb, "should_fire", lambda s: True)(step)
-                         for cb in self.callbacks]
-            if metrics_hook is not None or any(decisions):
+        # The metrics come to the host (a device synchronisation) only on
+        # steps where some consumer runs. Each callback's decision is
+        # sampled once and passed back in: an every_secs deadline crossing
+        # between this preview and the callback's own re-check would
+        # otherwise fire with the device tensors.
+        decisions = [getattr(cb, "should_fire", lambda s: True)(step)
+                     for cb in self.callbacks]
+        if metrics_hook is not None or any(decisions):
+            with rec.span("step.metrics"):
                 m = {k: float(v) for k, v in metrics.items()}
-                m["steps_per_sec"] = (local_step + 1) / (
-                    time.monotonic() - t0)
+            m["steps_per_sec"] = (local_step + 1) / (time.monotonic() - t0)
+        else:
+            m = metrics  # device tensors; no callback will read them
+        if metrics_hook is not None:
+            metrics_hook(step, m)
+        for cb, d in zip(self.callbacks, decisions):
+            if hasattr(cb, "should_fire"):
+                cb(step, state=self.state, metrics=m, _fire=d)
             else:
-                m = metrics  # device tensors; no callback will read them
-            if metrics_hook is not None:
-                metrics_hook(step, m)
-            for cb, d in zip(self.callbacks, decisions):
-                if hasattr(cb, "should_fire"):
-                    cb(step, state=self.state, metrics=m, _fire=d)
-                else:
-                    cb(step, state=self.state, metrics=m)
-        return self.state
+                cb(step, state=self.state, metrics=m)
 
     def fit_scanned(self, num_steps: int,
                     sample_batch: Callable[[torch.Generator], object],
@@ -469,23 +493,29 @@ class Trainer:
         t0 = time.monotonic()
         done = 0
         gen = self._batch_gen
+        rec = self.recorder
         while done < num_steps:
             k = min(chunk, num_steps - done)
             trace = torch.empty((k, 2), dtype=torch.float32,
                                 device=self._device)
             for i in range(k):
-                gen.manual_seed(step_seed(base_seed, step0 + done + i))
-                if self.graphed:
-                    out = self._graphed_step(("scanned", sample_batch),
-                                             lambda: sample_batch(gen))
-                else:
-                    self.state, metrics = self._step_fn(self.state,
-                                                        sample_batch(gen))
-                    out = torch.stack([metrics["loss"].float(),
-                                       metrics["grad_norm"].float()])
-                trace[i].copy_(out)
-            # one host read per chunk
-            trace = trace.T.cpu().numpy()
+                with rec.span("step", request=step0 + done + i + 1):
+                    with rec.span("step.batch"):
+                        gen.manual_seed(step_seed(base_seed,
+                                                  step0 + done + i))
+                    if self.graphed:
+                        out = self._graphed_step(("scanned", sample_batch),
+                                                 lambda: sample_batch(gen))
+                    else:
+                        with rec.span("step.eager"):
+                            self.state, metrics = self._step_fn(
+                                self.state, sample_batch(gen))
+                        out = torch.stack([metrics["loss"].float(),
+                                           metrics["grad_norm"].float()])
+                    trace[i].copy_(out)
+                    if i == k - 1:  # one host read per chunk
+                        with rec.span("step.metrics"):
+                            trace = trace.T.cpu().numpy()
             losses, gnorms = trace[0], trace[1]
             done += k
             step = step0 + done

@@ -5,9 +5,12 @@ PyTorch equivalent:
   * `enable_debug_nans` -> autograd anomaly mode with `check_nan`. It is
     weaker than `jax_debug_nans`, which traps a NaN made by any op: anomaly
     mode checks only what the backward produces;
-  * `trace` -> `torch.profiler.record_function`, a named range in a
-    profiler trace; `profile(logdir)` -> a `torch.profiler` trace of the
-    block (CPU, and CUDA where the build has it) written to `logdir`;
+  * `trace` -> a span of `utils/spans.py:PROCESS`, the port's one tracing
+    mechanism: a named range (`torch.profiler.record_function`) in any
+    active profiler, kept as a span while that recorder records;
+    `profile(logdir)` -> a `torch.profiler` trace of the block (CPU, and
+    CUDA where the build has it) written to `logdir`, in which every
+    program span (`chain`, `step` and their children) is a named range;
   * `compiled_cost` -> the FLOPs of one call counted by
     `torch.utils.flop_counter.FlopCounterMode` (it gives no byte count,
     unlike XLA's cost analysis);
@@ -25,24 +28,24 @@ from typing import Any, Callable, Dict, Iterable
 
 import torch
 
+from tpu_diffusion_torch.utils import spans
+
 
 def enable_debug_nans(enable: bool = True):
     torch.autograd.set_detect_anomaly(enable, check_nan=True)
 
 
-@contextlib.contextmanager
 def trace(name: str):
     """Profiler annotation: `with trace("train_step"): ...`."""
-    with torch.profiler.record_function(name):
-        yield
+    return spans.PROCESS.span(name)
 
 
 @contextlib.contextmanager
 def profile(logdir: str):
     """Capture a profiler trace of the block into `logdir/trace.json`
-    (Chrome trace format)."""
+    (Chrome trace format), the program's spans named in it."""
     os.makedirs(logdir, exist_ok=True)
-    with torch.profiler.profile(
+    with spans.annotating(), torch.profiler.profile(
             activities=torch.profiler.supported_activities()) as prof:
         yield prof
     prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
