@@ -18,6 +18,12 @@ The DDIM path of the CIFAR-10 bench UNet:
            time from CUDA-graph replay, and eager time from Python; for
            attention also SDPA with the layout copies a library route would
            pay), beside the kernel's bound;
+  gn_backward  the GroupNorm backward kernel at the 61 calls of one 64px
+           training step (batch 32, bf16; `--gn-backward` runs it alone):
+           its gradients against autograd through the plain version, two
+           calls bitwise, its route and the other route's time, its time
+           beside its bound, and forward + backward through the kernel
+           pair, the plain chain and F.group_norm;
   forward  the full-width bench UNet (CIFAR-10, 128 channels, batch 64,
            bf16, random weights from seed 0): eps with the kernels against
            eps with the plain versions, for both norm configurations;
@@ -108,7 +114,9 @@ forward, batch 32, synthetic images):
            capture, one replay a step): ms per step after the first, loss
            and gradient norm finite at every step, parameters and EMA
            parameters moved, 5 flash forward and 5 flash backward launches
-           per step that ran (replays included), each replay's device
+           and 61 GroupNorm forward and 61 backward launches (cli.build's
+           norm_impl="fused" on the card) per step that ran (replays
+           included), each replay's device
            time, a checkpoint written and read back equal, then `cli.main
            --mode eval` from that checkpoint on a 50-step chain.
   eval_metrics  `cli.main --mode eval` on the same 64px model (random
@@ -314,6 +322,24 @@ GN_PATH_SHAPES = {
         (16, 512, False, "silu", 2), (32, 128, False, "silu", 3),
         (32, 128, True, "silu", 5), (32, 256, False, "silu", 2),
         (32, 384, False, "silu", 1)]}
+# the GroupNorm calls of one 64px training step (cli.main's flowers UNet,
+# batch 32, norm_impl="fused" as cli.build takes it on the card), each with
+# its backward: {(H = W, C, FiLM, act): calls}
+GN_STEP_64PX = {
+    (h, c, film, act): n for h, c, film, act, n in [
+        (8, 384, False, "silu", 1), (8, 512, False, "none", 6),
+        (8, 512, False, "silu", 3), (8, 512, True, "silu", 7),
+        (8, 896, False, "silu", 1), (8, 1024, False, "silu", 2),
+        (16, 256, False, "silu", 1), (16, 384, False, "none", 5),
+        (16, 384, False, "silu", 1), (16, 384, True, "silu", 5),
+        (16, 640, False, "silu", 1), (16, 768, False, "silu", 1),
+        (16, 896, False, "silu", 1), (32, 128, False, "silu", 1),
+        (32, 256, False, "none", 5), (32, 256, False, "silu", 1),
+        (32, 256, True, "silu", 5), (32, 384, False, "silu", 1),
+        (32, 512, False, "silu", 1), (32, 640, False, "silu", 1),
+        (64, 128, False, "silu", 3), (64, 128, True, "silu", 5),
+        (64, 256, False, "silu", 2), (64, 384, False, "silu", 1)]}
+TRAIN_BATCH = 32
 # the ResBlocks of one CIFAR forward: {(x shape, Cout, 1x1 skip): calls}; the
 # engine puts those of at least 1024 pixels (the five 32x32 ones) on the
 # ResBlock kernel
@@ -722,6 +748,146 @@ def kernel_phase(torch, F, card_info, attn_shapes, norm_shapes):
         if count:
             add("fused_groupnorm_silu", count, err, times, bnd, by)
     return totals
+
+
+def gn_backward_phase(torch, F, card_info, shapes=GN_STEP_64PX,
+                      batch=TRAIN_BATCH):
+    """The GroupNorm backward kernel (no TPU counterpart: the JAX kernel has
+    no backward; added so that the trained UNet can take the kernel pair)
+    at the 64px training step's shapes, bf16: dx, dgamma, dbeta, dscale,
+    dshift against autograd through the plain version in fp32; two calls
+    bitwise equal; its device time beside its bound (bytes: read x and dy,
+    write dx, the fp32 parameters and their gradients, with FiLM the
+    [B, C] scale, shift and their gradients, the statistics); the other
+    route's time where the shape has two; and, forward and backward
+    through autograd, the kernel pair against the UNet's plain chain
+    (GroupNorm32: `F.group_norm` on an fp32 copy, the bf16 cast and the
+    channels_last copy, FiLM, SiLU) and against `F.group_norm` in bf16 with
+    FiLM and SiLU (the library yardstick). Returns {kernel: per-step
+    sums}."""
+    from tpu_diffusion_torch.kernels import groupnorm
+    from tpu_diffusion_torch.models import nn as nn_mod
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    dtype, groups = torch.bfloat16, 32
+    tot = dict(max_rel_err=0.0, bound_ms=0.0, by={})
+    for (h, c, film, act), count in sorted(shapes.items()):
+        b = batch
+        x = (torch.randn((b, h, h, c), generator=gen, device=dev) * 2
+             + 0.5).to(dtype)
+        dy = torch.randn((b, h, h, c), generator=gen, device=dev).to(dtype)
+        gamma = 1 + 0.1 * torch.randn(c, generator=gen, device=dev)
+        beta = 0.1 * torch.randn(c, generator=gen, device=dev)
+        emb = scale = shift = None
+        if film:
+            emb = (0.2 * torch.randn((b, 2 * c), generator=gen, device=dev)
+                   ).to(dtype)
+            scale, shift = emb[:, :c], emb[:, c:]
+        stats = torch.empty((b, groups, 2), device=dev)
+        with torch.no_grad():
+            groupnorm._launch(x, gamma, beta, scale, shift, groups, 1e-5, act,
+                              stats=stats)
+        args = (dy, x, gamma, beta, scale, shift, stats, groups, act)
+        route = groupnorm.gn_bwd_route(b, h * h, c, 2, groups, sms)
+        got = groupnorm._launch_backward(*args)
+        again = groupnorm._launch_backward(*args)
+        leaves = [None if t is None else t.detach().float().requires_grad_()
+                  for t in (x, gamma, beta, scale, shift)]
+        groupnorm.reference_groupnorm_silu(*leaves, groups, act=act).backward(
+            dy.float())
+        torch.cuda.synchronize()
+        errs = [((g.float() - w.grad).abs().max() / w.grad.abs().max()).item()
+                for g, w in zip(got, leaves) if w is not None]
+        err = max(errs)
+        same = all(torch.equal(a, b_) for a, b_ in zip(got, again)
+                   if a is not None)
+        check(math.isfinite(err) and err <= 1e-2,
+              f"groupnorm backward {b, h, h, c} film={film} {act}: largest "
+              f"error {err} of the largest entry")
+        check(same, f"groupnorm backward {b, h, h, c}: two calls differ")
+        del leaves
+        times = {}
+        times["ms"], times["eager_ms"] = time_ms(
+            lambda: groupnorm._launch_backward(*args))
+        # the other route, where the shape has two (BWD_CLUSTER_MAX moved)
+        if groupnorm.bwd_cluster_route(b, h * h, c, 2, groups, sms):
+            other = "two_pass" if route[0] == "cluster" else "cluster"
+            was = groupnorm.BWD_CLUSTER_MAX
+            groupnorm.BWD_CLUSTER_MAX = 0 if other == "two_pass" else 1 << 40
+            try:
+                times[other + "_ms"], _ = time_ms(
+                    lambda: groupnorm._launch_backward(*args))
+            finally:
+                groupnorm.BWD_CLUSTER_MAX = was
+        # forward and backward through autograd, in the UNet's NCHW
+        # channels_last layout: the kernel pair (FusedNormAct), the plain
+        # chain (GroupNorm32 + FiLM + SiLU), F.group_norm in bf16
+        x_cl = x.permute(0, 3, 1, 2)
+        x_nchw = x_cl.contiguous()
+        dy_cl = dy.permute(0, 3, 1, 2)
+        fused = nn_mod.FusedNormAct(c, act=act, device=dev)
+        plain = nn_mod.GroupNorm32(c, device=dev)
+        g16 = gamma.to(dtype).requires_grad_()
+        b16 = beta.to(dtype).requires_grad_()
+        for m in (fused, plain):
+            with torch.no_grad():
+                m.weight.copy_(gamma)
+                m.bias.copy_(beta)
+        emb_g = emb.clone().requires_grad_() if film else None
+        xg = x_cl.detach().requires_grad_()
+        xn = x_nchw.detach().requires_grad_()
+
+        def film_act(y, e):
+            if e is not None:
+                y = y * (1 + e[:, :c, None, None]) + e[:, c:, None, None]
+            return F.silu(y) if act == "silu" else y
+
+        def through(fwd, inputs):
+            def run():
+                outs = [t for t in inputs if t is not None]
+                return torch.autograd.grad(fwd(), outs, dy_cl)
+            return run
+
+        times["autograd_ms"], times["autograd_eager_ms"] = time_ms(through(
+            lambda: fused(xg, film=emb_g),
+            [xg, fused.weight, fused.bias, emb_g]))
+        times["plain_ms"], times["plain_eager_ms"] = time_ms(through(
+            lambda: film_act(plain(xg), emb_g),
+            [xg, plain.weight, plain.bias, emb_g]))
+        times["library_ms"], times["library_eager_ms"] = time_ms(through(
+            lambda: film_act(F.group_norm(xn, groups, g16, b16, 1e-5),
+                             emb_g), [xn, g16, b16, emb_g]))
+        n = b * h * h * c
+        nbytes = (3 * n * 2 + 4 * c * 4 + (4 * b * c * 2 if film else 0)
+                  + b * groups * 8)
+        # ~24 fp32 operations per element: xhat, z, SiLU and its slope, the
+        # two sums, dx
+        bnd, by = bound_ms(nbytes, 24 * n, FP32_FLOPS)
+        emit(card_info, phase="gn_backward", kernel="fused_groupnorm_silu_bwd",
+             shape=[b, h, h, c], groups=groups, film=film, act=act,
+             dtype=str(dtype), route=route[0], geometry=list(route[1]),
+             count_per_step=count, max_rel_err=err, tol=1e-2,
+             two_calls_bitwise_equal=same, **times, bound_ms=bnd,
+             bound_by=by, roofline=bnd / times["ms"])
+        tot["max_rel_err"] = max(tot["max_rel_err"], err)
+        tot["bound_ms"] += count * bnd
+        tot["by"][by] = tot["by"].get(by, 0.0) + count * bnd
+        for k, v in times.items():
+            if k not in ("two_pass_ms", "cluster_ms"):
+                tot[k] = tot.get(k, 0.0) + count * v
+        del fused, plain, x, dy, got, again
+    tot["max_abs_err"] = None  # relative: max_rel_err
+    emit(card_info, phase="gn_backward", per_step={
+        k: v for k, v in tot.items() if k != "by"},
+         roofline=tot["bound_ms"] / tot["ms"],
+         note="sums over the 61 calls of one 64px training step at batch "
+              "32; ms: the backward kernel alone; autograd_ms: forward and "
+              "backward through FusedNormAct; plain_ms: through "
+              "GroupNorm32 + FiLM + SiLU (norm_impl='plain'); library_ms: "
+              "F.group_norm in bf16 + FiLM + SiLU; device time from CUDA "
+              "graph replay, eager_* launched from Python")
+    return {"fused_groupnorm_silu_bwd": tot}
 
 
 def expected_counts(model, nn_mod, unet):
@@ -1413,10 +1579,11 @@ def train_phase(torch, card_info, dev):
               and "conv_out.weight" not in still,
               f"train: {moved} parameters and {ema_moved} EMA parameters of "
               f"{len(before)} moved")
-        check(executed == {"flash_attention_fwd": 5 * TRAIN_STEPS,
-                           "flash_attention_bwd": 5 * TRAIN_STEPS}
-              and entry.launches == {"flash_attention_fwd": 5,
-                                     "flash_attention_bwd": 5}
+        per_step = {"flash_attention_fwd": 5, "flash_attention_bwd": 5,
+                    "fused_groupnorm_silu": 61,
+                    "fused_groupnorm_silu_bwd": 61}
+        check(executed == {k: v * TRAIN_STEPS for k, v in per_step.items()}
+              and entry.launches == per_step
               and entry.replays == TRAIN_STEPS - WARMUP,
               f"train: flash launches {executed}, per replay "
               f"{entry.launches}, {entry.replays} replays")
@@ -4315,10 +4482,16 @@ def main():
                                      "data-parallel check only"}),
               flush=True)
         return 0
+    if sys.argv[1:] == ["--gn-backward"]:
+        gn_backward_phase(torch, F, card_info)
+        print(json.dumps({"partial": "--gn-backward: the GroupNorm backward "
+                                     "kernel's cases only"}), flush=True)
+        return 0
     if sys.argv[1:] == ["--kernels"]:
         kernel_phase(torch, F, card_info, ATTN_PATH_SHAPES, GN_PATH_SHAPES)
         resblock_phase(torch, card_info, RES_PATH_SHAPES, unet, dev)
         flash_kernel_phase(torch, F, card_info, FLASH_PATH_SHAPES, dev)
+        gn_backward_phase(torch, F, card_info)
         print(json.dumps({"partial": "--kernels: the kernels' cases only"}),
               flush=True)
         return 0
@@ -4338,6 +4511,8 @@ def main():
           f"the CIFAR UNet's ResBlocks {res_shapes}")
     totals = kernel_phase(torch, F, card_info, attn_shapes, norm_shapes)
     totals.update(resblock_phase(torch, card_info, res_shapes, unet, dev))
+    totals.update(gn_backward_phase(torch, F, card_info))
+    groupnorm.backward_launches = 0
 
     # --- full-width forward: kernels against plain versions ------------
     for name, (mk, mp) in models.items():
@@ -4467,6 +4642,7 @@ def main():
             counts[name] += n
     finally:
         shutil.rmtree(out, ignore_errors=True)
+    counts["fused_groupnorm_silu_bwd"] = groupnorm.backward_launches
     for name, n in counts.items():
         check(n > 0, f"{name} was not launched on the main path")
 
@@ -4486,6 +4662,9 @@ def main():
         "fused_resblock": (
             "tpu_diffusion_torch/kernels/csrc/resblock.cu",
             "tpu_diffusion/kernels/resblock.py:242"),
+        "fused_groupnorm_silu_bwd": (
+            "tpu_diffusion_torch/kernels/csrc/groupnorm_silu.cu",
+            "none: the JAX kernel has no backward"),
     }
     per = {
         "flash_attention_fused": "one full CIFAR UNet forward at batch 64 "
@@ -4526,6 +4705,15 @@ def main():
                           "library_ms: the port's "
                           "ResBlock module, cuDNN convs with the eager norm "
                           "chain (library_gn_kernel_ms: with the GN kernel)",
+        "fused_groupnorm_silu_bwd": "one 64px training step at batch 32 (its "
+                                    "61 calls; max_rel_err over each "
+                                    "gradient's largest entry); ms: the "
+                                    "backward alone; autograd_ms, plain_ms, "
+                                    "library_ms: forward and backward "
+                                    "through the kernel pair, the plain "
+                                    "chain, F.group_norm; launches: every "
+                                    "cli.main training and guidance step "
+                                    "of the run",
     }
     table = []
     for name, (source, replaces) in meta.items():
@@ -4536,7 +4724,8 @@ def main():
             "replayed_launches": graph.REPLAYED.get(name, 0),
             "max_abs_err": tot["max_abs_err"],
             **{k: tot[k] for k in ("max_rel_err", "library_gn_kernel_ms",
-                                   "library_with_layout_ms") if k in tot},
+                                   "library_with_layout_ms", "autograd_ms")
+               if k in tot},
             "ms": tot["ms"],
             "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
             "bound_by": max(tot["by"], key=tot["by"].get),

@@ -197,20 +197,15 @@ def test_cuda_graphed_mpnn_decode_equals_the_loop(cuda):
     assert graphs.captures == 1
 
 
-@pytest.mark.cuda
-def test_cuda_graphed_guidance_equals_eager(cuda):
-    """The reconstruction-guidance chain (25 steps, half guided, one
-    corrector) over a small fp32 UNet with flash attention at T=1024: the
-    guided body differentiates inside its capture, the chain equals the
-    eager one bitwise, and the replays launch the flash backward as often
-    as the eager chain. The fp32 flash backward sums with no atomics;
-    cuDNN's default backward-data algorithms do (two eager gradients
-    differ by ~7e-7, which gamma 10 amplifies), so the test takes its
-    deterministic ones."""
+def _guided_chains(cuda, norm_impl):
+    """(graphed chain, eager chain, first eager chain, its cache, the eager
+    chain's kernel launches) of the reconstruction-guidance chain over a
+    small fp32 UNet with `norm_impl`, cuDNN deterministic."""
     model = create_model(image_size=32, num_channels=32, num_res_blocks=1,
                          in_channels=3, channel_mult=(1, 2), num_heads=1,
                          attention_resolutions="32", dtype=torch.float32,
-                         attention_impl="flash", device=cuda)
+                         attention_impl="flash", norm_impl=norm_impl,
+                         device=cuda)
     randomize_(model, torch.Generator().manual_seed(7))
     model.eval().requires_grad_(False)
 
@@ -243,9 +238,36 @@ def test_cuda_graphed_guidance_equals_eager(cuda):
         torch.cuda.synchronize()
     finally:
         torch.backends.cudnn.deterministic = deterministic
+    return got, want, first, graphs, eager
+
+
+@pytest.mark.cuda
+def test_cuda_graphed_guidance_equals_eager(cuda):
+    """The reconstruction-guidance chain (25 steps, half guided, one
+    corrector) over a small fp32 UNet with flash attention at T=1024: the
+    guided body differentiates inside its capture, the chain equals the
+    eager one bitwise, and the replays launch the flash backward as often
+    as the eager chain. The fp32 flash backward sums with no atomics;
+    cuDNN's default backward-data algorithms do (two eager gradients
+    differ by ~7e-7, which gamma 10 amplifies), so the test takes its
+    deterministic ones."""
+    got, want, first, graphs, eager = _guided_chains(cuda, "plain")
     assert torch.equal(got, want) and torch.equal(want, first)
     assert graphs.replayed_launches() == eager
     assert eager["flash_attention_bwd"] > 0
+
+
+@pytest.mark.cuda
+def test_cuda_graphed_guidance_through_the_gn_kernel(cuda):
+    """The same chain with the GroupNorm kernel (as `cli.main.build` gives
+    it on the card): the guidance gradient with respect to x alone (the
+    parameters need none) runs the GN backward kernel, whose sums take no
+    atomics, so the graphed chain still equals the eager one bitwise."""
+    got, want, first, graphs, eager = _guided_chains(cuda, "fused")
+    assert torch.equal(got, want) and torch.equal(want, first)
+    assert graphs.replayed_launches() == eager
+    assert eager["fused_groupnorm_silu_bwd"] > 0
+    assert eager["fused_groupnorm_silu"] > eager["fused_groupnorm_silu_bwd"]
 
 
 @pytest.mark.cuda

@@ -124,6 +124,152 @@ def test_cuda_groupnorm_twice_bitwise(cuda, shape, dtype, route):
     torch.testing.assert_close(one.float(), want.float(), atol=tol, rtol=tol)
 
 
+# every (H = W, C, FiLM, act) of the GroupNorm calls in one step of the 64px
+# UNet (`flowers,inpainting,amortized`): 61 calls at batch 32
+GN_STEP_64PX = [
+    (8, 384, False, "silu"), (8, 512, False, "none"), (8, 512, False, "silu"),
+    (8, 512, True, "silu"), (8, 896, False, "silu"), (8, 1024, False, "silu"),
+    (16, 256, False, "silu"), (16, 384, False, "none"),
+    (16, 384, False, "silu"), (16, 384, True, "silu"),
+    (16, 640, False, "silu"), (16, 768, False, "silu"),
+    (16, 896, False, "silu"), (32, 128, False, "silu"),
+    (32, 256, False, "none"), (32, 256, False, "silu"),
+    (32, 256, True, "silu"), (32, 384, False, "silu"),
+    (32, 512, False, "silu"), (32, 640, False, "silu"),
+    (64, 128, False, "silu"), (64, 128, True, "silu"),
+    (64, 256, False, "silu"), (64, 384, False, "silu")]
+
+
+def _gn_grad_case(cuda, dtype, hw, c, film, b=2, seed=0):
+    x, gamma, beta, scale, shift = _gn_inputs(seed + hw * c, b, hw, c, film,
+                                              cuda)
+    dy = torch.randn(x.shape, generator=torch.Generator().manual_seed(seed),
+                     ).to(cuda, dtype)
+    x = x.to(dtype)
+    if film:
+        emb = torch.cat([scale, shift], 1).to(dtype)  # strided halves
+        scale, shift = emb[:, :c], emb[:, c:]
+    return x, gamma, beta, scale, shift, dy
+
+
+def _gn_grad_want(x, gamma, beta, scale, shift, dy, act):
+    """Autograd through the plain version in fp32, from the same values."""
+    leaves = [None if t is None else t.float().clone().requires_grad_()
+              for t in (x, gamma, beta, scale, shift)]
+    groupnorm.reference_groupnorm_silu(*leaves, 32, act=act).backward(
+        dy.float())
+    return [None if t is None else t.grad for t in leaves]
+
+
+def _gn_grad_close(got, want, dtype):
+    # fp32: summation order (sums over up to 32 x 4096 elements) and the
+    # kernel's E[x^2] - mean^2 variance against the plain two-pass one;
+    # bf16: one rounding of dx, dscale and dshift (2^-8 relative), and the
+    # statistics of bf16 inputs, within a hundredth of the largest entry
+    tol = 1e-4 if dtype == torch.float32 else 1e-2
+    for name, g, w in zip(("dx", "dgamma", "dbeta", "dscale", "dshift"),
+                          got, want):
+        if w is None:
+            assert g is None, name
+            continue
+        assert bool(torch.isfinite(g).all()), name
+        err = (g.float() - w).abs().max().item()
+        assert err <= tol * w.abs().max().item(), (name, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("route", ["cluster", "two_pass"])
+@pytest.mark.parametrize("hw,c,film,act", GN_STEP_64PX)
+def test_cuda_groupnorm_backward_matches_autograd(cuda, monkeypatch, dtype,
+                                                  route, hw, c, film, act):
+    """The backward kernel at every shape of the 64px training step,
+    through each route that can take it (the cluster route holds the
+    image's x and dy in eight blocks at most; BWD_CLUSTER_MAX moved to
+    force the route), against autograd through the plain version: one
+    launch a call."""
+    b = 2
+    isz = dtype.itemsize
+    monkeypatch.setattr(groupnorm, "BWD_CLUSTER_MAX",
+                        1 << 40 if route == "cluster" else 0)
+    if groupnorm.gn_bwd_route(b, hw * hw, c, isz)[0] != route:
+        assert groupnorm.bwd_cluster_route(b, hw * hw, c, isz) is None
+        return
+    x, gamma, beta, scale, shift, dy = _gn_grad_case(cuda, dtype, hw, c,
+                                                     film, b)
+    stats = torch.empty((b, 32, 2), device=cuda)
+    with torch.no_grad():
+        groupnorm._launch(x, gamma, beta, scale, shift, 32, 1e-5, act,
+                          stats=stats)
+    torch.testing.assert_close(stats, groupnorm.group_stats(x),
+                               rtol=1e-4, atol=1e-5)
+    before = groupnorm.backward_launches
+    got = groupnorm._launch_backward(dy, x, gamma, beta, scale, shift, stats,
+                                     32, act)
+    torch.cuda.synchronize()
+    assert groupnorm.backward_launches == before + 1
+    assert got[0].dtype == dtype and got[1].dtype == torch.float32
+    _gn_grad_close(got, _gn_grad_want(x, gamma, beta, scale, shift, dy, act),
+                   dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("hw,c,film,act", [(32, 256, True, "silu"),
+                                           (64, 128, True, "silu"),
+                                           (16, 384, False, "none")])
+def test_cuda_groupnorm_autograd_takes_the_kernels(cuda, dtype, hw, c, film,
+                                                   act):
+    """Where an input needs a gradient, `fused_groupnorm_silu` runs the
+    forward kernel (writing the statistics) and, in the backward, the
+    backward kernel, at batch 32 on the route `gn_bwd_route` picks; the
+    forward output is the no-grad launch's, bitwise."""
+    x, gamma, beta, scale, shift, dy = _gn_grad_case(cuda, dtype, hw, c,
+                                                     film, b=32)
+    with torch.no_grad():
+        plain_y = groupnorm.fused_groupnorm_silu(x, gamma, beta, scale,
+                                                 shift, 32, act=act)
+    leaves = [None if t is None else t.clone().requires_grad_()
+              for t in (x, gamma, beta)]
+    emb = (torch.cat([scale, shift], 1).requires_grad_() if film else None)
+    sc, sh = (emb[:, :c], emb[:, c:]) if film else (None, None)
+    f0, b0 = groupnorm.launches, groupnorm.backward_launches
+    y = groupnorm.fused_groupnorm_silu(*leaves, sc, sh, 32, act=act)
+    y.backward(dy)
+    torch.cuda.synchronize()
+    assert (groupnorm.launches, groupnorm.backward_launches) == (f0 + 1,
+                                                                 b0 + 1)
+    assert torch.equal(y.detach(), plain_y)
+    got = [t.grad for t in leaves]
+    got += [emb.grad[:, :c], emb.grad[:, c:]] if film else [None, None]
+    _gn_grad_close(got, _gn_grad_want(x, gamma, beta, scale, shift, dy, act),
+                   dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["cluster", "two_pass"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_cuda_groupnorm_backward_twice_bitwise(cuda, monkeypatch, route,
+                                               dtype):
+    """No atomics: two backward calls on the same inputs give the same bits
+    on both routes (a graphed step must equal its eager one)."""
+    monkeypatch.setattr(groupnorm, "BWD_CLUSTER_MAX",
+                        1 << 40 if route == "cluster" else 0)
+    assert groupnorm.gn_bwd_route(32, 256, 384, dtype.itemsize)[0] == route
+    x, gamma, beta, scale, shift, dy = _gn_grad_case(cuda, dtype, 16, 384,
+                                                     True, b=32, seed=4)
+    stats = torch.empty((32, 32, 2), device=cuda)
+    with torch.no_grad():
+        groupnorm._launch(x, gamma, beta, scale, shift, 32, 1e-5, "silu",
+                          stats=stats)
+    args = (dy, x, gamma, beta, scale, shift, stats, 32, "silu")
+    one = groupnorm._launch_backward(*args)
+    two = groupnorm._launch_backward(*args)
+    torch.cuda.synchronize()
+    for a, b in zip(one, two):
+        assert torch.equal(a, b)
+
+
 def _flash_inputs(seed, bh, t, d, dtype, dev):
     g = torch.Generator().manual_seed(seed)
     return tuple(torch.randn((bh, t, d), generator=g).to(dev, dtype)

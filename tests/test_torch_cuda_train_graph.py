@@ -292,3 +292,102 @@ def test_cuda_protein_remat_graphed_equals_eager(cuda, deterministic):
     assert graphed.graphed and not eager.graphed
     assert got == want
     _same_state(graphed.state, eager.state)
+
+
+def _cli_trainer(cuda, dtype, graphed):
+    """A Trainer as `cli.main --mode train` builds it for a cut-down
+    `flowers,inpainting,amortized` config (32 channels, (1, 2), one
+    ResBlock a level, FiLM, dense attention at 32x32, batch 4): its UNet
+    from `cli.build` on the card, so its norms are the GroupNorm kernel."""
+    from tpu_diffusion_torch.cli import main as cli
+    from tpu_diffusion_torch.utils import config as config_mod
+    config = config_mod.get_config("flowers,inpainting,amortized")
+    config_mod.apply_overrides(config, [
+        "network.num_channels=32", "network.channel_mult=1,2",
+        "network.num_res_blocks=1", "network.num_head_channels=-1",
+        "network.num_heads=2", "network.attention_resolutions=32",
+        "network.attention_impl=dense", "training.batch_size=4",
+        f"network.dtype={'bfloat16' if dtype == torch.bfloat16 else 'float32'}"])
+    config.network.model_path = ""
+    torch.manual_seed(0)
+    parts = cli.build(config, cuda)
+    state, _ = cli.init_state(config, parts)
+    step = trainer.make_train_step(cli.make_loss(parts), ema_decay=0.9,
+                                   ema_update_every=2)
+    gen = torch.Generator().manual_seed(3)
+    batches = [torch.rand((4, 64, 64, 3), generator=gen) * 2 - 1
+               for _ in range(STEPS)]
+    return trainer.Trainer(step, state, iter(batches), graphed=graphed)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_cli_step_runs_the_groupnorm_kernels(cuda, deterministic,
+                                                  dtype):
+    """The UNet that `cli.build` makes on the card runs every norm through
+    the GroupNorm kernel and its backward: a replay of its graphed step
+    launches each once per norm, and the graphed steps still equal the
+    eager loop bitwise (the backward sums with no atomics)."""
+    from tpu_diffusion_torch.kernels import groupnorm
+    from tpu_diffusion_torch.models.nn import FusedNormAct, GroupNorm32
+    runs = {}
+    for graphed in (False, True):
+        rows = []
+        tr = _cli_trainer(cuda, dtype, graphed)
+        b0 = groupnorm.backward_launches
+        tr.fit(STEPS, metrics_hook=lambda s, m: rows.append(
+            (m["loss"], m["grad_norm"])))
+        runs[graphed] = (tr, rows, groupnorm.backward_launches - b0)
+    (eager, want, eager_bwd), (graphed, got, _) = runs[False], runs[True]
+    model = graphed.state.model
+    norms = sum(isinstance(m, FusedNormAct) for m in model.modules())
+    assert norms == 21
+    assert not any(isinstance(m, GroupNorm32) for m in model.modules())
+    assert eager_bwd == STEPS * norms
+    entry, = graphed.graphs.captured().values()
+    assert entry.launches["fused_groupnorm_silu"] == norms
+    assert entry.launches["fused_groupnorm_silu_bwd"] == norms
+    assert got == want
+    _same_state(graphed.state, eager.state)
+
+
+@pytest.mark.cuda
+def test_cuda_no_grad_forwards_write_no_statistics(cuda, monkeypatch):
+    """Under no_grad (the engine, the samplers) the GroupNorm kernel is the
+    plain launch: no statistics pointer, one forward launch a norm, no
+    backward; with the gradient on, the same model's forward asks for the
+    statistics and its output is bitwise the same."""
+    from tpu_diffusion_torch.kernels import groupnorm
+    from tpu_diffusion_torch.models.nn import FusedNormAct
+    from tpu_diffusion_torch.models.unet_infer import make_fused_apply
+    model = create_model(image_size=32, num_channels=64, num_res_blocks=1,
+                         in_channels=3, channel_mult=(1, 2), num_heads=2,
+                         attention_resolutions="16",
+                         use_scale_shift_norm=True, dtype=torch.bfloat16,
+                         attention_impl="fused", norm_impl="fused",
+                         device=cuda)
+    randomize_(model, torch.Generator().manual_seed(0))
+    engine = make_fused_apply(model.eval())
+    seen = []
+    real = groupnorm._launch
+
+    def spy(*args, stats=None):
+        seen.append(stats is None)
+        return real(*args, stats=stats)
+
+    monkeypatch.setattr(groupnorm, "_launch", spy)
+    x = torch.randn((4, 32, 32, 3), generator=torch.Generator()
+                    .manual_seed(1)).to(cuda)
+    t = torch.full((4,), 0.5, device=cuda)
+    norms = sum(isinstance(m, FusedNormAct) for m in model.modules())
+    b0 = groupnorm.backward_launches
+    with torch.no_grad():
+        engine(x, t)
+        n_engine = len(seen)
+        want = model(x, t)
+    assert seen and all(seen) and len(seen) - n_engine == norms
+    assert groupnorm.backward_launches == b0
+    seen.clear()
+    got = model(x, t)
+    assert len(seen) == norms and not any(seen)
+    assert torch.equal(got.detach(), want)

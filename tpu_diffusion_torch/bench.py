@@ -67,7 +67,7 @@ REPEATS = 5  # timed chains of each sampler
 def bench_model(num_channels: int, device) -> torch.nn.Module:
     """`bench.py`'s UNet at `num_channels`, with the GroupNorm kernel and
     the fused-QKV attention, random weights from seed 0, for inference
-    (no parameter needs a gradient: the GroupNorm kernel has no backward)."""
+    (no parameter needs a gradient)."""
     model = create_model(image_size=32, num_channels=num_channels,
                          num_res_blocks=2, in_channels=3,
                          channel_mult=(1, 2, 2, 2), num_heads=4,

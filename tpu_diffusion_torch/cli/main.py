@@ -88,7 +88,9 @@ def experiment_dir(base: str, spec: str) -> str:
 def build(config, device="cuda", mesh=None) -> dict:
     """Instantiate model/process/likelihood/conditioning; returns a dict of
     parts (mirrors main.py:100-142). With `network.sequence_parallel` the
-    UNet's attention takes `mesh`."""
+    UNet's attention takes `mesh`. On a CUDA device the UNet's norms are
+    the GroupNorm(+FiLM)+SiLU kernel and its backward (`norm_impl="fused"`);
+    on the CPU the plain chain, as the JAX package computes it."""
     dsc, net_c = config.dataset, config.network
     likelihood = None
     if config.likelihood.name != "none":
@@ -110,6 +112,8 @@ def build(config, device="cuda", mesh=None) -> dict:
         dropout=net_c.dropout, use_scale_shift_norm=net_c.use_scale_shift_norm,
         attention_impl=net_c.attention_impl,
         dtype=torch.bfloat16 if net_c.dtype == "bfloat16" else torch.float32,
+        norm_impl=("fused" if resolve_device(device).type == "cuda"
+                   else "plain"),
         device=device,
         sp_mesh=mesh if net_c.get("sequence_parallel", False) else None)
     ddpm = DDPM.create(config.diffusion.num_steps).to(device)

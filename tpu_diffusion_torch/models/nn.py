@@ -74,7 +74,10 @@ class FusedNormAct(nn.Module):
     """GroupNorm(+FiLM)+activation as one kernel (`norm_impl="fused"`).
 
     Same parameters as GroupNorm32 (fp32 `weight`/`bias`). `film` is the
-    [B, 2C] embedding whose halves are the scale and the shift.
+    [B, 2C] embedding whose halves are the scale and the shift. It is
+    differentiable: on the card through the kernel's own backward
+    (`kernels/groupnorm.py:_GroupNormAct`), on the CPU through the plain
+    version. Unlike GroupNorm32 + FiLM + SiLU it rounds once, at the end.
     """
 
     def __init__(self, channels: int, act: str = "silu", num_groups: int = 32,
