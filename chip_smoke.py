@@ -259,6 +259,17 @@ widths:
            device ms, the card's idle share graphed and eager, capture
            seconds, pool bytes, launches per replay against an eager
            step's, and the route with its reason.
+The Stable Diffusion 2 inpainting UNet (`models/ldm_unet.py`, published
+widths, random weights from seed 0; `--xattn` runs it alone):
+  xattn    the cross-attention kernel (`flash_cross_attention`) against its
+           plain version at the 16 (heads, Tq) shapes of an SD2 step at 8
+           rows with Tk = 77, and off them; two calls bitwise; times as in
+           `kernel`, SDPA as the library yardstick, beside its bound;
+  xattn_gn  the GroupNorm kernel at the UNet's (C, H*W, eps, act) shapes
+           against the plain version;
+  xattn_chain  the graphed guided DDIM-50 chain (guidance 7.5, 8 rows a
+           step) bitwise against the eager chain, 16 cross- and 16
+           self-attention launches a replay of its step.
 Then the kernel table line (`launches`: the wrappers' calls on the paths,
 a graphed chain's at its warm-up and capture; `replayed_launches`: the
 launches replayed from graphs), the nvidia-smi line, and last
@@ -268,9 +279,11 @@ Needs one CUDA card; imports nothing of JAX.
     python3 chip_smoke.py --kernels
 
 builds the kernels and runs only the kernels' cases of the `kernel`,
-`resblock_kernel` and `flash_kernel` phases, at the shapes the paths give
-them (`ATTN_PATH_SHAPES`, `GN_PATH_SHAPES`, `RES_PATH_SHAPES`,
-`FLASH_PATH_SHAPES`, checked against the models' own calls in the full run;
+`resblock_kernel`, `flash_kernel`, `gn_backward`, `xattn` and `xattn_gn`
+phases, at the shapes the paths give them (`ATTN_PATH_SHAPES`,
+`GN_PATH_SHAPES`, `RES_PATH_SHAPES`, `FLASH_PATH_SHAPES`, checked against
+the models' own calls in the full run; `XATTN_PATH_SHAPES`; the SD2
+UNet's own GroupNorm calls;
 a quick check while working on a kernel; it does not print the ok line).
 
     python3 chip_smoke.py --data-parallel
@@ -4445,6 +4458,184 @@ def train_graphs_phase(torch, card_info, dev):
             - calls0["flash_attention_bwd"]}
 
 
+# --- the latent-diffusion UNet (models/ldm_unet.py) -------------------------
+
+SD2_CONFIG = "benchmark/configs/sd2-inpaint-unet.json"
+SD2_BATCH = 4              # images a chain; classifier-free guidance: 8 rows
+SD2_STEPS = 50
+SD2_TOKENS = 77
+SD2_SCALE = 7.5
+# (bh, tq) of the 16 cross-attention calls of a step at 8 rows, by count
+XATTN_PATH_SHAPES = {(40, 4096): 5, (80, 1024): 5, (160, 256): 5,
+                     (160, 64): 1}
+
+
+def sd2_model(torch, dev):
+    """The SD2-inpainting UNet at its published widths, weights from seed
+    SEED by the benchmark's rule; returns (model, its config)."""
+    from benchmark.reference.ldm_unet import make_weights
+    from tpu_diffusion_torch.models.ldm_unet import create_ldm_unet
+    with open(SD2_CONFIG) as f:
+        cfg = json.load(f)
+    model = create_ldm_unet(dtype=torch.bfloat16, device=dev,
+                            **cfg["model"])
+    model.load_state_dict(make_weights(cfg["model"], SEED, dev))
+    return model.eval().requires_grad_(False), cfg
+
+
+def xattn_phase(torch, F, card_info, dev, chain=True):
+    """The cross-attention kernel against its plain version and SDPA at
+    the shapes of an SD2 step at 8 rows and off them; the GroupNorm kernel
+    at the SD2 UNet's (C, H*W, eps, act) shapes against the plain version;
+    with `chain`, the graphed SD2 guided DDIM chain against its eager chain
+    (bitwise), with the launches of a replay of its step."""
+    from benchmark.counts.xattn_bounds import xattn as xattn_bound
+    from tpu_diffusion_torch.core.schedules import DDPM, scaled_linear_betas
+    from tpu_diffusion_torch.kernels import attention, groupnorm
+    from tpu_diffusion_torch.models.nn import FusedNormAct
+    from tpu_diffusion_torch.sampling.ancestral import (
+        amortized_eps_fn, classifier_free_eps_fn, make_ddim_sampler)
+    from tpu_diffusion_torch.sampling.graph import GraphCache
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    step_ms = {}
+    cases = [((bh, tq, SD2_TOKENS), n) for (bh, tq), n in
+             sorted(XATTN_PATH_SHAPES.items())]
+    cases += [((8, 100, 1), 0), ((8, 1000, 16), 0), ((4, 4096, 128), 0),
+              ((3, 77, 100), 0), ((2, 1, 33), 0)]
+    for (bh, tq, tk), count in cases:
+        q = torch.randn((bh, tq, 64), generator=gen, device=dev).bfloat16()
+        k, v = (torch.randn((bh, tk, 64), generator=gen, device=dev)
+                .bfloat16() for _ in range(2))
+        before = attention.flash_xattn_launches
+        o = attention.flash_cross_attention(q, k, v)
+        o2 = attention.flash_cross_attention(q, k, v)
+        want = attention.flash_attention_fwd_ref(q, k, v)[0]
+        torch.cuda.synchronize()
+        err = (o.float() - want.float()).abs().max().item()
+        tol = flash_o_tol("bfloat16", want)
+        check(attention.flash_xattn_launches == before + 2,
+              "flash_cross_attention did not count its launches")
+        check(math.isfinite(err) and err <= tol,
+              f"cross-attention {bh, tq, tk}: err {err} > {tol}")
+        same = torch.equal(o, o2)
+        check(same, f"cross-attention {bh, tq, tk}: two calls differ")
+        q4, k4, v4 = (x.view(1, bh, -1, 64) for x in (q, k, v))
+        times = measure(
+            lambda: attention.flash_cross_attention(q, k, v),
+            lambda: attention.flash_attention_fwd_ref(q, k, v),
+            lambda: F.scaled_dot_product_attention(q4, k4, v4))
+        bound = xattn_bound(bh, tq, tk, 64) * 1e3
+        emit(card_info, phase="xattn", kernel="flash_cross_attention",
+             shape=[bh, tq, tk, 64], count_per_step=count, max_abs_err=err,
+             tol=tol, two_calls_bitwise_equal=same, bound_ms=bound,
+             roofline_pct=100 * bound / times["ms"], **times)
+        for key, val in times.items():
+            step_ms[key] = step_ms.get(key, 0.0) + count * val
+        step_ms["bound_ms"] = step_ms.get("bound_ms", 0.0) + count * bound
+    emit(card_info, phase="xattn_step", calls=sum(XATTN_PATH_SHAPES.values()),
+         **step_ms)
+
+    model, cfg = sd2_model(torch, dev)
+    m = cfg["model"]
+    side, rows = m["sample_size"], 2 * SD2_BATCH
+    norms = {}
+
+    def hook(module, args):
+        x = args[0]
+        key = (x.shape[0], x.shape[2], x.shape[3], x.shape[1], module.eps,
+               module.act, module.groups)
+        norms[key] = norms.get(key, 0) + 1
+
+    handles = [mod.register_forward_pre_hook(hook)
+               for mod in model.modules() if isinstance(mod, FusedNormAct)]
+    ctx2 = torch.randn((rows, SD2_TOKENS, m["cross_attention_dim"]),
+                       generator=gen, device=dev)
+    cond2 = torch.randn((rows, side, side, m["in_channels"]
+                         - m["out_channels"]), generator=gen, device=dev)
+    x_T = torch.randn((SD2_BATCH, side, side, m["out_channels"]),
+                      generator=gen, device=dev)
+    with torch.no_grad():
+        model(torch.cat([x_T.repeat(2, 1, 1, 1), cond2], -1),
+              torch.zeros(rows, device=dev), ctx2)
+    for h in handles:
+        h.remove()
+    gn_ms = gn_plain_ms = 0.0
+    for (b, h, w, c, eps, act, groups), count in sorted(norms.items()):
+        x = (torch.randn((b, h, w, c), generator=gen, device=dev) * 2
+             + 0.5).bfloat16()
+        gamma = 1 + 0.1 * torch.randn(c, generator=gen, device=dev)
+        beta = 0.1 * torch.randn(c, generator=gen, device=dev)
+        got = groupnorm.fused_groupnorm_silu(x, gamma, beta, None, None,
+                                             groups, eps, act)
+        want = groupnorm.reference_groupnorm_silu(x, gamma, beta, None, None,
+                                                  groups, eps, act)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        tol = 2 ** -7 * max(1.0, want.float().abs().max().item())
+        check(math.isfinite(err) and err <= tol,
+              f"GroupNorm {b, h, w, c, eps, act}: err {err} > {tol}")
+        ms, _ = time_ms(lambda: groupnorm.fused_groupnorm_silu(
+            x, gamma, beta, None, None, groups, eps, act))
+        plain, _ = time_ms(lambda: groupnorm.reference_groupnorm_silu(
+            x, gamma, beta, None, None, groups, eps, act))
+        gn_ms += count * ms
+        gn_plain_ms += count * plain
+        emit(card_info, phase="xattn_gn", shape=[b, h, w, c], eps=eps,
+             act=act, count_per_step=count, max_abs_err=err, tol=tol,
+             route=groupnorm.gn_route(b, h * w, c, 2)[0], ms=ms,
+             plain_ms=plain)
+    emit(card_info, phase="xattn_gn_step", calls=sum(norms.values()),
+         ms=gn_ms, plain_ms=gn_plain_ms)
+    if not chain:
+        del model
+        torch.cuda.empty_cache()
+        return
+
+    sc = cfg["scheduler"]
+    ddpm = DDPM.create(sc["num_train_timesteps"], scaled_linear_betas(
+        sc["num_train_timesteps"], sc["beta_start"], sc["beta_end"]))
+
+    def unet(x, i):
+        return model(x, i, ctx2)
+
+    eps_fn = classifier_free_eps_fn(amortized_eps_fn(unet, cond2), SD2_SCALE)
+    eager = make_ddim_sampler(eps_fn, ddpm, num_steps=SD2_STEPS, clip=False)
+    graphs = GraphCache(model)
+    graphed = make_ddim_sampler(eps_fn, ddpm, num_steps=SD2_STEPS,
+                                graphs=graphs, clip=False)
+    want = eager(x_T)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = eager(x_T)
+    torch.cuda.synchronize()
+    eager_s = time.perf_counter() - t0
+    got = graphed(x_T)  # captures
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = graphed(x_T)
+    torch.cuda.synchronize()
+    graphed_s = time.perf_counter() - t0
+    chain = next(iter(graphs.chains.values()))
+    launches = next(iter(chain.launches.values()))
+    check(torch.isfinite(got).all().item(), "SD2 chain: not finite")
+    check(torch.equal(got, want), "SD2 graphed chain differs from eager: "
+          f"{(got - want).abs().max().item()}")
+    check(launches.get("flash_cross_attention") == 16
+          and launches.get("flash_attention_fwd") == 16,
+          f"SD2 step launches {launches}")
+    emit(card_info, phase="xattn_chain", rows=rows, steps=SD2_STEPS,
+         bitwise_equal=True, launches_per_replay=launches,
+         attention=sorted({f"{d['route']} {d['bh']}x{d['tq']}" for d in
+                           model.attn_decisions.values()}),
+         eager_s=eager_s, graphed_s=graphed_s,
+         capture_s=sum(chain.capture_s.values()),
+         pool_bytes=sum(chain.pool_bytes.values()),
+         max_abs_latent=got.abs().max().item(),
+         memory_peak_bytes=torch.cuda.max_memory_allocated(dev))
+    del model, graphs, graphed, eager, chain
+    torch.cuda.empty_cache()
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4487,11 +4678,18 @@ def main():
         print(json.dumps({"partial": "--gn-backward: the GroupNorm backward "
                                      "kernel's cases only"}), flush=True)
         return 0
+    if sys.argv[1:] == ["--xattn"]:
+        xattn_phase(torch, F, card_info, dev)
+        print(json.dumps({"partial": "--xattn: the cross-attention kernel, "
+                                     "the SD2 UNet's GroupNorm shapes and "
+                                     "its graphed chain only"}), flush=True)
+        return 0
     if sys.argv[1:] == ["--kernels"]:
         kernel_phase(torch, F, card_info, ATTN_PATH_SHAPES, GN_PATH_SHAPES)
         resblock_phase(torch, card_info, RES_PATH_SHAPES, unet, dev)
         flash_kernel_phase(torch, F, card_info, FLASH_PATH_SHAPES, dev)
         gn_backward_phase(torch, F, card_info)
+        xattn_phase(torch, F, card_info, dev, chain=False)
         print(json.dumps({"partial": "--kernels: the kernels' cases only"}),
               flush=True)
         return 0
@@ -4640,6 +4838,8 @@ def main():
         # --- the training step as a captured CUDA graph, against eager ------
         for name, n in train_graphs_phase(torch, card_info, dev).items():
             counts[name] += n
+        # --- the SD2-inpainting UNet: cross-attention, its graphed chain ---
+        xattn_phase(torch, F, card_info, dev)
     finally:
         shutil.rmtree(out, ignore_errors=True)
     counts["fused_groupnorm_silu_bwd"] = groupnorm.backward_launches

@@ -2,7 +2,8 @@
 
 Counterpart of `tpu_diffusion/core/schedules.py` (`VPSDE`,
 `linear_vpsde_betas`, the discrete schedule builders, `bcast_right`,
-`DDPM`). The builders are float64 numpy, as in the JAX package.
+`DDPM`), plus `scaled_linear_betas`, Stable Diffusion's schedule. The
+builders are float64 numpy, as in the JAX package.
 `VPSDE`'s methods take t as a tensor (or a number) and compute on its
 device. The DDPM tables are built host-side in float64 numpy and stored as
 float32 tensors on the CPU; `DDPM.to(device)` moves them, once per sampler,
@@ -143,6 +144,14 @@ def quadratic_betas(num_steps: int, beta_start: float = 1e-4,
                     beta_end: float = 0.02) -> np.ndarray:
     return np.linspace(beta_start**0.5, beta_end**0.5, num_steps,
                        dtype=np.float64) ** 2
+
+
+def scaled_linear_betas(num_steps: int, beta_start: float = 0.00085,
+                        beta_end: float = 0.012) -> np.ndarray:
+    """Latent diffusion's "scaled_linear" schedule at Stable Diffusion's
+    scheduler settings: linspace(sqrt(start), sqrt(end), N) ** 2, which is
+    `quadratic_betas`."""
+    return quadratic_betas(num_steps, beta_start, beta_end)
 
 
 def betas_from_alphas_cumprod(abar: np.ndarray, max_beta: float = 0.999

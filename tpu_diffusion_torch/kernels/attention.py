@@ -13,6 +13,11 @@ Counterparts of `tpu_diffusion/kernels/attention.py`:
   (`_flash_attention_bwd_3d`: dq, dk, dv recomputed from the lse). Plain
   versions `flash_attention_fwd_ref` / `flash_attention_bwd_ref`, kernels
   `csrc/flash_attention.cu`; `flash_fwd_route` picks the forward's kernel.
+- `flash_cross_attention` (no JAX counterpart: the latent-diffusion UNet's
+  cross-attention, `models/ldm_unet.py`): queries [BH, Tq, d] against a
+  short key set [BH, Tk, d], Tk <= XATTN_MAX_KEYS, forward only. Plain
+  version `flash_attention_fwd_ref`, kernel `flash_xattn_fwd_kernel` in
+  `csrc/flash_attention.cu`.
 
 A CPU tensor goes to the plain version; a CUDA tensor goes to the kernel or
 raises.
@@ -25,6 +30,7 @@ import functools
 
 import torch
 
+from tpu_diffusion_torch.kernels import refuse_grad
 from tpu_diffusion_torch.kernels.build import load_library
 
 # Kernel launches made by each wrapper since its count was last set to 0
@@ -34,6 +40,7 @@ from tpu_diffusion_torch.kernels.build import load_library
 launches = 0
 flash_fwd_launches = 0
 flash_bwd_launches = 0
+flash_xattn_launches = 0
 
 HEAD_DIMS = (32, 64, 128)
 
@@ -165,11 +172,13 @@ def _flash_entries():
     lib = load_library("flash_attention")
     p, i = ctypes.c_void_p, ctypes.c_int
     fwd, bwd = lib.flash_attention_fwd, lib.flash_attention_bwd
+    xattn = lib.flash_cross_attention_fwd
     fwd.argtypes = [p, p, p, p, p, i, i, i, ctypes.c_float, i, p]
     bwd.argtypes = [p, p, p, p, p, p, p, p, p, p, i, i, i, ctypes.c_float, i,
                     p]
-    fwd.restype = bwd.restype = ctypes.c_int
-    return fwd, bwd
+    xattn.argtypes = [p, p, p, p, i, i, i, i, ctypes.c_float, p]
+    fwd.restype = bwd.restype = xattn.restype = ctypes.c_int
+    return fwd, bwd, xattn
 
 
 def _check_flash(name: str, ref: torch.Tensor, **tensors) -> None:
@@ -302,3 +311,55 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor,
                                     for x in (q, k, v)))
         return o.reshape(b, h, t, d)
     return _FlashAttention.apply(q, k, v)
+
+
+# ---------------------------------------------------------------------------
+# Cross-attention: many queries against a short key set, forward only
+# ---------------------------------------------------------------------------
+
+XATTN_HEAD_DIM = 64
+XATTN_MAX_KEYS = 128  # the whole key set is one tile in shared memory
+
+
+def flash_cross_attention(q: torch.Tensor, k: torch.Tensor,
+                          v: torch.Tensor) -> torch.Tensor:
+    """softmax(q d^-1/2 k^T) v for q [BH, Tq, d] and k, v [BH, Tk, d]. On
+    the card: bf16, d = 64, Tk <= XATTN_MAX_KEYS, no gradient (it raises
+    where an input needs one); on the CPU the plain version, any shape."""
+    if q.device.type == "cpu":
+        return flash_attention_fwd_ref(q, k, v)[0]
+    global flash_xattn_launches
+    refuse_grad("flash_cross_attention", q, k, v)
+    if q.dtype != torch.bfloat16 or q.ndim != 3 or \
+            q.shape[-1] != XATTN_HEAD_DIM:
+        raise ValueError(f"flash_cross_attention: q must be a bf16 [BH, Tq, "
+                         f"{XATTN_HEAD_DIM}] tensor, got {tuple(q.shape)} "
+                         f"{q.dtype}")
+    bh, tq, d = q.shape
+    tk = k.shape[1]
+    if not (0 < bh <= 65535 and tq > 0 and 0 < tk <= XATTN_MAX_KEYS):
+        raise ValueError(f"flash_cross_attention: unsupported shapes q "
+                         f"{tuple(q.shape)}, k {tuple(k.shape)} (at most "
+                         f"{XATTN_MAX_KEYS} keys)")
+    if not q.is_cuda:
+        raise ValueError(f"flash_cross_attention: inputs must be CUDA "
+                         f"tensors, got {q.device}")
+    for key, x in (("q", q), ("k", k), ("v", v)):
+        if x.device != q.device or x.dtype != q.dtype or (
+                key != "q" and x.shape != (bh, tk, d)):
+            raise ValueError(f"flash_cross_attention: {key} must be a "
+                             f"[{bh}, {tk}, {d}] {q.dtype} tensor on "
+                             f"{q.device}, got {tuple(x.shape)} {x.dtype}")
+        if not x.is_contiguous() or x.data_ptr() % 16:
+            raise ValueError(f"flash_cross_attention: {key} must be "
+                             f"contiguous and 16-byte aligned")
+    o = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        err = _flash_entries()[2](
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), bh, tq,
+            tk, d, d ** -0.5, torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"flash_cross_attention launch failed: cudaError "
+                           f"{err}")
+    flash_xattn_launches += 1
+    return o

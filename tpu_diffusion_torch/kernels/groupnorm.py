@@ -272,9 +272,10 @@ def _launch(x, gamma, beta, scale, shift, num_groups, eps, act, stats=None):
                          "[B, H, W, C] tensor")
     b, h, w, c = x.shape
     vec = 16 // x.element_size()
-    # at most 256 threads across C, so the stats pass's [2, rows, C] fp32
-    # reduction buffer stays within 16 KB of shared memory
-    if c % vec or c // vec > 256 or not 0 < b <= 65535:
+    # at most 512 threads across C (the cluster kernel's block; one row of
+    # them in the two-pass route, whose stats pass's [2, rows, C] fp32
+    # reduction buffer then stays within 32 KB of shared memory)
+    if c % vec or c // vec > 512 or not 0 < b <= 65535:
         raise ValueError(f"unsupported shape {tuple(x.shape)} for {x.dtype}")
     for name, v in (("gamma", gamma), ("beta", beta)):
         if (v.device != x.device or v.dtype != torch.float32

@@ -73,6 +73,19 @@ def amortized_eps_fn(eps_fn: EpsFn, condition: torch.Tensor) -> EpsFn:
     return fn
 
 
+def classifier_free_eps_fn(eps_fn: EpsFn, scale: float) -> EpsFn:
+    """Classifier-free guidance (arXiv:2207.12598) in one model call:
+    `eps_fn(x2, i2)` predicts the noise of 2B rows, the first B under the
+    condition and the last B without it (the model reads which is which
+    from its own inputs, e.g. a [cond; uncond] context it holds), and the
+    result is eps_u + scale (eps_c - eps_u) in fp32."""
+    def fn(xi: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
+        eps = eps_fn(torch.cat([xi, xi]), torch.cat([i, i])).float()
+        cond, uncond = eps.chunk(2)
+        return uncond + scale * (cond - uncond)
+    return fn
+
+
 def _batched(i: int, like: torch.Tensor) -> torch.Tensor:
     return torch.full((like.shape[0],), i, dtype=torch.long,
                       device=like.device)
@@ -337,7 +350,8 @@ def make_cached_amortized_sampler(encode_fn: Callable, decode_fn: Callable,
 
     As in the JAX package, the corrector here decodes from the conditioned
     cache, where the plain sampler's corrector runs unconditioned. With
-    `graphs`, the graphed chain: one body per K-step group."""
+    `graphs`, the graphed chain: one body per K-step group, its encoder's
+    end marked "encode" (`utils/spans.py:mark`)."""
     del likelihood  # the cached corrector is conditioned
     groups = reuse_groups(range(ddpm.num_steps - 1, -1, -1), encoder_reuse)
     tag = object()
@@ -351,6 +365,7 @@ def make_cached_amortized_sampler(encode_fn: Callable, decode_fn: Callable,
                     return torch.cat([x, buf["cond"]], dim=-1)
                 if j == 0:
                     scratch["cache"] = encode_fn(cat(xi), ib)
+                    spans.mark("encode")
                 cache = scratch["cache"]
 
                 def x0_model(x, ib):
@@ -528,11 +543,15 @@ def _ddim_per_step(ddpm: DDPM, num_steps: int, eta: float) -> np.ndarray:
 
 
 def _ddim_step(xi: torch.Tensor, eps: torch.Tensor, c,
-               noise: torch.Tensor | None) -> torch.Tensor:
+               noise: torch.Tensor | None, clip: bool = True
+               ) -> torch.Tensor:
     """One DDIM update from a coefficient row `c` (host floats, or the
-    graphed chain's 0-d device tensors: the same fp32 values)."""
+    graphed chain's 0-d device tensors: the same fp32 values); `clip`
+    clamps the x0 prediction into the data range."""
     _, cx0, cdir, sab, sig, sr, srm1 = (c[k] for k in range(7))
-    x0 = process_x0(sr * xi - srm1 * eps)
+    x0 = sr * xi - srm1 * eps
+    if clip:
+        x0 = process_x0(x0)
     xi_next = cx0 * x0 + cdir * (xi - sab * x0)
     if noise is not None:
         xi_next = xi_next + sig * noise
@@ -540,10 +559,13 @@ def _ddim_step(xi: torch.Tensor, eps: torch.Tensor, c,
 
 
 def _ddim_update(xi: torch.Tensor, eps: torch.Tensor, row: np.ndarray,
-                 eta: float, draw: NoiseFn, k: int):
+                 eta: float, draw: NoiseFn, k: int, clip: bool = True):
     """DDIM update `k` of the chain from its coefficient row."""
     noise = draw(xi, "eta", k) if eta != 0.0 else None
-    return _ddim_step(xi, eps, [float(v) for v in row], noise)
+    c = [float(v) for v in row]
+    if clip:
+        return _ddim_step(xi, eps, c, noise)
+    return _ddim_step(xi, eps, c, noise, clip=False)
 
 
 def _step_index(xi: torch.Tensor, row: np.ndarray) -> torch.Tensor:
@@ -554,12 +576,13 @@ def _step_index(xi: torch.Tensor, row: np.ndarray) -> torch.Tensor:
 def _graphed_ddim(graphs: GraphCache, slot, fn, per_step: np.ndarray,
                   eta: float, groups, xT: torch.Tensor, draw: NoiseFn,
                   eps_fn=None, encode_fn=None,
-                  decode_fn=None) -> torch.Tensor:
+                  decode_fn=None, clip: bool = True) -> torch.Tensor:
     """The DDIM chain through `graph.scan`: the coefficient rows and step
     indices in device tables read at the counter, one body per group
     length; eta > 0 draws each step's noise before the replay, as the
     eager chain draws it. A group's body marks the end of its encoder
-    pass ("encode", `utils/spans.py:mark`)."""
+    pass ("encode", `utils/spans.py:mark`). `clip` clamps each x0
+    prediction and the result into the data range."""
     def make_step(buf):
         rows = torch.from_numpy(np.ascontiguousarray(per_step)).to(xT.device)
         steps = rows[:, 0].to(torch.int32)
@@ -573,26 +596,31 @@ def _graphed_ddim(graphs: GraphCache, slot, fn, per_step: np.ndarray,
                     scratch["cache"] = encode_fn(xi, ib)
                     spans.mark("encode")
                 eps = decode_fn(xi, ib, scratch["cache"])
-            return _ddim_step(xi, eps, row_at(rows, t),
-                              noise[0] if noise else None)
+            z = noise[0] if noise else None
+            if clip:
+                return _ddim_step(xi, eps, row_at(rows, t), z)
+            return _ddim_step(xi, eps, row_at(rows, t), z, clip=False)
 
         return step
 
     out = scan(graphs, slot, fn, xT, groups, make_step,
                draws_of=lambda sig: (("eta", 0, "x"),) if eta != 0.0 else (),
                draw=draw)
-    return process_x0(out)
+    return process_x0(out) if clip else out
 
 
 def make_ddim_sampler(eps_fn: EpsFn, ddpm: DDPM, num_steps: int = 100,
                       eta: float = 0.0,
-                      graphs: GraphCache | None = None) -> Callable:
+                      graphs: GraphCache | None = None,
+                      clip: bool = True) -> Callable:
     """Deterministic (eta=0) or stochastic DDIM over a strided step grid.
 
     Returns `sample(xT, generator=None, *, noise=None) -> x0`; the eta>0
     noise of update k is `noise(xi, "eta", k)`, by default `torch.randn` on
     `generator` (on xT's device). With `graphs`, the graphed chain (one
-    body: a step).
+    body: a step). `clip` clamps every x0 prediction and the result into
+    [-1, 1] (images); a latent-space model takes `clip=False` (Stable
+    Diffusion's `clip_sample` false).
     """
     per_step = _ddim_per_step(ddpm, num_steps, eta)
     tag = object()
@@ -604,12 +632,12 @@ def make_ddim_sampler(eps_fn: EpsFn, ddpm: DDPM, num_steps: int = 100,
         if graphs is not None:
             return _graphed_ddim(graphs, (tag, "ddim"), eps_fn, per_step,
                                  eta, [[k] for k in range(num_steps)], xT,
-                                 draw, eps_fn=eps_fn)
+                                 draw, eps_fn=eps_fn, clip=clip)
         xi = xT
         for k, row in enumerate(per_step):
             eps = eps_fn(xi, _step_index(xi, row))
-            xi = _ddim_update(xi, eps, row, eta, draw, k)
-        return process_x0(xi)
+            xi = _ddim_update(xi, eps, row, eta, draw, k, clip)
+        return process_x0(xi) if clip else xi
 
     return sample
 

@@ -79,6 +79,7 @@ def launch_counts() -> Dict[str, int]:
     return {"flash_attention_fused": attention.launches,
             "flash_attention_fwd": attention.flash_fwd_launches,
             "flash_attention_bwd": attention.flash_bwd_launches,
+            "flash_cross_attention": attention.flash_xattn_launches,
             "fused_groupnorm_silu": groupnorm.launches,
             "fused_groupnorm_silu_bwd": groupnorm.backward_launches,
             "fused_resblock": resblock.launches}
