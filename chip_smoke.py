@@ -24,6 +24,13 @@ The DDIM path of the CIFAR-10 bench UNet:
            calls bitwise, its route and the other route's time, its time
            beside its bound, and forward + backward through the kernel
            pair, the plain chain and F.group_norm;
+  adam     the fused clip + Adam + EMA kernel at the 64px UNet's 368
+           parameter tensors (`--adam` runs it alone): one update against
+           the plain version on copies, bitwise; its time on a step
+           that keeps the EMA and on one that blends it, beside the bytes
+           bound; the optimizer's whole update (global norm included) on
+           the "fused" and "foreach" routes; the foreach chain it replaces
+           and torch.optim.Adam(fused=True) (Adam alone) as yardsticks;
   forward  the full-width bench UNet (CIFAR-10, 128 channels, batch 64,
            bf16, random weights from seed 0): eps with the kernels against
            eps with the plain versions, for both norm configurations;
@@ -353,6 +360,11 @@ GN_STEP_64PX = {
         (64, 128, False, "silu", 3), (64, 128, True, "silu", 5),
         (64, 256, False, "silu", 2), (64, 384, False, "silu", 1)]}
 TRAIN_BATCH = 32
+# the 64px UNet's parameters (benchmark config flowers64-unet) and the EMA
+# blends of its training cell: one update in ADAM_BLEND_EVERY blends
+ADAM_PARAMS = 93_347_587
+ADAM_TENSORS = 368
+ADAM_BLEND_EVERY = 10
 # the ResBlocks of one CIFAR forward: {(x shape, Cout, 1x1 skip): calls}; the
 # engine puts those of at least 1024 pixels (the five 32x32 ones) on the
 # ResBlock kernel
@@ -901,6 +913,162 @@ def gn_backward_phase(torch, F, card_info, shapes=GN_STEP_64PX,
               "F.group_norm in bf16 + FiLM + SiLU; device time from CUDA "
               "graph replay, eager_* launched from Python")
     return {"fused_groupnorm_silu_bwd": tot}
+
+
+def adam_phase(torch, card_info):
+    """The fused clip + Adam + EMA kernel (`kernels/adam.py`; no TPU
+    counterpart: XLA fuses optax's update inside the JAX package's jitted
+    step) at the parameters of `cli.build`'s 64px UNet (ADAM_TENSORS
+    tensors, ADAM_PARAMS fp32 values). One update with the clip engaged
+    and the EMA blended against the plain version on copies on the card,
+    bitwise.
+    Device times (CUDA-graph replay) of: the kernel on a step that keeps
+    the EMA (d = 1: 28 bytes an element) and on one that blends it (36),
+    beside their bytes bounds; the optimizer's whole update (the global
+    norm, the clip factor and the kernel, as the step's `update_ms.train`
+    spans it) on the "fused" route and on the "foreach" route (the norm
+    and the fourteen `_foreach_` passes); the foreach chain alone ("plain":
+    what the kernel replaces); `torch.optim.Adam(fused=True,
+    capturable=True)` on copies, Adam alone without clip or EMA (the
+    library yardstick). Gradients under the clip, so that the foreach
+    chain's in-place clip leaves them as they are from repeat to repeat.
+    Returns {kernel: totals} for the kernel table."""
+    from tpu_diffusion_torch.cli import main as cli
+    from tpu_diffusion_torch.core.ema import EMAState
+    from tpu_diffusion_torch.kernels import adam
+    from tpu_diffusion_torch.train import trainer
+    from tpu_diffusion_torch.utils import config as config_mod
+    dev = torch.device("cuda")
+    config = config_mod.get_config("flowers,inpainting,amortized")
+    config.network.model_path = ""
+    torch.manual_seed(SEED)
+    model = cli.build(config, dev)["model"]
+    named = dict(model.named_parameters())
+    params = list(named.values())
+    n = sum(p.numel() for p in params)
+    check(len(params) == ADAM_TENSORS and n == ADAM_PARAMS,
+          f"the 64px UNet has {len(params)} tensors, {n} parameters")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    ramp = 2.0 / 11.0
+    f32 = dict(dtype=torch.float32, device=dev)
+    lr, bc1, bc2 = (torch.tensor(v, **f32) for v in
+                    (1e-4, 1 - 0.9 ** 3, 1 - 0.999 ** 3))
+    decay, rest = torch.tensor(ramp, **f32), torch.tensor(1 - ramp, **f32)
+    # -- one update against the plain version, bitwise ------------------
+    p = [t.detach().clone() for t in params]
+    g = [torch.randn(t.shape, generator=gen, device=dev) for t in params]
+    m = [0.1 * torch.randn(t.shape, generator=gen, device=dev) for t in p]
+    v = [torch.rand(t.shape, generator=gen, device=dev) for t in p]
+    e = [t + 0.01 for t in p]
+    norm = torch.stack(torch._foreach_norm(g)).square().sum().sqrt()
+    clip = 1.0 / torch.clamp(norm, min=1.0)
+    ref = [[t.clone() for t in ts] for ts in (p, g, m, v, e)]
+    tables = adam.Tables()
+    adam.fused_adam_ema(p, g, m, v, e, lr, bc1, bc2, clip, decay, rest,
+                        tables=tables)
+    adam.adam_ema_reference(*ref, lr, bc1, bc2, clip, decay, rest)
+    torch.cuda.synchronize()
+    diff = 0.0
+    same = True
+    for got, want in zip((p, m, v, e), (ref[0], ref[2], ref[3], ref[4])):
+        for a, b in zip(got, want):
+            same = same and torch.equal(a, b)
+            diff = max(diff, float((a - b).abs().max()))
+    check(same and float(clip) < 1.0,
+          f"fused_adam_ema differs from its plain version (max |diff| "
+          f"{diff}) or the clip did not engage ({float(clip)})")
+    del ref
+    # -- device times ---------------------------------------------------
+    for t in g:
+        t.mul_(1e-5)  # global norm ~ 0.1: under the clip
+    clip.fill_(1.0)
+    times = {}
+    for mode, d in (("keep", 1.0), ("blend", ramp)):
+        decay.fill_(d)
+        rest.fill_(1.0 - d)
+        times[mode], times[mode + "_eager"] = time_ms(
+            lambda: adam.fused_adam_ema(p, g, m, v, e, lr, bc1, bc2, clip,
+                                        decay, rest, tables=tables))
+
+    class Foreach(trainer.Optimizer):
+        route = "foreach"
+
+    for t, grad in zip(params, g):
+        t.grad = grad
+    ema = EMAState(named)
+    opts = {"fused": trainer.make_optimizer(params, 1e-4),
+            "foreach": Foreach(params, trainer.make_schedule(1e-4))}
+    check(opts["fused"].route == "fused", "the 64px UNet's optimizer takes "
+          f"the {opts['fused'].route!r} route")
+    for opt in opts.values():
+        opt.fill()
+        opt.blend(ema, named)
+    update = {}
+    for mode, d in (("keep", 1.0), ("blend", ramp)):
+        ema.decay.fill_(d)
+        ema.rest.fill_(1.0 - d)
+        for route, opt in opts.items():
+            update[f"{route}_{mode}"], _ = time_ms(opt.update)
+        fe = opts["foreach"]
+        mu = [fe.state[t]["exp_avg"] for t in params]
+        nu = [fe.state[t]["exp_avg_sq"] for t in params]
+
+        @torch.no_grad()
+        def chain():
+            fe._foreach(params, g, mu, nu, clip)
+
+        times["plain_" + mode], times[f"plain_{mode}_eager"] = time_ms(chain)
+    norm_ms, _ = time_ms(lambda: trainer.global_norm(params))
+    lib_params = [t.detach().clone().requires_grad_() for t in params]
+    for t, grad in zip(lib_params, g):
+        t.grad = grad
+    library = torch.optim.Adam(lib_params, lr=1e-4, fused=True,
+                               capturable=True)
+    library_ms, library_eager_ms = time_ms(library.step)
+    for t in params:
+        t.grad = None
+    bound = {mode: nbytes * n / HBM_BYTES_PER_S * 1e3
+             for mode, nbytes in (("keep", 28), ("blend", 36))}
+    norm_bound = 4 * n / HBM_BYTES_PER_S * 1e3
+    k = ADAM_BLEND_EVERY
+
+    def per_step(x):  # the cell's mix: one blend in k updates
+        return ((k - 1) * x["keep"] + x["blend"]) / k
+
+    emit(card_info, phase="adam", kernel="fused_adam_ema",
+         tensors=len(params), params=n, bitwise_vs_plain=same,
+         max_abs_diff=diff, ms_keep=times["keep"], ms_blend=times["blend"],
+         eager_ms_keep=times["keep_eager"],
+         bound_ms_keep=bound["keep"], bound_ms_blend=bound["blend"],
+         roofline_keep=bound["keep"] / times["keep"],
+         roofline_blend=bound["blend"] / times["blend"],
+         plain_ms_keep=times["plain_keep"],
+         plain_ms_blend=times["plain_blend"], global_norm_ms=norm_ms,
+         global_norm_bound_ms=norm_bound,
+         update_ms=update,
+         update_ms_per_step={
+             route: per_step({"keep": update[route + "_keep"],
+                              "blend": update[route + "_blend"]})
+             for route in opts},
+         update_bound_ms_per_step=per_step(bound) + norm_bound,
+         library_ms=library_ms, library_eager_ms=library_eager_ms,
+         note="ms: the kernel alone; update_ms: Optimizer.update with the "
+              "EMA bound (global norm, clip factor, then the kernel or the "
+              "foreach chain and ema_blend); plain_ms: the foreach chain "
+              "and ema_blend alone; per_step: the training cell's mix of "
+              f"{k - 1} keeps to 1 blend; library_ms: "
+              "torch.optim.Adam(fused=True, capturable=True), Adam alone; "
+              "bounds: bytes at 3.35 TB/s; device time from CUDA-graph "
+              "replay (eager_*: launched from Python)")
+    del library, lib_params, opts, ema, p, g, m, v, e
+    torch.cuda.empty_cache()
+    return {"fused_adam_ema": dict(
+        max_abs_err=diff, ms=per_step(times), bound_ms=per_step(bound),
+        by={"bytes": per_step(bound)}, eager_ms=times["keep_eager"],
+        plain_ms=per_step({"keep": times["plain_keep"],
+                           "blend": times["plain_blend"]}),
+        plain_eager_ms=times["plain_keep_eager"], library_ms=library_ms,
+        library_eager_ms=library_eager_ms)}
 
 
 def expected_counts(model, nn_mod, unet):
@@ -1594,7 +1762,7 @@ def train_phase(torch, card_info, dev):
               f"{len(before)} moved")
         per_step = {"flash_attention_fwd": 5, "flash_attention_bwd": 5,
                     "fused_groupnorm_silu": 61,
-                    "fused_groupnorm_silu_bwd": 61}
+                    "fused_groupnorm_silu_bwd": 61, "fused_adam_ema": 1}
         check(executed == {k: v * TRAIN_STEPS for k, v in per_step.items()}
               and entry.launches == per_step
               and entry.replays == TRAIN_STEPS - WARMUP,
@@ -4646,7 +4814,7 @@ def main():
 
     from tpu_diffusion_torch import (DDPM, make_cached_ddim_sampler,
                                      make_ddim_sampler)
-    from tpu_diffusion_torch.kernels import attention, build, groupnorm
+    from tpu_diffusion_torch.kernels import adam, attention, build, groupnorm
     from tpu_diffusion_torch.models import nn as nn_mod
     from tpu_diffusion_torch.models import unet
 
@@ -4678,6 +4846,11 @@ def main():
         print(json.dumps({"partial": "--gn-backward: the GroupNorm backward "
                                      "kernel's cases only"}), flush=True)
         return 0
+    if sys.argv[1:] == ["--adam"]:
+        adam_phase(torch, card_info)
+        print(json.dumps({"partial": "--adam: the fused Adam + EMA "
+                                     "kernel's cases only"}), flush=True)
+        return 0
     if sys.argv[1:] == ["--xattn"]:
         xattn_phase(torch, F, card_info, dev)
         print(json.dumps({"partial": "--xattn: the cross-attention kernel, "
@@ -4689,6 +4862,7 @@ def main():
         resblock_phase(torch, card_info, RES_PATH_SHAPES, unet, dev)
         flash_kernel_phase(torch, F, card_info, FLASH_PATH_SHAPES, dev)
         gn_backward_phase(torch, F, card_info)
+        adam_phase(torch, card_info)
         xattn_phase(torch, F, card_info, dev, chain=False)
         print(json.dumps({"partial": "--kernels: the kernels' cases only"}),
               flush=True)
@@ -4710,7 +4884,9 @@ def main():
     totals = kernel_phase(torch, F, card_info, attn_shapes, norm_shapes)
     totals.update(resblock_phase(torch, card_info, res_shapes, unet, dev))
     totals.update(gn_backward_phase(torch, F, card_info))
+    totals.update(adam_phase(torch, card_info))
     groupnorm.backward_launches = 0
+    adam.launches = 0
 
     # --- full-width forward: kernels against plain versions ------------
     for name, (mk, mp) in models.items():
@@ -4843,6 +5019,7 @@ def main():
     finally:
         shutil.rmtree(out, ignore_errors=True)
     counts["fused_groupnorm_silu_bwd"] = groupnorm.backward_launches
+    counts["fused_adam_ema"] = adam.launches
     for name, n in counts.items():
         check(n > 0, f"{name} was not launched on the main path")
 
@@ -4865,6 +5042,9 @@ def main():
         "fused_groupnorm_silu_bwd": (
             "tpu_diffusion_torch/kernels/csrc/groupnorm_silu.cu",
             "none: the JAX kernel has no backward"),
+        "fused_adam_ema": (
+            "tpu_diffusion_torch/kernels/csrc/adam_ema.cu",
+            "none: XLA fuses optax's update in the JAX step"),
     }
     per = {
         "flash_attention_fused": "one full CIFAR UNet forward at batch 64 "
@@ -4914,6 +5094,13 @@ def main():
                                     "chain, F.group_norm; launches: every "
                                     "cli.main training and guidance step "
                                     "of the run",
+        "fused_adam_ema": "one update of the 64px UNet's 93,347,587 "
+                          "parameters, the training cell's mix of 9 "
+                          "updates that keep the EMA to 1 that blends it; "
+                          "plain_ms: the foreach chain and ema_blend; "
+                          "library_ms: torch.optim.Adam(fused=True), Adam "
+                          "alone; launches: every update of an fp32 "
+                          "training step on the card in the run",
     }
     table = []
     for name, (source, replaces) in meta.items():

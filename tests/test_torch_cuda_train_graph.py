@@ -1,5 +1,6 @@
-"""The training step as a captured CUDA graph (`train/graph.py`) and the
-fused-QKV attention's gradient on the card, at a small size.
+"""The training step as a captured CUDA graph (`train/graph.py`), its one
+fused update launch (`kernels/adam.py`), and the fused-QKV attention's
+gradient on the card, at a small size.
 
 These tests need a CUDA card and skip without one (a capture has no CPU
 mode, the kernels have none either). The file imports nothing of JAX, so
@@ -12,7 +13,7 @@ import pytest
 import torch
 
 from tpu_diffusion_torch.core.schedules import DDPM
-from tpu_diffusion_torch.kernels import attention
+from tpu_diffusion_torch.kernels import adam, attention
 from tpu_diffusion_torch.losses.ddpm import ddpm_loss
 from tpu_diffusion_torch.models.unet import create_model, randomize_
 from tpu_diffusion_torch.sampling import ancestral
@@ -391,3 +392,38 @@ def test_cuda_no_grad_forwards_write_no_statistics(cuda, monkeypatch):
     got = model(x, t)
     assert len(seen) == norms and not any(seen)
     assert torch.equal(got.detach(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_graphed_64px_step_replays_one_fused_update(cuda, dtype):
+    """The 64px step (fp32 parameters whatever the forward's type) takes
+    the fused route: its eager steps launch the kernel once each, a replay
+    of its graph once, and no foreach update runs."""
+    tr = _cli_trainer(cuda, dtype, graphed=True)
+    assert tr.state.optimizer.route == "fused"
+    before = adam.launches
+    tr.fit(6)
+    entry, = tr.graphs.captured().values()
+    assert entry.launches["fused_adam_ema"] == 1
+    # two eager warm-ups and the capture call
+    assert adam.launches - before == 3
+    assert entry.replays == 4
+
+
+@pytest.mark.cuda
+def test_cuda_bf16_parameters_take_the_foreach_body(cuda):
+    """bf16 parameters on the card: the "foreach" route, no kernel launch,
+    and the parameters move."""
+    params = [torch.randn(37, device=cuda, dtype=torch.bfloat16)
+              .requires_grad_() for _ in range(3)]
+    opt = trainer.make_optimizer(params, 1e-2)
+    assert opt.route == "foreach"
+    start = [p.detach().clone() for p in params]
+    for p in params:
+        p.grad = torch.ones_like(p)
+    before = adam.launches
+    opt.fill()
+    opt.update()
+    assert adam.launches == before
+    assert all(not torch.equal(p, s) for p, s in zip(params, start))

@@ -13,7 +13,7 @@ through, 1 keeps the EMA, anything else blends.
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Optional, Sequence
 
 import torch
 
@@ -59,15 +59,20 @@ def ema_fill(state: EMAState, decay: float, update_every: int = 1,
 
 
 @torch.no_grad()
-def ema_blend(state: EMAState, new_params: Mapping[str, torch.Tensor]
-              ) -> None:
-    """e <- d * e + (1 - d) * p with the weights of the last `ema_fill`.
+def ema_blend(state: EMAState, new_params: Mapping[str, torch.Tensor],
+              names: Optional[Sequence[str]] = None) -> None:
+    """e <- d * e + (1 - d) * p with the weights of the last `ema_fill`,
+    for every EMA entry or those of `names`.
 
     The product (1 - d) * p is added in one rounding, as the alpha= add of
     an eager blend (`_foreach_add_(e, p, alpha=1 - d)`) does, so for finite
     values d = 0 gives p, d = 1 gives e, and a decay gives the eager
-    blend, bitwise (a zero may change its sign)."""
-    names = list(state.params)
+    blend, bitwise (a zero may change its sign). The training step's
+    optimizer blends its parameters' entries inside the fused update on the
+    card (`kernels/adam.py`), with the same arithmetic."""
+    names = list(state.params) if names is None else list(names)
+    if not names:
+        return
     ema = [state.params[k] for k in names]
     torch._foreach_mul_(ema, state.decay)
     torch._foreach_addcmul_(ema, [new_params[k].detach() for k in names],

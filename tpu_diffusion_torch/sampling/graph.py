@@ -75,14 +75,16 @@ REPLAYED: Dict[str, int] = {}
 
 def launch_counts() -> Dict[str, int]:
     """The kernel wrappers' launch counters, by kernel."""
-    from tpu_diffusion_torch.kernels import attention, groupnorm, resblock
+    from tpu_diffusion_torch.kernels import (adam, attention, groupnorm,
+                                             resblock)
     return {"flash_attention_fused": attention.launches,
             "flash_attention_fwd": attention.flash_fwd_launches,
             "flash_attention_bwd": attention.flash_bwd_launches,
             "flash_cross_attention": attention.flash_xattn_launches,
             "fused_groupnorm_silu": groupnorm.launches,
             "fused_groupnorm_silu_bwd": groupnorm.backward_launches,
-            "fused_resblock": resblock.launches}
+            "fused_resblock": resblock.launches,
+            "fused_adam_ema": adam.launches}
 
 
 def _add(total: Dict[str, int], counts: Dict[str, int], times: int = 1):

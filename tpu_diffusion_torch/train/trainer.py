@@ -26,7 +26,8 @@ from __future__ import annotations
 import math
 import time
 from dataclasses import dataclass
-from typing import Callable, Dict, Iterator, List, Optional, Sequence
+from typing import (Callable, Dict, Iterator, List, Mapping, Optional,
+                    Sequence, Tuple)
 
 import numpy as np
 import torch
@@ -34,6 +35,8 @@ import torch.distributed as dist
 from torch import nn
 
 from tpu_diffusion_torch.core.ema import EMAState, ema_blend, ema_fill
+from tpu_diffusion_torch.kernels.adam import (Tables, adam_foreach_,
+                                              adam_route, fused_adam_ema)
 from tpu_diffusion_torch.parallel.mesh import (DATA_AXIS, MODEL_AXIS, Mesh,
                                                make_mesh, replicate,
                                                shard_batch)
@@ -111,11 +114,18 @@ class Optimizer:
     (`train/graph.py`) replays it: `fill` writes the update's scalars (the
     learning rate from the schedule and the two bias corrections, from the
     host count) into 0-d fp32 device buffers and advances the count, and
-    `update` is the device part, optax's `scale_by_adam` over
-    `torch._foreach_*` ops that read those buffers (`torch.optim.Adam`'s
-    capturable mode takes no CPU tensors, and the CPU runs the same body).
-    The moments (`state[p]["exp_avg"]`, `["exp_avg_sq"]`) are made at the
-    first update."""
+    `update` is the device part, optax's `scale_by_adam`, which reads those
+    buffers (`torch.optim.Adam` is not this arithmetic, and its capturable
+    mode takes no CPU tensors). The moments (`state[p]["exp_avg"]`,
+    `["exp_avg_sq"]`) are made at the first update.
+
+    `blend(ema, params)` has every later update blend the EMA too, with
+    `core/ema.py:ema_blend`'s arithmetic. `route` says how an update runs:
+    "fused" (`kernels/adam.py:fused_adam_ema`: clipping, Adam and the
+    blend in one kernel launch, the gradients left unclipped) for
+    parameters that are all contiguous fp32 on one CUDA device; else
+    "foreach" (the `torch._foreach_*` body, which clips the gradients in
+    place, then `ema_blend`), as on the CPU."""
 
     B1, B2, EPS = 0.9, 0.999, 1e-8
 
@@ -131,6 +141,35 @@ class Optimizer:
         self.scalars = {k: torch.ones((), dtype=torch.float32, device=device)
                         for k in ("lr", "bc1", "bc2")}
         self.count = 0  # updates made so far
+        # (EMA state, parameters by name, {id(parameter): EMA tensor}) of
+        # the last `blend`
+        self._ema: Optional[Tuple[EMAState, Dict[str, torch.Tensor],
+                                  Dict[int, torch.Tensor]]] = None
+        self._tables = Tables()  # the kernel's, on the "fused" route
+
+    @property
+    def route(self) -> str:
+        """"fused" or "foreach" (the class's docstring)."""
+        devices = {p.device for p in self.params}
+        dtypes = {p.dtype for p in self.params}
+        if (len(devices) != 1 or len(dtypes) != 1
+                or not all(p.is_contiguous() for p in self.params)):
+            return "foreach"
+        return adam_route(devices.pop(), dtypes.pop())
+
+    def blend(self, ema: EMAState, params: Mapping[str, torch.Tensor]
+              ) -> None:
+        """Have every later `update` blend `ema` toward `params` (by name)
+        after its Adam step, with the weights of the last `ema_fill`. The
+        EMA tensors are paired with this optimizer's parameters by
+        identity, once per EMA state."""
+        if self._ema is not None and self._ema[0] is ema:
+            return
+        mine = {id(p) for p in self.params}
+        named = dict(params)
+        self._ema = (ema, named, {id(named[k]): e
+                                  for k, e in ema.params.items()
+                                  if id(named[k]) in mine})
 
     def zero_grad(self) -> None:
         for p in self.params:
@@ -146,39 +185,60 @@ class Optimizer:
     @torch.no_grad()
     def update(self, metrics: Sequence[torch.Tensor] = ()) -> torch.Tensor:
         """The update from the parameters' `.grad` with the scalars of the
-        last `fill`; returns the gradients' global norm before clipping.
-        With a mesh of ranks, the gradients are first averaged in place
-        over its "data" axis, and the step's fp32 `metrics` (its loss)
-        with them: one all-reduce, so that a captured step replays one
-        collective."""
+        last `fill`, and the EMA's blend where `blend` bound one; returns
+        the gradients' global norm before clipping. With a mesh of ranks,
+        the gradients are first averaged in place over its "data" axis,
+        and the step's fp32 `metrics` (its loss) with them: one all-reduce,
+        so that a captured step replays one collective. On the "fused"
+        route the gradients keep their unclipped values; nothing on the
+        card reads them after an update."""
         params = [p for p in self.params if p.grad is not None]
         grads = [p.grad for p in params]
         if self.mesh is not None and self.mesh.device_mesh is not None:
             average_over(grads + list(metrics), self.mesh.group(DATA_AXIS),
                          self.mesh.shape[DATA_AXIS])
         gnorm = global_norm(params)
-        if self.grad_clip is not None:
-            torch._foreach_mul_(
-                grads, self.grad_clip / torch.clamp(gnorm,
-                                                    min=self.grad_clip))
+        clip = (None if self.grad_clip is None else
+                self.grad_clip / torch.clamp(gnorm, min=self.grad_clip))
         for p in params:
             if p not in self.state:
                 self.state[p] = {"exp_avg": torch.zeros_like(p),
                                  "exp_avg_sq": torch.zeros_like(p)}
         mu = [self.state[p]["exp_avg"] for p in params]
         nu = [self.state[p]["exp_avg_sq"] for p in params]
-        torch._foreach_mul_(mu, self.B1)
-        torch._foreach_add_(mu, grads, alpha=1.0 - self.B1)
-        torch._foreach_mul_(nu, self.B2)
-        torch._foreach_addcmul_(nu, grads, grads, value=1.0 - self.B2)
-        mu_hat = torch._foreach_div(mu, self.scalars["bc1"])
-        denom = torch._foreach_div(nu, self.scalars["bc2"])
-        torch._foreach_sqrt_(denom)
-        torch._foreach_add_(denom, self.EPS)
-        torch._foreach_div_(mu_hat, denom)
-        torch._foreach_mul_(mu_hat, self.scalars["lr"])
-        torch._foreach_sub_(params, mu_hat)
+        if self.route == "fused":
+            self._fused(params, grads, mu, nu, clip)
+        else:
+            self._foreach(params, grads, mu, nu, clip)
         return gnorm
+
+    def _fused(self, params, grads, mu, nu, clip) -> None:
+        """Clipping, Adam and the blend of the parameters' EMA entries in
+        one launch; the EMA entries of parameters with no gradient through
+        `ema_blend`."""
+        emas = decay = rest = None
+        if self._ema is not None:
+            ema, named, paired = self._ema
+            emas = [paired.get(id(p)) for p in params]
+            done = {id(p) for p in params}
+            ema_blend(ema, named, names=[k for k in ema.params
+                                         if id(named[k]) not in done])
+            decay, rest = ema.decay, ema.rest
+        fused_adam_ema(params, grads, mu, nu, emas, self.scalars["lr"],
+                       self.scalars["bc1"], self.scalars["bc2"], clip, decay,
+                       rest, self.B1, self.B2, self.EPS, tables=self._tables)
+
+    def _foreach(self, params, grads, mu, nu, clip) -> None:
+        """The gradients clipped in place, optax's arithmetic over
+        `torch._foreach_*` ops (`kernels/adam.py:adam_foreach_`), then
+        `ema_blend`."""
+        if clip is not None:
+            torch._foreach_mul_(grads, clip)
+        adam_foreach_(params, grads, mu, nu, self.scalars["lr"],
+                      self.scalars["bc1"], self.scalars["bc2"], self.B1,
+                      self.B2, self.EPS)
+        if self._ema is not None:
+            ema_blend(self._ema[0], self._ema[1])
 
 
 def make_optimizer(params, lr: float, warmup: int = 0,
@@ -254,8 +314,8 @@ class TrainStep:
         loss.backward()
         spans.mark("backward")
         loss = loss.detach().float().reshape(1)
+        state.optimizer.blend(state.ema, state.params)
         gnorm = state.optimizer.update([loss])
-        ema_blend(state.ema, state.params)
         return torch.cat([loss, gnorm.float().reshape(1)])
 
     def __call__(self, state: TrainState, batch):
