@@ -77,12 +77,11 @@ captured once as a CUDA graph and replayed), each against its eager loop:
            to the eager chain's, capture seconds and pool bytes per body,
            wall and device ms per chain (median and quartiles over
            GRAPH_REPEATS chains; device: the sum of the replays' CUDA-event
-           times), the idle share; then `python -m
-           tpu_diffusion_torch.bench`, whose line it echoes, and a capture
-           with a host read in its body, which must raise (in a process of
-           its own). Launch checks on graphed chains elsewhere count what
-           ran: the wrappers' calls less the warm-ups' and captures', plus
-           the replays' (`graph.executed_launches`).
+           times), the idle share; then a capture with a host read in its
+           body, which must raise (in a process of its own). Launch checks
+           on graphed chains elsewhere count what ran: the wrappers' calls
+           less the warm-ups' and captures', plus the replays'
+           (`kernels.executed_launches`).
 The conditional path of `tpu_diffusion_torch.cli.main --mode eval` on the
 64px flowers UNet (128 channels, channel_mult (1,2,3,4), 2 res blocks,
 64-channel heads, attention at 32/16/8, FiLM, bf16 weights, fp32 norms,
@@ -310,14 +309,14 @@ import subprocess
 import sys
 import time
 
+from benchmark.counts.bounds import (BF16_FLOPS, FP32_FLOPS,
+                                     HBM_BYTES_PER_S, bound_s)
+
 BATCH = 64
 STEPS = 100
 REUSE = 3
 REPEATS = 1  # timed eager chains per configuration (graphed: phase graphs)
 SEED = 0
-HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
-BF16_FLOPS = 989e12           # dense bf16 tensor-core rate
-FP32_FLOPS = 67e12            # fp32 outside the tensor cores
 # the JAX bench's model (bench.py:114-119)
 BENCH_MODEL = dict(image_size=32, num_channels=128, num_res_blocks=2,
                    in_channels=3, channel_mult=(1, 2, 2, 2), num_heads=4,
@@ -448,9 +447,11 @@ def measure(kernel, plain, library):
 
 
 def bound_ms(nbytes, ops, op_rate):
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / op_rate * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+    """`benchmark/counts/bounds.py:bound_s` in ms, and the term that
+    binds."""
+    by = ("bytes" if nbytes / HBM_BYTES_PER_S >= ops / op_rate
+          else "operations")
+    return bound_s(nbytes, ops, op_rate) * 1e3, by
 
 
 def build_models(torch, unet, device, **cfg):
@@ -530,7 +531,9 @@ def capture_shapes(torch, model, x, t, nn_mod, unet):
 def resblock_bound(b, h, w, cin, cout, skip, itemsize, op_rate):
     """The bound of one `fused_resblock` call: read x and the weights, write
     the output, each once; the operations of its two 3x3 convs and the 1x1
-    skip (tpu_diffusion/kernels/resblock.py:292)."""
+    skip (tpu_diffusion/kernels/resblock.py:292). At bf16 it is
+    `benchmark/counts/bounds.py:resblock`, which takes no other rate: an
+    fp32 call's operations go at `op_rate`."""
     weights = 9 * cin * cout + 9 * cout * cout + (cin * cout if skip else 0)
     nbytes = itemsize * (b * h * w * (cin + cout) + weights)
     return bound_ms(nbytes, 2 * b * h * w * weights, op_rate)
@@ -1658,10 +1661,10 @@ def train_phase(torch, card_info, dev):
     from tpu_diffusion_torch.data.registry import (get_dataset,
                                                    infinite_batches)
     from tpu_diffusion_torch.kernels import attention
-    from tpu_diffusion_torch.sampling.graph import WARMUP
     from tpu_diffusion_torch.train.checkpoint import CheckpointManager
     from tpu_diffusion_torch.train.trainer import Trainer, make_train_step
     from tpu_diffusion_torch.utils import config as config_mod
+    from tpu_diffusion_torch.utils.graphs import WARMUP
     spec = "flowers,inpainting,amortized"
     overrides = ["testing.lpips=false", f"training.num_steps={TRAIN_STEPS}",
                  f"training.seed={SEED}"]
@@ -2689,7 +2692,7 @@ def data_parallel_phase(torch, card_info):
     parameters, EMA and losses (each rank draws its own noise for its
     slice, so the generators differ)."""
     from tpu_diffusion_torch.parallel.dryrun import run_world
-    from tpu_diffusion_torch.sampling.graph import WARMUP
+    from tpu_diffusion_torch.utils.graphs import WARMUP
     check(torch.cuda.device_count() >= DP_RANKS,
           f"--data-parallel needs {DP_RANKS} cards, has "
           f"{torch.cuda.device_count()}")
@@ -3526,7 +3529,7 @@ GUIDED_RUNS = (("bfloat16", 0.5, 50, 2), ("bfloat16", 1.0, 50, 2),
 def ran():
     """{kernel: launches that ran on the card}: the wrappers' counts less
     the graphs' warm-ups and captures, plus the graph replays'."""
-    from tpu_diffusion_torch.sampling.graph import executed_launches
+    from tpu_diffusion_torch.kernels import executed_launches
     return executed_launches()
 
 
@@ -3718,8 +3721,8 @@ def graphs_phase(torch, card_info, dev, mk):
     eager loop: DDIM-100 K=3 and K=1 on the CIFAR bench UNet `mk` (the GN
     kernel) through the engine and through the model, the cached amortized
     64px chain of `cli.main`, Euler-Maruyama, the SR256 Euler-20, the MPNN
-    design and the unguided protein chain; then `python -m
-    tpu_diffusion_torch.bench`, and a capture that must fail."""
+    design and the unguided protein chain; then a capture that must
+    fail."""
     import numpy as np
 
     from tpu_diffusion_torch import DDPM
@@ -3906,20 +3909,6 @@ def graphs_phase(torch, card_info, dev, mk):
     protein_graphs.clear()
     torch.cuda.empty_cache()
 
-    # --- the bench twin, in its own process --------------------------------
-    t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", "tpu_diffusion_torch.bench"],
-                          capture_output=True, text=True, timeout=300)
-    check(proc.returncode == 0, f"graphs: the bench failed:\n{proc.stderr}")
-    line = json.loads(proc.stdout.strip().splitlines()[-1])
-    emit(card_info, phase="graphs", chain="bench",
-         seconds=time.perf_counter() - t0, bench=line)
-    check(line["metric"] == "cifar10_ddim100_samples_per_sec_per_chip"
-          and line["value"] > 0 and line["samples_per_sec_k1"] > 0
-          and all(line["chains"][k]["finite"] and line["chains"][k]
-                  ["in_range"] for k in ("k3", "k1")),
-          f"graphs: bench line {line}")
-
     # --- a capture that must fail (a host read in the body), in its own
     # process, so no failed capture touches this one's card state
     probe = (
@@ -4078,7 +4067,7 @@ def tg_summary(graphed, eager):
     capture: the same step indices for both routes), the replays' device
     ms, and the card's idle share per step, graphed and eager (the eager
     step does the replay's work)."""
-    from tpu_diffusion_torch.sampling.graph import WARMUP
+    from tpu_diffusion_torch.utils.graphs import WARMUP
     g_wall = quartiles(graphed["wall_ms"][WARMUP + 1:])
     e_wall = quartiles(eager["wall_ms"][WARMUP + 1:])
     dev = quartiles(graphed["replay_device_ms"])
@@ -4113,7 +4102,7 @@ def tg_turns(torch, card_info, name, make, batch, steps=TG_STEPS, **fields):
 
     import numpy as np
 
-    from tpu_diffusion_torch.sampling.graph import WARMUP
+    from tpu_diffusion_torch.utils.graphs import WARMUP
     runs = [tg_run(torch, make, graphed, steps)
             for graphed in (False, True, False, True, False)]
     eager = [r for r in runs if not r[0]["graphed"]]
@@ -4230,7 +4219,7 @@ def tg_remat_vs_plain(card_info, name, remat, remat_final, plain,
     forward's kernels on the same inputs), the flash kernels' launches per
     replay equal (the attention blocks are not checkpointed), and their
     steps' times."""
-    from tpu_diffusion_torch.sampling.graph import WARMUP
+    from tpu_diffusion_torch.utils.graphs import WARMUP
     losses = max(abs(a - b) for a, b in zip(remat["losses"],
                                             plain["losses"]))
     top = max(abs(x) for x in plain["losses"])
@@ -4954,8 +4943,7 @@ def main():
                                             samplers, x, t, xT)
 
     # --- the graphed chains (sampling/graph.py) ----------------------------
-    from tpu_diffusion_torch.kernels import resblock
-    from tpu_diffusion_torch.sampling import graph
+    from tpu_diffusion_torch.kernels import REPLAYED, resblock
     attention.launches = groupnorm.launches = resblock.launches = 0
     attention.flash_fwd_launches = attention.flash_bwd_launches = 0
     graphs_phase(torch, card_info, dev, models["norm_fused"][0])
@@ -5108,7 +5096,7 @@ def main():
         table.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": counts[name],
-            "replayed_launches": graph.REPLAYED.get(name, 0),
+            "replayed_launches": REPLAYED.get(name, 0),
             "max_abs_err": tot["max_abs_err"],
             **{k: tot[k] for k in ("max_rel_err", "library_gn_kernel_ms",
                                    "library_with_layout_ms", "autograd_ms")

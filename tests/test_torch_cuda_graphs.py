@@ -16,12 +16,13 @@ import torch
 from tpu_diffusion_torch.conditioning.guidance import ReconstructionGuidance
 from tpu_diffusion_torch.conditioning.likelihoods import InPainting
 from tpu_diffusion_torch.core.schedules import DDPM
+from tpu_diffusion_torch.kernels import launch_counts
 from tpu_diffusion_torch.models.unet import (UNetModelWrapper, create_model,
                                              randomize_)
 from tpu_diffusion_torch.models.unet_infer import make_fused_apply
 from tpu_diffusion_torch.protein import mpnn
 from tpu_diffusion_torch.sampling import ancestral, ode
-from tpu_diffusion_torch.sampling.graph import GraphCache, launch_counts
+from tpu_diffusion_torch.sampling.graph import GraphCache
 from tpu_diffusion_torch.utils import spans
 
 STEPS = 12
@@ -295,12 +296,19 @@ def test_cuda_graphed_dopri5_equals_the_eager_loop(cuda):
 @pytest.mark.cuda
 def test_cuda_failed_capture_raises(cuda):
     """A body that reads the card on the host cannot be captured: the
-    sampler raises, and does not fall back to the eager loop. (Last in the
-    file: the failed capture is the process's last use of the card.)"""
+    sampler raises, and does not fall back to the eager loop. The failed
+    capture leaves the current stream as it was and the default generator
+    out of capture mode: the card draws as before."""
     def eps(x, i):
         return x * float(i[0])  # a host read inside the body
 
     sample = ancestral.make_ddim_sampler(eps, DDPM.create(1000), 4,
                                          graphs=GraphCache())
+    stream = torch.cuda.current_stream(cuda)
+    torch.manual_seed(12)
+    want = torch.randn(4, device=cuda)
+    torch.manual_seed(12)
     with pytest.raises(RuntimeError):
         sample(torch.zeros((2, 8, 8, 3), device=cuda))
+    assert torch.cuda.current_stream(cuda) == stream
+    assert torch.equal(torch.randn(4, device=cuda), want)

@@ -17,8 +17,9 @@ from tpu_diffusion_torch.kernels import adam, attention
 from tpu_diffusion_torch.losses.ddpm import ddpm_loss
 from tpu_diffusion_torch.models.unet import create_model, randomize_
 from tpu_diffusion_torch.sampling import ancestral
-from tpu_diffusion_torch.sampling.graph import WARMUP, GraphCache
+from tpu_diffusion_torch.sampling.graph import GraphCache
 from tpu_diffusion_torch.train import trainer
+from tpu_diffusion_torch.utils.graphs import WARMUP
 
 STEPS = 6
 
@@ -198,7 +199,7 @@ def test_cuda_graphed_flash_training_replays_the_backward(cuda):
     """bf16 with the flash kernels at T=64: the replays launch the flash
     forward and backward, and the losses stay near the eager run's (the
     bf16 backward's atomic dq sums: not bitwise)."""
-    from tpu_diffusion_torch.sampling.graph import executed_launches
+    from tpu_diffusion_torch.kernels import executed_launches
     before = executed_launches()
     graphed, got = _fit(cuda, graphed=True, dtype=torch.bfloat16,
                         attention_impl="flash")

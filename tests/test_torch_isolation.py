@@ -53,7 +53,7 @@ def test_port_has_modules():
                    "utils/logging.py", "parallel/mesh.py",
                    "parallel/distributed.py", "parallel/tp.py",
                    "parallel/sp.py", "parallel/dryrun.py",
-                   "sampling/graph.py", "bench.py"):
+                   "sampling/graph.py", "utils/graphs.py"):
         assert f"tpu_diffusion_torch/{module}" in names
     assert (ROOT / "tpu_diffusion_torch" / "native" / "novelty.cpp").exists()
 
@@ -83,7 +83,8 @@ def test_import_leaves_jax_unloaded():
             "tpu_diffusion_torch.eval.f1max, "
             "tpu_diffusion_torch.utils.debug, "
             "tpu_diffusion_torch.parallel.dryrun, "
-            "tpu_diffusion_torch.sampling.graph, tpu_diffusion_torch.bench\n"
+            "tpu_diffusion_torch.sampling.graph, "
+            "tpu_diffusion_torch.utils.graphs\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{sorted(FORBIDDEN)!r})\n"
             "assert not bad, bad\n")

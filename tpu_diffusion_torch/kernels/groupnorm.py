@@ -217,24 +217,48 @@ def gn_route(b: int, hw: int, c: int, itemsize: int, num_groups: int = 32,
     # the kernel folds a thread's vec channels into at most two groups
     two_groups = all((v * vec + vec - 1) // cg - v * vec // cg <= 1
                      for v in range(cv))
-    best = None
-    for n in CLUSTER_SIZES:
+
+    def fit(n):
         chunk = hw // n * c * itemsize
-        if (hw % n or chunk > CHUNK_MAX or not two_groups
-                or not 0 < b <= 65535):
-            continue
+        if hw % n or chunk > CHUNK_MAX:
+            return None
         for threads in ((512, 256) if chunk >= 32 * 1024 else (256,)):
             rows = _cluster_rows(cv, threads)
             smem = cluster_smem(c, hw, itemsize, n, rows, num_groups)
             if not rows or num_groups > cv * rows or smem > SMEM_MAX:
                 continue
             per_sm = min(SMEM_MAX // smem, 2048 // (cv * rows))
-            waves = -(-b * n // (sms * per_sm))
             # 256 threads only where they split the channels evenly
-            if waves == 1 or threads == 256 or 256 % cv:
-                break
-        else:
+            if (_waves(b, n, per_sm, sms) == 1 or threads == 256
+                    or 256 % cv):
+                return per_sm, rows
+        return None
+
+    if two_groups and 0 < b <= 65535:
+        route = _fewest_waves(b, sms, fit)
+        if route is not None:
+            return "cluster", route
+    return "two_pass", launch_geometry(c, hw, itemsize)
+
+
+def _waves(b: int, n: int, per_sm: int, sms: int) -> int:
+    """Waves of b clusters of n blocks over `sms` SMs, `per_sm` at a time."""
+    return -(-b * n // (sms * per_sm))
+
+
+def _fewest_waves(b: int, sms: int, fit):
+    """(cluster size, rows) of the cluster route for b images, or None where
+    no size fits: `fit(n)` gives (blocks per SM, rows) at cluster size n,
+    or None. Of the sizes that fit, the fewest waves of blocks over the
+    card's `sms` SMs; within one wave the smallest whose blocks fill the
+    card (else the largest), within several the most blocks per SM."""
+    best = None
+    for n in CLUSTER_SIZES:
+        fitted = fit(n)
+        if fitted is None:
             continue
+        per_sm, rows = fitted
+        waves = _waves(b, n, per_sm, sms)
         if waves == 1:
             fills = b * n >= 0.9 * sms
             key = (1, 0 if fills else 1, n if fills else -n)
@@ -242,9 +266,7 @@ def gn_route(b: int, hw: int, c: int, itemsize: int, num_groups: int = 32,
             key = (waves, 0, -per_sm)
         if best is None or key < best[0]:
             best = (key, n, rows)
-    if best is not None:
-        return "cluster", (best[1], best[2])
-    return "two_pass", launch_geometry(c, hw, itemsize)
+    return None if best is None else best[1:]
 
 
 @functools.lru_cache(maxsize=None)
@@ -367,27 +389,18 @@ def bwd_cluster_route(b: int, hw: int, c: int, itemsize: int,
     """(cluster size, rows) of the backward's cluster route, or None where
     the image's x and dy do not fit eight blocks' shared memory. Blocks
     have (C / BWD_VEC) * rows threads (at most BWD_THREADS, or C /
-    BWD_VEC); of the cluster sizes that fit it takes, as `gn_route` does,
-    the fewest waves of blocks over the card's `sms` SMs, within one wave
-    the smallest whose blocks fill the card (else the largest), within
-    several the most blocks per SM."""
+    BWD_VEC); of the cluster sizes that fit it takes the one
+    `_fewest_waves` picks, as `gn_route` does."""
     cv = c // BWD_VEC
     rows = max(1, BWD_THREADS // cv)
-    best = None
-    for n in CLUSTER_SIZES:
+
+    def fit(n):
         smem = bwd_cluster_smem(c, hw, itemsize, n, rows, num_groups)
-        if hw % n or smem > SMEM_MAX or not 0 < b <= 65535:
-            continue
-        per_sm = min(SMEM_MAX // smem, 2048 // (cv * rows))
-        waves = -(-b * n // (sms * per_sm))
-        if waves == 1:
-            fills = b * n >= 0.9 * sms
-            key = (1, 0 if fills else 1, n if fills else -n)
-        else:
-            key = (waves, 0, -per_sm)
-        if best is None or key < best[0]:
-            best = (key, n)
-    return None if best is None else (best[1], rows)
+        if hw % n or smem > SMEM_MAX:
+            return None
+        return min(SMEM_MAX // smem, 2048 // (cv * rows)), rows
+
+    return _fewest_waves(b, sms, fit) if 0 < b <= 65535 else None
 
 
 def _launch_backward(dy, x, gamma, beta, scale, shift, stats, num_groups,

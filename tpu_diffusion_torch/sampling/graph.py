@@ -36,13 +36,12 @@ the same order as the eager chain, and copied into the static buffers: the
 graphed chain draws what the eager one draws from the same generator (or
 noise source), and holds one replay's noise, not the chain's.
 
-The kernel wrappers count their launches when they are called, which for a
-graphed chain is at its warm-up and capture; `Chain.launches` keeps each
-body's count at capture and `Chain.replays` its replays, so
-`GraphCache.replayed_launches` is what one cache's replays launched, and
-`executed_launches()` what ran on the card in all: the wrappers' counts
-less the warm-ups' and captures' (`OVERHEAD`), plus every replay's
-(`REPLAYED`).
+Capture and replay are `utils/graphs.py`'s, with the kernel launch
+accounting of `kernels/__init__.py`. `Chain.launches` keeps each body's
+count at capture and `Chain.replays` its replays, so
+`GraphCache.replayed_launches` is what one cache's replays launched; a
+chain adds its warm-ups' and captures' counts to `kernels.OVERHEAD`, so
+`kernels.executed_launches()` is what ran on the card in all.
 
 Tracing (`utils/spans.py`): each cache has a recorder, started by
 assigning a list to `GraphCache.events` and stopped by assigning `None`.
@@ -58,45 +57,12 @@ after the replay.
 
 from __future__ import annotations
 
-import gc
-import time
 from typing import Callable, Dict, Optional
 
 import torch
 
-from tpu_diffusion_torch.utils import spans
-
-WARMUP = 2  # warm-up calls of each body before its capture
-# kernel launches counted by the wrappers during warm-ups and captures, and
-# launched by replays, over every chain of the process
-OVERHEAD: Dict[str, int] = {}
-REPLAYED: Dict[str, int] = {}
-
-
-def launch_counts() -> Dict[str, int]:
-    """The kernel wrappers' launch counters, by kernel."""
-    from tpu_diffusion_torch.kernels import (adam, attention, groupnorm,
-                                             resblock)
-    return {"flash_attention_fused": attention.launches,
-            "flash_attention_fwd": attention.flash_fwd_launches,
-            "flash_attention_bwd": attention.flash_bwd_launches,
-            "flash_cross_attention": attention.flash_xattn_launches,
-            "fused_groupnorm_silu": groupnorm.launches,
-            "fused_groupnorm_silu_bwd": groupnorm.backward_launches,
-            "fused_resblock": resblock.launches,
-            "fused_adam_ema": adam.launches}
-
-
-def _add(total: Dict[str, int], counts: Dict[str, int], times: int = 1):
-    for name, n in counts.items():
-        total[name] = total.get(name, 0) + n * times
-
-
-def executed_launches() -> Dict[str, int]:
-    """Kernel launches that ran on the card outside warm-ups and captures:
-    the wrappers' counts less `OVERHEAD`, plus `REPLAYED`."""
-    return {name: n - OVERHEAD.get(name, 0) + REPLAYED.get(name, 0)
-            for name, n in launch_counts().items()}
+from tpu_diffusion_torch.kernels import OVERHEAD, add, launch_counts
+from tpu_diffusion_torch.utils import graphs, spans
 
 
 def counter(device) -> torch.Tensor:
@@ -153,34 +119,19 @@ class Chain:
         side.wait_stream(torch.cuda.current_stream(self.device))
         with torch.cuda.stream(side):
             for body in self.bodies.values():
-                for _ in range(WARMUP):
+                for _ in range(graphs.WARMUP):
                     self._zero()  # keeps the counter inside the tables
                     body()
         torch.cuda.current_stream(self.device).wait_stream(side)
+        end = launch_counts()
+        add(OVERHEAD, {k: end[k] - start[k] for k in end})
         for sig, body in self.bodies.items():
             self._zero()
-            graph = torch.cuda.CUDAGraph()
-            before = launch_counts()
-            # what `torch.cuda.graph` frees on entry, freed here first, so
-            # the reserved bytes grow by the capture's own pool segments
-            torch.cuda.synchronize(self.device)
-            gc.collect()
-            torch.cuda.empty_cache()
-            reserved = torch.cuda.memory_reserved(self.device)
-            t0 = time.perf_counter()
-            with spans.capturing(self.markers.setdefault(sig, [])), \
-                    torch.cuda.graph(graph, pool=cache.pool, stream=side):
-                body()
-            self.capture_s[sig] = time.perf_counter() - t0
-            self.pool_bytes[sig] = (torch.cuda.memory_reserved(self.device)
-                                    - reserved)
-            after = launch_counts()
-            self.launches[sig] = {k: after[k] - before[k] for k in after
-                                  if after[k] != before[k]}
-            self.graphs[sig] = graph
+            (self.graphs[sig], _, self.launches[sig], self.capture_s[sig],
+             self.pool_bytes[sig]) = graphs.capture(
+                body, side, cache.pool, self.markers.setdefault(sig, []))
+            add(OVERHEAD, self.launches[sig])
         torch.cuda.current_stream(self.device).wait_stream(side)
-        end = launch_counts()
-        _add(OVERHEAD, {k: end[k] - start[k] for k in end})
 
     def replay(self, sig) -> None:
         self.replays[sig] += 1
@@ -189,13 +140,9 @@ class Chain:
             if not self.graphs:
                 self.bodies[sig]()
                 return
-            _add(REPLAYED, self.launches[sig])
-            if rec.events is not None:
-                rec.replay(self.graphs[sig], "chain/%d" % (
-                    len(sig) if isinstance(sig, tuple) else 1),
-                    self.markers[sig])
-            else:
-                self.graphs[sig].replay()
+            graphs.replay(self.graphs[sig], self.launches[sig], rec,
+                          "chain/%d" % (len(sig) if isinstance(sig, tuple)
+                                        else 1), self.markers[sig])
 
     def run(self, units, fill: Optional[Callable] = None) -> None:
         """Replay `units` in order: each a (sig, unit) pair, with
@@ -262,7 +209,7 @@ class GraphCache:
         total: Dict[str, int] = {}
         for chain in self.chains.values():
             for sig, counts in chain.launches.items():
-                _add(total, counts, chain.replays[sig])
+                add(total, counts, chain.replays[sig])
         return total
 
     def device_ms(self) -> float:

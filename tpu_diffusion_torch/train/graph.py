@@ -43,10 +43,11 @@ their version counters, which the models' cast copies
 (`models/nn.py:_CastParams`) and the sampler chains (`sampling/graph.py:
 GraphCache`) read to see a change: every replay bumps them.
 
-Launch accounting is `sampling/graph.py`'s: the kernel wrappers count at
-the warm-ups (which ran) and at the capture (which did not: `OVERHEAD`),
-and each replay adds the capture's counts to `REPLAYED`, so
-`executed_launches()` is what ran on the card.
+Capture, replay and launch accounting are `utils/graphs.py`'s and
+`kernels/__init__.py`'s: the kernel wrappers count at the warm-ups (which
+ran) and at the capture (which did not: `kernels.OVERHEAD`), and each
+replay adds the capture's counts to `kernels.REPLAYED`, so
+`kernels.executed_launches()` is what ran on the card.
 
 Tracing (`utils/spans.py`): the recorder of `StepGraphs.recorder` is
 started by assigning a list to `StepGraphs.events` and stopped by
@@ -59,15 +60,12 @@ back after each replay.
 
 from __future__ import annotations
 
-import gc
-import time
 from typing import Callable, Dict, List, Optional
 
 import torch
 
-from tpu_diffusion_torch.sampling.graph import (OVERHEAD, REPLAYED, WARMUP,
-                                                _add, launch_counts)
-from tpu_diffusion_torch.utils import spans
+from tpu_diffusion_torch.kernels import OVERHEAD, add
+from tpu_diffusion_torch.utils import graphs, spans
 
 
 class _Entry:
@@ -117,7 +115,7 @@ class StepGraphs:
                 return body()
         e = self.entries.setdefault(key, _Entry())
         if e.graph is None:
-            if e.warm < WARMUP:
+            if e.warm < graphs.WARMUP:
                 e.warm += 1
                 with rec.span("step.eager"):
                     return self._eager(body)
@@ -142,37 +140,16 @@ class StepGraphs:
         return out
 
     def _capture(self, e: _Entry, body) -> None:
-        side = self._side()
         self.zero_grad()  # the backward allocates them in the pool
-        graph = torch.cuda.CUDAGraph()
-        for g in self.generators:
-            graph.register_generator_state(g)
-        # what `torch.cuda.graph` frees on entry, freed here first, so the
-        # reserved bytes grow by the capture's own pool segments
-        torch.cuda.synchronize(self.device)
-        gc.collect()
-        torch.cuda.empty_cache()
-        reserved = torch.cuda.memory_reserved(self.device)
-        before = launch_counts()
-        t0 = time.perf_counter()
-        with spans.capturing(e.markers), torch.cuda.graph(
-                graph, pool=torch.cuda.graph_pool_handle(), stream=side):
-            e.out = body()
-        e.capture_s = time.perf_counter() - t0
-        e.pool_bytes = torch.cuda.memory_reserved(self.device) - reserved
-        after = launch_counts()
-        e.launches = {k: after[k] - before[k] for k in after
-                      if after[k] != before[k]}
-        _add(OVERHEAD, e.launches)
-        e.graph = graph
+        e.graph, e.out, e.launches, e.capture_s, e.pool_bytes = (
+            graphs.capture(body, self._side(), torch.cuda.graph_pool_handle(),
+                           e.markers, self.generators))
+        add(OVERHEAD, e.launches)
 
     def _replay(self, e: _Entry) -> torch.Tensor:
         e.replays += 1
-        _add(REPLAYED, e.launches)
-        if self.recorder.events is not None:
-            self.recorder.replay(e.graph, "step/1", e.markers)
-        else:
-            e.graph.replay()
+        graphs.replay(e.graph, e.launches, self.recorder, "step/1",
+                      e.markers)
         for t in self.versioned:
             torch.autograd.graph.increment_version(t)
         return e.out

@@ -41,10 +41,10 @@ from tpu_diffusion_torch.parallel.mesh import (DATA_AXIS, MODEL_AXIS, Mesh,
                                                make_mesh, replicate,
                                                shard_batch)
 from tpu_diffusion_torch.parallel.tp import SHARD_ATTR, shard_state_
-from tpu_diffusion_torch.sampling.graph import WARMUP
 from tpu_diffusion_torch.train.actions import PeriodicAction
 from tpu_diffusion_torch.train.graph import StepGraphs
 from tpu_diffusion_torch.utils import spans
+from tpu_diffusion_torch.utils.graphs import WARMUP
 
 # loss(model, generator, batch) -> scalar
 LossFn = Callable[[nn.Module, Optional[torch.Generator], torch.Tensor],
