@@ -271,11 +271,16 @@ widths, random weights from seed 0; `--xattn` runs it alone):
            plain version at the 16 (heads, Tq) shapes of an SD2 step at 8
            rows with Tk = 77, and off them; two calls bitwise; times as in
            `kernel`, SDPA as the library yardstick, beside its bound;
+  layernorm  the LayerNorm kernel (`kernels/layernorm.py`) against its
+           plain version at the 4 [rows, C] shapes of an SD2 step's 48
+           calls, bf16, and off them; two calls bitwise; times with L2 warm
+           and from a ring of copies larger than L2, the plain version's
+           and `F.layer_norm` in bf16, beside the bytes bound;
   xattn_gn  the GroupNorm kernel at the UNet's (C, H*W, eps, act) shapes
            against the plain version;
   xattn_chain  the graphed guided DDIM-50 chain (guidance 7.5, 8 rows a
            step) bitwise against the eager chain, 16 cross- and 16
-           self-attention launches a replay of its step.
+           self-attention and 48 LayerNorm launches a replay of its step.
 Then the kernel table line (`launches`: the wrappers' calls on the paths,
 a graphed chain's at its warm-up and capture; `replayed_launches`: the
 launches replayed from graphs), the nvidia-smi line, and last
@@ -4625,6 +4630,10 @@ SD2_SCALE = 7.5
 # (bh, tq) of the 16 cross-attention calls of a step at 8 rows, by count
 XATTN_PATH_SHAPES = {(40, 4096): 5, (80, 1024): 5, (160, 256): 5,
                      (160, 64): 1}
+# [rows, C] of the 48 LayerNorm calls of a step at 8 rows, by count
+LN_PATH_SHAPES = {(32768, 320): 15, (8192, 640): 15, (2048, 1280): 15,
+                  (512, 1280): 3}
+L2_BYTES = 50 * 2 ** 20  # the H100's L2 cache
 
 
 def sd2_model(torch, dev):
@@ -4640,11 +4649,74 @@ def sd2_model(torch, dev):
     return model.eval().requires_grad_(False), cfg
 
 
+def layernorm_phase(torch, F, card_info, gen, dev):
+    """The LayerNorm kernel (`kernels/layernorm.py`) against its plain
+    version at the [rows, C] shapes of an SD2 step at 8 rows, bf16, and
+    off them (fp32; C 32 and 2048); two calls bitwise. Each line: the
+    kernel's device ms with L2 warm (`ms`, as `time_ms`) and with x read
+    from a ring of copies larger than L2 (`hbm_ms`), the bytes bound
+    (x read and y written once, the fp32 weight and bias; 6 fp32
+    operations an element) and its share at both, the plain version's ms
+    and `F.layer_norm` on bf16 (the library yardstick, never called by the
+    port). A last line sums a step's 48 calls."""
+    import itertools
+    from tpu_diffusion_torch.kernels import layernorm
+    eps = 1e-5
+    step = {}
+    cases = [(shape, n, torch.bfloat16)
+             for shape, n in sorted(LN_PATH_SHAPES.items())]
+    cases += [((2048, 1280), 0, torch.float32), ((300, 32), 0, torch.float32),
+              ((5, 32), 0, torch.bfloat16), ((33, 2048), 0, torch.bfloat16)]
+    for (rows, c), count, dtype in cases:
+        x = (3 * torch.randn((rows, c), generator=gen, device=dev)
+             + 1).to(dtype)
+        w = 1 + 0.1 * torch.randn(c, generator=gen, device=dev)
+        b = 0.1 * torch.randn(c, generator=gen, device=dev)
+        before = layernorm.launches
+        y = layernorm.layer_norm(x, w, b, eps)
+        y2 = layernorm.layer_norm(x, w, b, eps)
+        want = layernorm.layer_norm_ref(x, w, b, eps)
+        torch.cuda.synchronize()
+        check(layernorm.launches == before + 2,
+              "layer_norm did not count its launches")
+        err = (y.float() - want.float()).abs().max().item()
+        tol = ((2 ** -7 if dtype == torch.bfloat16 else 1e-5)
+               * want.float().abs().max().item())
+        check(math.isfinite(err) and err <= tol,
+              f"layer_norm {rows, c, dtype}: err {err} > {tol}")
+        same = torch.equal(y, y2)
+        check(same, f"layer_norm {rows, c}: two calls differ")
+        times = measure(
+            lambda: layernorm.layer_norm(x, w, b, eps),
+            lambda: layernorm.layer_norm_ref(x, w, b, eps),
+            lambda: F.layer_norm(x, (c,), w.to(dtype), b.to(dtype), eps))
+        ring = [x] + [x.clone() for _ in range(
+            -(-3 * L2_BYTES // x.nbytes) - 1)]
+        turn = itertools.count()
+        times["hbm_ms"], _ = time_ms(lambda: layernorm.layer_norm(
+            ring[next(turn) % len(ring)], w, b, eps))
+        del ring
+        n = rows * c
+        bound, by = bound_ms(2 * n * x.element_size() + 2 * c * 4, 6 * n,
+                             FP32_FLOPS)
+        emit(card_info, phase="layernorm", kernel="layer_norm",
+             shape=[rows, c], dtype=str(dtype).split(".")[-1],
+             count_per_step=count, max_abs_err=err, tol=tol,
+             two_calls_bitwise_equal=same, bound_ms=bound, bound_by=by,
+             roofline_pct=100 * bound / times["ms"],
+             hbm_roofline_pct=100 * bound / times["hbm_ms"], **times)
+        for key, val in times.items():
+            step[key] = step.get(key, 0.0) + count * val
+        step["bound_ms"] = step.get("bound_ms", 0.0) + count * bound
+    emit(card_info, phase="layernorm_step",
+         calls=sum(LN_PATH_SHAPES.values()), **step)
+
+
 def xattn_phase(torch, F, card_info, dev, chain=True):
     """The cross-attention kernel against its plain version and SDPA at
-    the shapes of an SD2 step at 8 rows and off them; the GroupNorm kernel
-    at the SD2 UNet's (C, H*W, eps, act) shapes against the plain version;
-    with `chain`, the graphed SD2 guided DDIM chain against its eager chain
+    the shapes of an SD2 step at 8 rows and off them; the LayerNorm kernel
+    (`layernorm_phase`); the GroupNorm kernel at the SD2 UNet's (C, H*W,
+    eps, act) shapes against the plain version; with `chain`, the graphed SD2 guided DDIM chain against its eager chain
     (bitwise), with the launches of a replay of its step."""
     from benchmark.counts.xattn_bounds import xattn as xattn_bound
     from tpu_diffusion_torch.core.schedules import DDPM, scaled_linear_betas
@@ -4691,6 +4763,7 @@ def xattn_phase(torch, F, card_info, dev, chain=True):
         step_ms["bound_ms"] = step_ms.get("bound_ms", 0.0) + count * bound
     emit(card_info, phase="xattn_step", calls=sum(XATTN_PATH_SHAPES.values()),
          **step_ms)
+    layernorm_phase(torch, F, card_info, gen, dev)
 
     model, cfg = sd2_model(torch, dev)
     m = cfg["model"]
@@ -4778,7 +4851,8 @@ def xattn_phase(torch, F, card_info, dev, chain=True):
     check(torch.equal(got, want), "SD2 graphed chain differs from eager: "
           f"{(got - want).abs().max().item()}")
     check(launches.get("flash_cross_attention") == 16
-          and launches.get("flash_attention_fwd") == 16,
+          and launches.get("flash_attention_fwd") == 16
+          and launches.get("layer_norm") == 48,
           f"SD2 step launches {launches}")
     emit(card_info, phase="xattn_chain", rows=rows, steps=SD2_STEPS,
          bitwise_equal=True, launches_per_replay=launches,
@@ -4842,9 +4916,10 @@ def main():
         return 0
     if sys.argv[1:] == ["--xattn"]:
         xattn_phase(torch, F, card_info, dev)
-        print(json.dumps({"partial": "--xattn: the cross-attention kernel, "
-                                     "the SD2 UNet's GroupNorm shapes and "
-                                     "its graphed chain only"}), flush=True)
+        print(json.dumps({"partial": "--xattn: the cross-attention and "
+                                     "LayerNorm kernels, the SD2 UNet's "
+                                     "GroupNorm shapes and its graphed "
+                                     "chain only"}), flush=True)
         return 0
     if sys.argv[1:] == ["--kernels"]:
         kernel_phase(torch, F, card_info, ATTN_PATH_SHAPES, GN_PATH_SHAPES)

@@ -2,8 +2,10 @@
 cross-attention kernel (`flash_cross_attention`) against its plain version
 at the 16 calls of a Stable Diffusion 2 step at 8 rows (77 keys), the
 GroupNorm kernel at the SD2 UNet's (C, H*W, eps, act) shapes against
-`reference_groupnorm_silu`, and the graphed guided DDIM chain against its
-eager chain, bitwise, with 16 cross-attention launches a replayed step.
+`reference_groupnorm_silu`, the LayerNorm kernel (`layer_norm`) at the
+step's four [rows, C] shapes and off them against `layer_norm_ref`, and
+the graphed guided DDIM chain against its eager chain, bitwise, with 16
+cross-attention and 48 LayerNorm launches a replayed step.
 
 These tests need a CUDA card and skip without one (the kernels have no CPU
 mode). The file imports nothing of JAX, so on a machine with a card and
@@ -18,12 +20,14 @@ from pathlib import Path
 import pytest
 import torch
 
-from tpu_diffusion_torch.kernels import attention, groupnorm
+from tpu_diffusion_torch.kernels import attention, groupnorm, layernorm
 
 CONFIG = Path(__file__).resolve().parents[1] / "benchmark" / "configs" / \
     "sd2-inpaint-unet.json"
 # (bh, tq) of a step's cross-attention calls at 8 rows, and their count
 XATTN_STEP = {(40, 4096): 5, (80, 1024): 5, (160, 256): 5, (160, 64): 1}
+# [rows, C] of a step's LayerNorm calls at 8 rows (3 a transformer block)
+LN_STEP = [(32768, 320), (8192, 640), (2048, 1280), (512, 1280)]
 
 
 @pytest.fixture(scope="module")
@@ -61,6 +65,49 @@ def test_cuda_cross_attention_refuses(cuda):
     with pytest.raises(RuntimeError, match="no backward"):
         attention.flash_cross_attention(q.requires_grad_(), k[:, :77],
                                         k[:, :77])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,c,dtype",
+                         [(r, c, torch.bfloat16) for r, c in LN_STEP]
+                         + [(2048, 1280, torch.float32),
+                            (300, 32, torch.float32), (7, 64, torch.bfloat16),
+                            (5, 32, torch.bfloat16),
+                            (33, 2048, torch.bfloat16),
+                            (9, 2048, torch.float32)])
+def test_cuda_layer_norm_matches_plain(cuda, rows, c, dtype):
+    g = torch.Generator(device=cuda).manual_seed(rows + c)
+    x = (3 * torch.randn((rows, c), generator=g, device=cuda) + 1).to(dtype)
+    w = 1 + 0.1 * torch.randn(c, generator=g, device=cuda)
+    b = 0.1 * torch.randn(c, generator=g, device=cuda)
+    before = layernorm.launches
+    got = layernorm.layer_norm(x, w, b, 1e-5)
+    want = layernorm.layer_norm_ref(x, w, b, 1e-5)
+    torch.cuda.synchronize()
+    assert layernorm.launches == before + 1 and got.dtype == dtype
+    # bf16: both sides round one fp32 value once, so one ulp apart at most;
+    # fp32: the sums' order and rsqrt's last bits
+    scale = want.float().abs().max().item()
+    tol = (2 ** -7 if dtype == torch.bfloat16 else 1e-5) * scale
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=0)
+    assert torch.equal(got, layernorm.layer_norm(x, w, b, 1e-5))
+
+
+@pytest.mark.cuda
+def test_cuda_layer_norm_refuses(cuda):
+    w, b = torch.ones(320, device=cuda), torch.zeros(320, device=cuda)
+    x = torch.randn((64, 320), device=cuda).bfloat16()
+    with pytest.raises(RuntimeError, match="no backward"):
+        layernorm.layer_norm(x, w.clone().requires_grad_(), b, 1e-5)
+    with pytest.raises(ValueError, match="contiguous"):
+        layernorm.layer_norm(x.t(), torch.ones(64, device=cuda),
+                             torch.zeros(64, device=cuda), 1e-5)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        layernorm.layer_norm(x[:, :36].contiguous(), w[:36], b[:36], 1e-5)
+    wide = torch.ones(2056, device=cuda)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        layernorm.layer_norm(torch.randn((4, 2056), device=cuda).bfloat16(),
+                             wide, wide, 1e-5)
 
 
 def _sd2(cuda):
@@ -147,5 +194,6 @@ def test_cuda_sd2_graphed_chain_equals_eager(cuda, sd2):
                          .launches.values()))
     assert launches["flash_cross_attention"] == 16
     assert launches["flash_attention_fwd"] == 16
+    assert launches["layer_norm"] == 48
     routes = {d["route"] for d in model.attn_decisions.values()}
     assert routes == {"wgmma", "mma"}

@@ -53,7 +53,8 @@ def test_port_has_modules():
                    "utils/logging.py", "parallel/mesh.py",
                    "parallel/distributed.py", "parallel/tp.py",
                    "parallel/sp.py", "parallel/dryrun.py",
-                   "sampling/graph.py", "utils/graphs.py"):
+                   "sampling/graph.py", "utils/graphs.py",
+                   "kernels/layernorm.py"):
         assert f"tpu_diffusion_torch/{module}" in names
     assert (ROOT / "tpu_diffusion_torch" / "native" / "novelty.cpp").exists()
 

@@ -23,11 +23,12 @@ MODULES = {"train.trainer": ABOVE_TRAINING, "train.graph": ABOVE_TRAINING,
            "kernels.attention": ABOVE_MODELS,
            "kernels.groupnorm": ABOVE_MODELS,
            "kernels.resblock": ABOVE_MODELS, "kernels.adam": ABOVE_MODELS,
+           "kernels.layernorm": ABOVE_MODELS,
            "models.unet": ABOVE_MODELS, "models.ldm_unet": ABOVE_MODELS}
 KERNELS = ["flash_attention_fused", "flash_attention_fwd",
            "flash_attention_bwd", "flash_cross_attention",
            "fused_groupnorm_silu", "fused_groupnorm_silu_bwd",
-           "fused_resblock", "fused_adam_ema"]
+           "fused_resblock", "fused_adam_ema", "layer_norm"]
 
 
 @pytest.fixture(scope="module")
@@ -56,20 +57,20 @@ def test_module_loads_no_layer_above_it(imports, module):
 
 
 def test_launch_accounting(monkeypatch):
-    """`launch_counts` reads the eight wrappers' counters by name, and
+    """`launch_counts` reads the nine wrappers' counters by name, and
     `executed_launches` is the counts less `OVERHEAD` plus `REPLAYED`."""
     from tpu_diffusion_torch.kernels import (adam, attention, groupnorm,
-                                             resblock)
+                                             layernorm, resblock)
     counters = [(attention, "launches"), (attention, "flash_fwd_launches"),
                 (attention, "flash_bwd_launches"),
                 (attention, "flash_xattn_launches"), (groupnorm, "launches"),
                 (groupnorm, "backward_launches"), (resblock, "launches"),
-                (adam, "launches")]
+                (adam, "launches"), (layernorm, "launches")]
     for n, (module, name) in enumerate(counters):
         monkeypatch.setattr(module, name, 100 * (n + 1))
     counts = kernels.launch_counts()
     assert list(counts) == KERNELS
-    assert list(counts.values()) == [100 * (n + 1) for n in range(8)]
+    assert list(counts.values()) == [100 * (n + 1) for n in range(9)]
 
     monkeypatch.setattr(kernels, "OVERHEAD", {})
     monkeypatch.setattr(kernels, "REPLAYED", {})

@@ -1,9 +1,10 @@
 """The latent-diffusion UNet of Stable Diffusion 2 inpainting
 (`tpu_diffusion_torch/models/ldm_unet.py`) on the CPU, at tiny widths,
 against the benchmark's plain reference (`benchmark/reference/ldm_unet.py`)
-on the same seeded weights; the cross-attention entry's plain path;
-classifier-free guidance; the scaled-linear schedule; DDIM with and without
-its x0 clipping; and the graphed CPU chain against the eager one."""
+on the same seeded weights; the cross-attention and LayerNorm entries'
+plain paths; classifier-free guidance; the scaled-linear schedule; DDIM
+with and without its x0 clipping; and the graphed CPU chain against the
+eager one."""
 
 import math
 
@@ -17,6 +18,7 @@ from tpu_diffusion_torch.core.schedules import (DDPM, quadratic_betas,
                                                 scaled_linear_betas)
 from tpu_diffusion_torch.kernels.attention import flash_cross_attention
 from tpu_diffusion_torch.kernels.groupnorm import gn_route
+from tpu_diffusion_torch.kernels.layernorm import layer_norm
 from tpu_diffusion_torch.models import ldm_unet
 from tpu_diffusion_torch.sampling import ancestral
 from tpu_diffusion_torch.sampling.graph import GraphCache
@@ -140,6 +142,25 @@ def test_cross_attention_cpu_path(tq, tk):
     p = torch.softmax(q @ k.transpose(1, 2) / 4.0, dim=-1)
     torch.testing.assert_close(flash_cross_attention(q, k, v), p @ v,
                                atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_layer_norm_cpu_route(dtype):
+    """The LayerNorm wrapper on the CPU is the plain fp32 expression, bit
+    for bit, and `LayerNorm32` goes through it."""
+    import torch.nn.functional as F
+    g = torch.Generator().manual_seed(7)
+    x = (3 * torch.randn((2, 10, 40), generator=g) + 1).to(dtype)
+    w = 1 + 0.1 * torch.randn(40, generator=g)
+    b = 0.1 * torch.randn(40, generator=g)
+    want = F.layer_norm(x.float(), (40,), w, b, 1e-5).to(dtype)
+    got = layer_norm(x, w, b, 1e-5)
+    assert got.dtype == dtype and torch.equal(got, want)
+    norm = ldm_unet.LayerNorm32(40, device="cpu")
+    with torch.no_grad():
+        norm.weight.copy_(w)
+        norm.bias.copy_(b)
+        assert torch.equal(norm(x), want)
 
 
 def test_classifier_free_guidance_one_call():

@@ -23,7 +23,7 @@ REPLAYED: Dict[str, int] = {}
 def launch_counts() -> Dict[str, int]:
     """The kernel wrappers' launch counters, by kernel."""
     from tpu_diffusion_torch.kernels import (adam, attention, groupnorm,
-                                             resblock)
+                                             layernorm, resblock)
     return {"flash_attention_fused": attention.launches,
             "flash_attention_fwd": attention.flash_fwd_launches,
             "flash_attention_bwd": attention.flash_bwd_launches,
@@ -31,7 +31,8 @@ def launch_counts() -> Dict[str, int]:
             "fused_groupnorm_silu": groupnorm.launches,
             "fused_groupnorm_silu_bwd": groupnorm.backward_launches,
             "fused_resblock": resblock.launches,
-            "fused_adam_ema": adam.launches}
+            "fused_adam_ema": adam.launches,
+            "layer_norm": layernorm.launches}
 
 
 def add(total: Dict[str, int], counts: Dict[str, int], times: int = 1):

@@ -22,7 +22,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "tpu_diffusion_torch"
 SOURCES = ("adam_ema", "attention_fused", "flash_attention",
-           "groupnorm_silu", "resblock")
+           "groupnorm_silu", "layernorm", "resblock")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

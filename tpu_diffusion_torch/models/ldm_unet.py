@@ -24,14 +24,15 @@ image's latent concatenated on the channel axis), `t` the integer steps and
 NHWC noise prediction.
 
 As `UNetModel`: NCHW in `channels_last` memory inside, fp32 parameters
-cast to `dtype` at use, GroupNorm statistics in fp32, on the card the norms
-through `FusedNormAct` (the GroupNorm kernel), the self-attention through
-the flash forward and the cross-attention through `flash_cross_attention`;
-on the CPU the kernels' plain versions. LayerNorm (fp32 statistics) and
-GEGLU are plain torch ops. Parameter names are diffusers' state-dict keys
+cast to `dtype` at use, GroupNorm and LayerNorm statistics in fp32, on the
+card the GroupNorms through `FusedNormAct` (the GroupNorm kernel), the
+LayerNorms through `kernels/layernorm.py:layer_norm`, the self-attention
+through the flash forward and the cross-attention through
+`flash_cross_attention`; on the CPU the kernels' plain versions. GEGLU is
+plain torch ops. Parameter names are diffusers' state-dict keys
 (`down_blocks.0.attentions.0.transformer_blocks.0.attn2.to_k.weight`, ...),
 so a released checkpoint loads by name. Sampling only: the cross-attention
-kernel has no backward.
+and LayerNorm kernels have no backward.
 
 `attn_decisions` / `xattn_decisions` map each transformer block's name to
 its self- and cross-attention's route, query and key lengths and heads, as
@@ -51,6 +52,7 @@ from torch import nn
 from tpu_diffusion_torch.kernels.attention import (flash_attention,
                                                    flash_cross_attention,
                                                    flash_fwd_route)
+from tpu_diffusion_torch.kernels.layernorm import layer_norm
 from tpu_diffusion_torch.models.nn import (CastConv2d, CastLinear,
                                            FusedNormAct, channels_last,
                                            timestep_embedding)
@@ -97,7 +99,7 @@ class Downsample(nn.Module):
 
 class LayerNorm32(nn.Module):
     """LayerNorm over the channels with fp32 statistics and parameters; the
-    result in the input's type."""
+    result in the input's type (`kernels/layernorm.py:layer_norm`)."""
 
     def __init__(self, channels: int, eps: float = LAYER_NORM_EPS,
                  device=None):
@@ -109,8 +111,7 @@ class LayerNorm32(nn.Module):
             torch.zeros(channels, dtype=torch.float32, device=device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.layer_norm(x.float(), self.weight.shape, self.weight,
-                            self.bias, self.eps).to(x.dtype)
+        return layer_norm(x, self.weight, self.bias, self.eps)
 
 
 class Attention(nn.Module):
