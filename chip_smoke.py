@@ -281,6 +281,17 @@ widths, random weights from seed 0; `--xattn` runs it alone):
   xattn_chain  the graphed guided DDIM-50 chain (guidance 7.5, 8 rows a
            step) bitwise against the eager chain, 16 cross- and 16
            self-attention and 48 LayerNorm launches a replay of its step.
+FLUX.1 Fill [dev]'s transformer (`models/flux.py`, published widths,
+random weights from seed 0; `--flux` runs it alone):
+  flux_flash  the flash forward at the joint attention's [24,4608,128]
+           (route "mma", 57 calls a step) against its plain version; two
+           calls bitwise; times as in `kernel`, SDPA as the library
+           yardstick, beside its bound;
+  flux_chain  the graphed Fill Euler chain on the shifted sigma grid
+           bitwise against the eager chain, at 1 + 2 blocks (4 steps) and
+           at the whole 19 + 38 (2 steps), and a second graphed chain with
+           the launch counters reset before it: no launch from Python, 3
+           and 57 flash forwards a replay.
 Then the kernel table line (`launches`: the wrappers' calls on the paths,
 a graphed chain's at its warm-up and capture; `replayed_launches`: the
 launches replayed from graphs), the nvidia-smi line, and last
@@ -290,11 +301,11 @@ Needs one CUDA card; imports nothing of JAX.
     python3 chip_smoke.py --kernels
 
 builds the kernels and runs only the kernels' cases of the `kernel`,
-`resblock_kernel`, `flash_kernel`, `gn_backward`, `xattn` and `xattn_gn`
-phases, at the shapes the paths give them (`ATTN_PATH_SHAPES`,
+`resblock_kernel`, `flash_kernel`, `gn_backward`, `xattn`, `xattn_gn` and
+`flux_flash` phases, at the shapes the paths give them (`ATTN_PATH_SHAPES`,
 `GN_PATH_SHAPES`, `RES_PATH_SHAPES`, `FLASH_PATH_SHAPES`, checked against
 the models' own calls in the full run; `XATTN_PATH_SHAPES`; the SD2
-UNet's own GroupNorm calls;
+UNet's own GroupNorm calls; `FLUX_FLASH_SHAPE`);
 a quick check while working on a kernel; it does not print the ok line).
 
     python3 chip_smoke.py --data-parallel
@@ -4867,6 +4878,150 @@ def xattn_phase(torch, F, card_info, dev, chain=True):
     torch.cuda.empty_cache()
 
 
+# --- FLUX.1 Fill [dev]'s transformer (models/flux.py) ----------------------
+
+FLUX_CONFIG = "benchmark/configs/flux1-fill-dev.json"
+FLUX_TEXT = 512            # T5 tokens a request
+FLUX_HW = (64, 64)         # image tokens: a 1024^2 image's 128^2 latent, 2x2
+FLUX_GUIDANCE = 30.0
+# the joint attention of every block at one row: [BH, T, d], route "mma"
+FLUX_FLASH_SHAPE = (24, FLUX_TEXT + FLUX_HW[0] * FLUX_HW[1], 128)
+# the graphed chains: ((double, single) blocks, Euler steps); one period of
+# the 1:2 pattern, then the whole model (57 flash calls a step)
+FLUX_CHAINS = (((1, 2), 4), ((19, 38), 2))
+
+
+def flux_phase(torch, F, card_info, dev, chain=True):
+    """The flash forward at the joint attention's shape against its plain
+    version, two calls bitwise, its time beside the plain version's, SDPA's
+    and its bound (`benchmark/counts/bounds.py:flash_fwd`); with `chain`,
+    the Fill Euler chain on the shifted grid (`sampling/ode.py`) at the
+    published widths, graphed against eager bitwise, at each depth of
+    FLUX_CHAINS, and the launches of a second graphed chain, read with the
+    counters reset before it: one flash forward a block each replay."""
+    from benchmark.counts.bounds import flash_fwd as flash_fwd_bound
+    from tpu_diffusion_torch.kernels import REPLAYED, attention
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    bh, t, d = FLUX_FLASH_SHAPE
+    per_step = sum(FLUX_CHAINS[-1][0])
+    q, k, v = (torch.randn((bh, t, d), generator=gen, device=dev).bfloat16()
+               for _ in range(3))
+    route = attention.flash_fwd_route(bh, t, d, torch.bfloat16)
+    check(route == "mma", f"FLUX flash forward route {route}")
+    before = attention.flash_fwd_launches
+    o, lse = attention.flash_attention_fwd(q, k, v)
+    o2, lse2 = attention.flash_attention_fwd(q, k, v)
+    want_o, want_lse = attention.flash_attention_fwd_ref(q, k, v)
+    torch.cuda.synchronize()
+    check(attention.flash_fwd_launches == before + 2,
+          "flash_attention_fwd did not count its launches")
+    tol = flash_o_tol("bfloat16", want_o)
+    err_o = (o.float() - want_o.float()).abs().max().item()
+    err_lse = (lse - want_lse).abs().max().item()
+    check(math.isfinite(err_o) and err_o <= tol and err_lse <= 1e-4,
+          f"FLUX flash forward: o err {err_o} > {tol} or lse err {err_lse}")
+    same = torch.equal(o, o2) and torch.equal(lse, lse2)
+    check(same, "FLUX flash forward: two calls differ")
+    q4, k4, v4 = (x.view(1, bh, t, d) for x in (q, k, v))
+    times = measure(lambda: attention.flash_attention_fwd(q, k, v),
+                    lambda: attention.flash_attention_fwd_ref(q, k, v),
+                    lambda: F.scaled_dot_product_attention(q4, k4, v4))
+    bound = flash_fwd_bound(bh, t, d) * 1e3
+    emit(card_info, phase="flux_flash", kernel="flash_attention_fwd",
+         shape=[bh, t, d], route=route, count_per_step=per_step,
+         max_abs_err=err_o, max_abs_err_lse=err_lse, tol=tol,
+         two_calls_bitwise_equal=same, bound_ms=bound,
+         roofline_pct=100 * bound / times["ms"],
+         step_ms=per_step * times["ms"], **times)
+    del q, k, v, q4, k4, v4, o, o2, lse, lse2, want_o, want_lse
+    torch.cuda.empty_cache()
+    if not chain:
+        return
+
+    from benchmark.reference.flux import load_weights
+    from tpu_diffusion_torch.models.flux import (create_flux, pack_latents,
+                                                 pack_mask)
+    from tpu_diffusion_torch.sampling.graph import GraphCache
+    from tpu_diffusion_torch.sampling.ode import (amortized_velocity,
+                                                  odeint_euler,
+                                                  shifted_sigmas)
+    with open(FLUX_CONFIG) as f:
+        cfg = json.load(f)
+    m, sc = cfg["model"], cfg["scheduler"]
+    lat = (1, 16, 2 * FLUX_HW[0], 2 * FLUX_HW[1])
+    x0 = pack_latents(torch.randn(lat, generator=gen, device=dev))
+    mask = torch.zeros((1, 1, 16 * FLUX_HW[0], 16 * FLUX_HW[1]), device=dev)
+    mask[..., 200:700, 300:900] = 1.0
+    cond = torch.cat([pack_latents(torch.randn(lat, generator=gen,
+                                               device=dev)),
+                      pack_mask(mask)], dim=-1)
+    ctx = torch.randn((1, FLUX_TEXT, m["joint_attention_dim"]),
+                      generator=gen, device=dev)
+    pooled = torch.randn((1, m["pooled_projection_dim"]), generator=gen,
+                         device=dev)
+    for (double, single), steps in FLUX_CHAINS:
+        sizes = dict(m, num_layers=double, num_single_layers=single)
+        model = create_flux(dtype=torch.bfloat16, device=dev, **sizes)
+        load_weights(model, sizes, SEED, dev)
+        model.eval().requires_grad_(False)
+        vf = amortized_velocity(
+            model.velocity(FLUX_GUIDANCE, ctx, pooled, FLUX_HW), cond)
+        grid = shifted_sigmas(
+            steps, FLUX_HW[0] * FLUX_HW[1],
+            base_image_seq_len=sc["base_image_seq_len"],
+            max_image_seq_len=sc["max_image_seq_len"],
+            base_shift=sc["base_shift"], max_shift=sc["max_shift"]).to(
+                dev, torch.float32)
+        t0 = time.perf_counter()
+        want = odeint_euler(vf, x0, grid=grid)[0]
+        torch.cuda.synchronize()
+        eager_s = time.perf_counter() - t0
+        graphs = GraphCache(model)
+        got = odeint_euler(vf, x0, graphs=graphs, grid=grid)[0]  # captures
+        torch.cuda.synchronize()
+        check(torch.isfinite(got).all().item(), "FLUX chain: not finite")
+        check(torch.equal(got, want), f"FLUX {double}+{single} blocks: the "
+              f"graphed chain differs from eager: "
+              f"{(got - want).abs().max().item()}")
+        # a chain of its own, with the counters reset: no launch from
+        # Python, one flash forward a block each replay
+        attention.flash_fwd_launches = 0
+        replayed = REPLAYED.get("flash_attention_fwd", 0)
+        t0 = time.perf_counter()
+        again = odeint_euler(vf, x0, graphs=graphs, grid=grid)[0]
+        torch.cuda.synchronize()
+        graphed_s = time.perf_counter() - t0
+        replayed = REPLAYED.get("flash_attention_fwd", 0) - replayed
+        chain_ = next(iter(graphs.chains.values()))
+        launches = {name: n for name, n in
+                    next(iter(chain_.launches.values())).items() if n}
+        check(torch.equal(again, want), "FLUX: a second graphed chain "
+              "differs from eager")
+        check(launches == {"flash_attention_fwd": double + single}
+              and attention.flash_fwd_launches == 0
+              and replayed == steps * (double + single)
+              and graphs.captures == 1,
+              f"FLUX {double}+{single} blocks: launches a replay "
+              f"{launches}, from Python {attention.flash_fwd_launches}, "
+              f"replayed {replayed} in {steps} steps, captures "
+              f"{graphs.captures}")
+        routes = sorted({f"{dd['kind']} {dd['route']} "
+                         f"[{dd['bh']},{dd['t']},{dd['d']}]"
+                         for dd in model.attn_decisions.values()})
+        check(routes == [f"{kind} mma [{bh},{t},{d}]" for kind in
+                         ("double", "single")], f"FLUX routes {routes}")
+        emit(card_info, phase="flux_chain", blocks=[double, single],
+             steps=steps, bitwise_equal=True, launches_per_replay=launches,
+             replayed_launches=replayed, attention=routes, eager_s=eager_s,
+             graphed_s=graphed_s, graphed_step_ms=1e3 * graphed_s / steps,
+             capture_s=sum(chain_.capture_s.values()),
+             pool_bytes=sum(chain_.pool_bytes.values()),
+             max_abs_latent=got.abs().max().item(),
+             memory_peak_bytes=torch.cuda.max_memory_allocated(dev))
+        del model, graphs, chain_, vf, want, got, again
+        torch.cuda.empty_cache()
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4921,6 +5076,12 @@ def main():
                                      "GroupNorm shapes and its graphed "
                                      "chain only"}), flush=True)
         return 0
+    if sys.argv[1:] == ["--flux"]:
+        flux_phase(torch, F, card_info, dev)
+        print(json.dumps({"partial": "--flux: the FLUX flash forward and "
+                                     "its graphed chains only"}),
+              flush=True)
+        return 0
     if sys.argv[1:] == ["--kernels"]:
         kernel_phase(torch, F, card_info, ATTN_PATH_SHAPES, GN_PATH_SHAPES)
         resblock_phase(torch, card_info, RES_PATH_SHAPES, unet, dev)
@@ -4928,6 +5089,7 @@ def main():
         gn_backward_phase(torch, F, card_info)
         adam_phase(torch, card_info)
         xattn_phase(torch, F, card_info, dev, chain=False)
+        flux_phase(torch, F, card_info, dev, chain=False)
         print(json.dumps({"partial": "--kernels: the kernels' cases only"}),
               flush=True)
         return 0
@@ -5079,6 +5241,8 @@ def main():
             counts[name] += n
         # --- the SD2-inpainting UNet: cross-attention, its graphed chain ---
         xattn_phase(torch, F, card_info, dev)
+        # --- FLUX.1 Fill [dev]: the d = 128 flash forward, its chains -----
+        flux_phase(torch, F, card_info, dev)
     finally:
         shutil.rmtree(out, ignore_errors=True)
     counts["fused_groupnorm_silu_bwd"] = groupnorm.backward_launches

@@ -54,7 +54,7 @@ def test_port_has_modules():
                    "parallel/distributed.py", "parallel/tp.py",
                    "parallel/sp.py", "parallel/dryrun.py",
                    "sampling/graph.py", "utils/graphs.py",
-                   "kernels/layernorm.py"):
+                   "kernels/layernorm.py", "models/flux.py"):
         assert f"tpu_diffusion_torch/{module}" in names
     assert (ROOT / "tpu_diffusion_torch" / "native" / "novelty.cpp").exists()
 

@@ -24,7 +24,8 @@ MODULES = {"train.trainer": ABOVE_TRAINING, "train.graph": ABOVE_TRAINING,
            "kernels.groupnorm": ABOVE_MODELS,
            "kernels.resblock": ABOVE_MODELS, "kernels.adam": ABOVE_MODELS,
            "kernels.layernorm": ABOVE_MODELS,
-           "models.unet": ABOVE_MODELS, "models.ldm_unet": ABOVE_MODELS}
+           "models.unet": ABOVE_MODELS, "models.ldm_unet": ABOVE_MODELS,
+           "models.flux": ABOVE_MODELS}
 KERNELS = ["flash_attention_fused", "flash_attention_fwd",
            "flash_attention_bwd", "flash_cross_attention",
            "fused_groupnorm_silu", "fused_groupnorm_silu_bwd",

@@ -3,7 +3,9 @@
 Counterpart of `tpu_diffusion/sampling/ode.py` (the reference's torchdyn
 `NeuralODE` and `torchdiffeq.odeint` dopri5 loops):
 
-  * fixed-step Euler / Midpoint / Heun(2) / RK4 over a time grid; given a
+  * fixed-step Euler / Midpoint / Heun(2) / RK4 over a time grid, linspace
+    from t0 to t1 or a given one (`grid=`: FLUX's shifted sigmas,
+    `shifted_sigmas`, from 1 down to 0); given a
     `sampling/graph.py:GraphCache` (`graphs=`) the step is captured once as
     a CUDA graph and replayed on a CUDA tensor, the grid's times read from
     a device table at the chain's counter (the same bodies in a Python loop
@@ -17,8 +19,9 @@ Counterpart of `tpu_diffusion/sampling/ode.py` (the reference's torchdyn
     captured one-trip body and reads `done` on the host after each replay,
     as the eager loop reads it after each trip (`_graphed_dopri5`).
 
-Velocity signature: `v(t, x) -> dx/dt` with `t` a 0-d tensor on x's device.
-Every integrator returns `(x1, nfe)`, nfe a Python int.
+Velocity signature: `v(t, x) -> dx/dt` with `t` a 0-d tensor on x's device
+(`amortized_velocity` concatenates a condition to x first). Every
+integrator returns `(x1, nfe)`, nfe a Python int.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ from __future__ import annotations
 import math
 from typing import Callable, Optional, Tuple
 
+import numpy as np
 import torch
 
 from tpu_diffusion_torch.sampling.graph import GraphCache, row_at, scan
@@ -35,6 +39,33 @@ VField = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
 
 def _time_grid(num_steps: int, t0: float, t1: float, device) -> torch.Tensor:
     return torch.linspace(t0, t1, num_steps + 1, device=device)
+
+
+def shifted_sigmas(num_steps: int, image_tokens: int, *,
+                   base_image_seq_len: int, max_image_seq_len: int,
+                   base_shift: float, max_shift: float) -> torch.Tensor:
+    """The sigma grid of diffusers' `FlowMatchEulerDiscreteScheduler` with
+    dynamic shifting, as FLUX's pipelines set it (float64, num_steps + 1
+    values from 1 down to 0): s = linspace(1, 1/num_steps, num_steps),
+    shifted to e^mu / (e^mu + 1/s - 1) with mu linear in the image's token
+    count between (base_image_seq_len, base_shift) and (max_image_seq_len,
+    max_shift), then 0 appended. The keywords are the scheduler config's."""
+    m = (max_shift - base_shift) / (max_image_seq_len - base_image_seq_len)
+    e = math.exp(base_shift + m * (image_tokens - base_image_seq_len))
+    # diffusers' np.linspace: torch.linspace's float64 values differ from
+    # it in the last bit
+    s = torch.from_numpy(np.linspace(1.0, 1.0 / num_steps, num_steps))
+    return torch.cat([e / (e + (1.0 / s - 1.0)), s.new_zeros(1)])
+
+
+def amortized_velocity(v: VField, condition: torch.Tensor) -> VField:
+    """`sampling/ancestral.py:amortized_eps_fn`'s rule for a velocity:
+    the condition concatenated to x as extra channels (last axis) before
+    the model. `condition` is read at each call, so a caller may overwrite
+    it in place between chains."""
+    def fn(t: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+        return v(t, torch.cat([x, condition], dim=-1))
+    return fn
 
 
 def _euler_step(v: VField, t, tn, x):
@@ -65,21 +96,26 @@ def _rk4_step(v: VField, t, tn, x):
 
 def _fixed_step(step, nfe_per_step: int, v: VField, x0: torch.Tensor,
                 num_steps: int, t0: float, t1: float,
-                graphs: Optional[GraphCache]) -> Tuple[torch.Tensor, int]:
-    """`num_steps` steps of `step(v, t_k, t_k+1, x)` over the grid: a Python
-    loop, or with `graphs` the graphed chain (t_k and t_k+1 read from the
-    grid at the chain's counter)."""
-    ts = _time_grid(num_steps, t0, t1, x0.device)
+                graphs: Optional[GraphCache],
+                grid=None) -> Tuple[torch.Tensor, int]:
+    """`num_steps` steps of `step(v, t_k, t_k+1, x)` over the grid (linspace
+    from t0 to t1, or `grid`'s len(grid) - 1 steps): a Python loop, or with
+    `graphs` the graphed chain (t_k and t_k+1 read at the chain's counter
+    from the grid, one of the chain's inputs, copied in before each chain:
+    one capture serves every grid of its length)."""
+    ts = (_time_grid(num_steps, t0, t1, x0.device) if grid is None else
+          torch.as_tensor(grid, dtype=torch.float32, device=x0.device))
+    num_steps = ts.numel() - 1
     if graphs is not None:
         def make_step(buf):
-            grid, grid_next = ts[:-1].contiguous(), ts[1:].contiguous()
-
             def body(scratch, x, t, j, sig, noise):
-                return step(v, row_at(grid, t), row_at(grid_next, t), x)
+                return step(v, row_at(buf["grid"], t),
+                            row_at(buf["grid_next"], t), x)
             return body
 
-        x = scan(graphs, (step, num_steps, t0, t1), v, x0,
-                 [[k] for k in range(num_steps)], make_step)
+        x = scan(graphs, (step, num_steps), v, x0,
+                 [[k] for k in range(num_steps)], make_step,
+                 inputs={"grid": ts[:-1], "grid_next": ts[1:]})
         return x, nfe_per_step * num_steps
     x = x0
     for k in range(num_steps):
@@ -89,30 +125,34 @@ def _fixed_step(step, nfe_per_step: int, v: VField, x0: torch.Tensor,
 
 def odeint_euler(v: VField, x0: torch.Tensor, num_steps: int = 100,
                  t0: float = 0.0, t1: float = 1.0, *,
-                 graphs: Optional[GraphCache] = None
+                 graphs: Optional[GraphCache] = None, grid=None
                  ) -> Tuple[torch.Tensor, int]:
-    return _fixed_step(_euler_step, 1, v, x0, num_steps, t0, t1, graphs)
+    return _fixed_step(_euler_step, 1, v, x0, num_steps, t0, t1, graphs,
+                       grid)
 
 
 def odeint_midpoint(v: VField, x0: torch.Tensor, num_steps: int = 50,
                     t0: float = 0.0, t1: float = 1.0, *,
-                    graphs: Optional[GraphCache] = None
+                    graphs: Optional[GraphCache] = None, grid=None
                     ) -> Tuple[torch.Tensor, int]:
-    return _fixed_step(_midpoint_step, 2, v, x0, num_steps, t0, t1, graphs)
+    return _fixed_step(_midpoint_step, 2, v, x0, num_steps, t0, t1, graphs,
+                       grid)
 
 
 def odeint_heun(v: VField, x0: torch.Tensor, num_steps: int = 50,
                 t0: float = 0.0, t1: float = 1.0, *,
-                graphs: Optional[GraphCache] = None
+                graphs: Optional[GraphCache] = None, grid=None
                 ) -> Tuple[torch.Tensor, int]:
-    return _fixed_step(_heun_step, 2, v, x0, num_steps, t0, t1, graphs)
+    return _fixed_step(_heun_step, 2, v, x0, num_steps, t0, t1, graphs,
+                       grid)
 
 
 def odeint_rk4(v: VField, x0: torch.Tensor, num_steps: int = 25,
                t0: float = 0.0, t1: float = 1.0, *,
-               graphs: Optional[GraphCache] = None
+               graphs: Optional[GraphCache] = None, grid=None
                ) -> Tuple[torch.Tensor, int]:
-    return _fixed_step(_rk4_step, 4, v, x0, num_steps, t0, t1, graphs)
+    return _fixed_step(_rk4_step, 4, v, x0, num_steps, t0, t1, graphs,
+                       grid)
 
 
 # ---------------------------------------------------------------------------
